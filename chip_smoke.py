@@ -29,6 +29,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bound (bytes it must move / 3.35 TB/s, the H100's memory rate) and
    `scaled_dot_product_attention` over the pre-gathered dense view (a
    library yardstick, timed here only; the port never calls it).
+6. Where a greedy batch-8 paged decode step's time goes (torch.profiler).
+7. The flash-attention kernel against its plain version: the reference's
+   five test shapes, qwen3-1.7b's prefill (B=1, S=256, 16/8 heads, hd 128)
+   and recurrentgemma-9b's (B=1, S=2560, 16/1 heads, hd 256, window
+   2048); f32 (TF32 off) at 2e-5, bf16 at 2e-2.
+8. The RG-LRU scan kernel against its plain version: the reference's three
+   test shapes and recurrentgemma-9b's (1, 2560, 4096); f32 at 1e-4, bf16
+   inputs at 5e-2.
+9. Serving on the dense layout: `ServeEngine(kv_layout="dense",
+   prefill_mode="bulk", batch_slots=8, cache_len=512)` on qwen3-1.7b with
+   attention_impl="pallas", bf16, phase 3's weights and requests. The
+   flash kernel must launch 28 x the bulk prefills and the paged kernel
+   not at all. Then, in f32, the same engine with "pallas" against "xla"
+   in lockstep: prefill and decode logits within 1e-3, a greedy token may
+   differ only where the "xla" run's top-2 gap is below that.
+10. Serving recurrentgemma-9b at full width (38 layers, d_model 4096, 16/1
+   heads, hd 256, lru width 4096, vocab 256000) on the dense layout in
+   bf16 with attention_impl="pallas": `batch_slots=4, cache_len=2048`, six
+   prompts of 64-512 tokens and one of 2560 (past the 2048 window: the
+   ring wraps), 16 new tokens each, one sampled. The scan kernel must
+   launch 26 x and the flash kernel 12 x the bulk prefills. Then the f32
+   check of "pallas" against "xla" at full width, depth cut to one block
+   plus the tail (r, r, a, r, r: 5 layers), as in phase 9.
+11. Timings of the new kernels at their main-path shapes: kernel, plain
+   version, bound (the larger of bytes / 3.35 TB/s and flops / 989 TFLOP/s,
+   the H100's dense bf16 tensor rate, for flash; bytes for the scan) and,
+   for flash, `scaled_dot_product_attention` (causal with GQA, or an
+   explicit window mask; timed here only, the port never calls it).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; above it
 stand the card's name and power limit and one JSON line with each
@@ -50,7 +78,22 @@ SRC = ROOT / "src"
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_FLOPS = 67e12                  # H100 SXM f32, outside the tensor cores
+BF16_TENSOR_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# flash attention: the reference's kernel test shapes (tests/test_kernels.py
+# FA_CASES, Sq = Sk) and the two main paths': B, S, nh, nkv, hd, window
+FLASH_CASES = [
+    (2, 64, 4, 2, 32, None),
+    (1, 128, 8, 1, 64, 32),
+    (2, 32, 4, 4, 64, None),
+    (1, 40, 2, 2, 16, None),
+    (1, 64, 6, 2, 32, 16),
+    (1, 256, 16, 8, 128, None),         # qwen3-1.7b prefill
+    (1, 2560, 16, 1, 256, 2048),        # recurrentgemma-9b prefill
+]
+# RG-LRU scan: the reference's (RGLRU_CASES) and recurrentgemma-9b's: B, S, C
+SCAN_CASES = [(2, 32, 64), (1, 100, 130), (2, 16, 16), (1, 2560, 4096)]
 LOGIT_TOL = 1e-3
 # the reference's kernel test shapes (tests/test_paged_attention_kernel.py)
 # and the main path's: B, nb, bs, nkv, rep, hd, tokens resident per slot
@@ -156,6 +199,73 @@ def check_kernel(device) -> dict:
     return errs
 
 
+def flash_inputs(B, S, nh, nkv, hd, dtype, device, seed=SEED):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=device).to(dtype)
+                 for shape in ((B, S, nh, hd), (B, S, nkv, hd),
+                               (B, S, nkv, hd)))
+
+
+def check_flash(device) -> dict:
+    """Phase 7. Returns the largest error per dtype at recurrentgemma's
+    shape (the last case)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FLASH_CASES:
+            B, S, nh, nkv, hd, window = case
+            q, k, v = flash_inputs(B, S, nh, nkv, hd, dtype, device)
+            out = flash_attention(q, k, v, window=window)
+            torch.cuda.synchronize()
+            ref = attention_ref(q, k, v, window=window).float()
+            diff = (out.float() - ref).abs()
+            err, tol = diff.max().item(), TOL[dtype]
+            bad = (diff > tol + tol * ref.abs()).sum().item()
+            if bad or not torch.isfinite(out).all():
+                raise AssertionError(f"flash kernel vs plain {dtype} {case}:"
+                                     f" max err {err} (tol {tol}), {bad} "
+                                     "elements out of tolerance")
+            log(f"  flash {str(dtype):14s} B={B} S={S} nh={nh} nkv={nkv} "
+                f"hd={hd} window={window}: max abs err {err:.3g} "
+                f"(tol {tol})")
+            errs[dtype] = err
+    return errs
+
+
+def scan_inputs(B, S, C, dtype, device, seed=SEED):
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.sigmoid(torch.randn((B, S, C), generator=g, device=device))
+    b = torch.randn((B, S, C), generator=g, device=device)
+    return a.to(dtype), b.to(dtype)
+
+
+def check_scan(device) -> dict:
+    """Phase 8. Returns the largest error per dtype at recurrentgemma's
+    shape (the last case)."""
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.rglru_scan.ref import rglru_ref
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in SCAN_CASES:
+            a, b = scan_inputs(*case, dtype, device)
+            y, h = rglru_scan(a, b)
+            torch.cuda.synchronize()
+            ref = rglru_ref(a, b)
+            diff = (y - ref).abs()
+            err, tol = diff.max().item(), SCAN_TOL[dtype]
+            bad = (diff > tol + tol * ref.abs()).sum().item()
+            if bad or not torch.equal(h, y[:, -1]) \
+                    or not torch.isfinite(y).all():
+                raise AssertionError(f"scan kernel vs plain {dtype} {case}: "
+                                     f"max err {err} (tol {tol}), {bad} "
+                                     "elements out of tolerance")
+            log(f"  rglru_scan {str(dtype):14s} B,S,C={case}: max abs err "
+                f"{err:.3g} (tol {tol})")
+            errs[dtype] = err
+    return errs
+
+
 def time_cuda(fn, iters=200, warmup=20) -> float:
     """Mean ms per call from CUDA events around `iters` calls."""
     for _ in range(warmup):
@@ -222,6 +332,79 @@ def time_kernel(device) -> dict:
             "bytes": bytes_, "flops": flops}
 
 
+def cycle(sets):
+    """A function returning the next of `sets` on each call."""
+    it = [0]
+
+    def nxt():
+        it[0] = (it[0] + 1) % len(sets)
+        return sets[it[0]]
+    return nxt
+
+
+def time_flash(device, case) -> dict:
+    """Phase 11 (flash): one main-path shape in bf16. Three input sets
+    (133 MB at recurrentgemma's shape, above the 50 MB L2) are cycled."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    B, S, nh, nkv, hd, window = case
+    sets = [flash_inputs(B, S, nh, nkv, hd, torch.bfloat16, device,
+                         seed=SEED + i) for i in range(3)]
+    nxt = cycle(sets)
+    kernel_ms = time_cuda(lambda: flash_attention(*nxt(), window=window),
+                          iters=50, warmup=5)
+    plain_ms = time_cuda(lambda: attention_ref(*nxt(), window=window),
+                         iters=5, warmup=1)
+    # library yardstick: SDPA in its (B, heads, S, hd) layout, transposed
+    # beforehand (not timed); the window as an explicit boolean mask
+    pos = torch.arange(S, device=device)
+    visible = pos[None, :] <= pos[:, None]
+    if window is not None:
+        visible &= pos[None, :] > pos[:, None] - window
+    nxt_t = cycle([tuple(t.transpose(1, 2).contiguous() for t in s)
+                   for s in sets])
+    if window is None:
+        library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+            *nxt_t(), is_causal=True, enable_gqa=True), iters=50, warmup=5)
+    else:
+        library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+            *nxt_t(), attn_mask=visible, enable_gqa=True), iters=50,
+            warmup=5)
+    pairs = int(visible.sum())
+    flops = 4 * hd * nh * pairs * B
+    bytes_ = sum(t.numel() for t in sets[0]) * 2 + B * S * nh * hd * 2
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": bytes_, "flops": flops, "pairs": pairs}
+
+
+def time_scan(device) -> dict:
+    """Phase 11 (scan): recurrentgemma's shape (1, 2560, 4096) with f32
+    inputs, as the model's gates give them; three input sets (377 MB) are
+    cycled."""
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.rglru_scan.ref import rglru_ref
+    case = SCAN_CASES[-1]
+    sets = [scan_inputs(*case, torch.float32, device, seed=SEED + i)
+            for i in range(3)]
+    nxt = cycle(sets)
+    kernel_ms = time_cuda(lambda: rglru_scan(*nxt()), iters=50, warmup=5)
+    plain_ms = time_cuda(lambda: rglru_ref(*nxt()), iters=3, warmup=1)
+    B, S, C = case
+    bytes_ = 3 * B * S * C * 4               # a, b read; y written
+    flops = 2 * B * S * C
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS * 1e3
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": bytes_, "flops": flops}
+
+
 # ----------------------------------------------------------------- serving
 
 def full_config(dtype: str):
@@ -233,6 +416,14 @@ def make_model(cfg, device, seed=SEED):
     from repro_torch.models import transformer as T
     gen = torch.Generator(device=device).manual_seed(seed)
     return T.init_lm(gen, cfg)
+
+
+def numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(numel(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(numel(v) for v in tree)
+    return tree.numel()
 
 
 def make_requests(cfg, n=10, new_tokens=32, seed=SEED):
@@ -264,16 +455,21 @@ def make_engine(params, cfg, device, decode_kernel, batch_slots=8):
 def serve(engine, requests) -> dict:
     """Phase 3's main path: admit, prefill, decode to the end. Returns what
     the checks and the timings need."""
-    from repro_torch.kernels.paged_attention.ops import paged_attention
     reqs = [engine.submit(p, max_new_tokens=n, sampling=s)
             for p, s, n in requests]
+    fns = counters()
     if engine.device.type == "cuda":
         torch.cuda.synchronize()
-    paged_attention.launches = 0
+    for fn in fns.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     engine.run()
     wall = time.perf_counter() - t0
-    launches = paged_attention.launches
+    launches = fns["paged_attention"].launches
+    others = {k: fn.launches for k, fn in fns.items() if fn.launches
+              and k != "paged_attention"}
+    if others:
+        raise AssertionError(f"the paged path launched {others}")
     cfg = engine.cfg
     for r, (p, _, n) in zip(reqs, requests):
         if r.error is not None or not r.done or len(r.output) != n:
@@ -304,71 +500,238 @@ def serve(engine, requests) -> dict:
 
 
 def record_logits(engine) -> list:
-    """Make the engine's greedy decode keep every step's logits (for the
-    oracle comparison); returns the list it appends (B, V) f32 copies to."""
-    from repro_torch.serve.step import build_decode_paged
+    """Make the engine's greedy prefill and decode keep their logits (for
+    the NaN checks and the lockstep comparisons): each call appends
+    (kind, {request_id: (V,) f32 logits}) for the requests it serves, the
+    live slots of a decode step or the slot being prefilled. The greedy
+    token is the argmax of the same logits, as in the engine's own greedy
+    closures. Returns the list."""
     rec = []
-    lg = build_decode_paged(engine.cfg, return_logits=True,
-                            kernel=engine.decode_kernel)
 
-    def decode_tok(params, tokens, pos, cache, table):
-        logits, cache = lg(params, tokens, pos, cache, table)
-        rec.append(logits.float().clone())
-        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+    def wrap(kind, logits_fn):
+        def tok_fn(*args):
+            logits, cache = logits_fn(*args)
+            live = [s for s in range(engine.slots)
+                    if engine.active[s] is not None]
+            if kind == "prefill":     # the admitted slot has no token yet
+                rows = {engine.active[s].request_id:
+                        logits.reshape(-1, logits.shape[-1])[0]
+                        for s in live if not engine.active[s].output}
+            else:
+                rows = {engine.active[s].request_id: logits[s] for s in live}
+            rec.append((kind, {r: x.float().clone() for r, x in rows.items()}))
+            return torch.argmax(logits, dim=-1).to(torch.int32), cache
+        return tok_fn
 
-    engine._decode_tok = decode_tok
+    engine._decode_tok = wrap("decode", engine._decode_lg)
+    engine._prefill_tok = wrap("prefill", engine._prefill_lg)
     return rec
+
+
+def all_finite(rec) -> bool:
+    return bool(rec) and all(bool(torch.isfinite(x).all())
+                             for _, rows in rec for x in rows.values())
+
+
+def compare_runs(rec_a, rec_b) -> dict:
+    """Two greedy runs of the same traffic in lockstep (same admissions,
+    same budgets, so call t of one is call t of the other), `rec_b` the
+    oracle: every logits row within LOGIT_TOL, and a greedy token may
+    differ only where the oracle's top-2 gap is below LOGIT_TOL (that
+    request is compared no further)."""
+    if len(rec_a) != len(rec_b):
+        raise AssertionError("the two engines ran different step counts")
+    max_diff = {"prefill": 0.0, "decode": 0.0}
+    diverged, last = {}, 0.0
+    for t, ((kind, ra), (kind_b, rb)) in enumerate(zip(rec_a, rec_b)):
+        if kind != kind_b or set(ra) != set(rb):
+            raise AssertionError(f"call {t}: the runs left lockstep")
+        last = 0.0
+        for rid, a in ra.items():
+            b = rb[rid]
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"non-finite {kind} logits at call {t}")
+            if rid in diverged:
+                continue
+            d = (a - b).abs().max().item()
+            max_diff[kind] = max(max_diff[kind], d)
+            last = max(last, d)
+            if d > LOGIT_TOL:
+                raise AssertionError(f"call {t} ({kind}) request {rid}: "
+                                     f"logits differ by {d} > {LOGIT_TOL}")
+            if a.argmax() != b.argmax():
+                top2 = torch.topk(b, 2).values
+                gap = (top2[0] - top2[1]).item()
+                if gap >= LOGIT_TOL:
+                    raise AssertionError(f"call {t} request {rid}: greedy "
+                                         "tokens differ with oracle top-2 "
+                                         f"gap {gap}")
+                diverged[rid] = (t, gap)
+    return {"calls": len(rec_a),
+            "steps": sum(k == "decode" for k, _ in rec_a),
+            "max_abs_logit_diff": max(max_diff.values()),
+            "max_abs_prefill_logit_diff": max_diff["prefill"],
+            "max_abs_decode_logit_diff": max_diff["decode"],
+            "last_step_max_abs_logit_diff": last,
+            "diverged_requests": {str(k): v for k, v in diverged.items()}}
+
+
+def lockstep(engines, requests) -> dict:
+    """Serve the same greedy `requests` through each of `engines` (the
+    last is the oracle) with their logits recorded, and compare."""
+    recs, outs = [], []
+    for eng in engines:
+        recs.append(record_logits(eng))
+        reqs = [eng.submit(p, max_new_tokens=n) for p, _, n in requests]
+        eng.run()
+        outs.append([r.output for r in reqs])
+    out = compare_runs(*recs)
+    out["identical_outputs"] = outs[0] == outs[1]
+    return out
 
 
 def compare_to_oracle(params, cfg, device, requests) -> dict:
     """Phase 4: the same greedy traffic through decode_kernel="cuda" and
-    "reference" in lockstep (same admissions, same budgets, so step t of
-    one is step t of the other)."""
-    recs, outs = {}, {}
-    for kernel in ("cuda", "reference"):
-        eng = make_engine(params, cfg, device, kernel)
-        recs[kernel] = record_logits(eng)
-        reqs = [eng.submit(p, max_new_tokens=n) for p, _, n in requests]
-        eng.run()
-        outs[kernel] = [r.output for r in reqs]
-        del eng
-    if len(recs["cuda"]) != len(recs["reference"]):
-        raise AssertionError("the two engines ran different step counts")
-    max_diff, diverged, last = 0.0, {}, 0.0
-    for t, (a, b) in enumerate(zip(recs["cuda"], recs["reference"])):
-        live = [s for s in range(a.shape[0]) if s not in diverged]
-        diff = (a[live] - b[live]).abs().amax(dim=-1)
-        if not torch.isfinite(a).all():
-            raise AssertionError(f"non-finite logits at decode step {t}")
-        max_diff = max(max_diff, diff.max().item())
-        last = diff.max().item()
-        if diff.max().item() > LOGIT_TOL:
-            raise AssertionError(f"step {t}: logits differ by "
-                                 f"{diff.max().item()} > {LOGIT_TOL}")
-        ta, tb = a.argmax(-1), b.argmax(-1)
-        for s in live:
-            if ta[s] != tb[s]:
-                top2 = torch.topk(b[s], 2).values
-                gap = (top2[0] - top2[1]).item()
-                if gap >= LOGIT_TOL:
-                    raise AssertionError(f"step {t} slot {s}: greedy tokens "
-                                         f"differ with oracle top-2 gap {gap}")
-                diverged[s] = (t, gap)
-    return {"steps": len(recs["cuda"]), "max_abs_logit_diff": max_diff,
-            "last_step_max_abs_logit_diff": last,
-            "diverged_slots": {str(k): v for k, v in diverged.items()},
-            "identical_outputs": outs["cuda"] == outs["reference"]}
+    "reference" in lockstep."""
+    return lockstep([make_engine(params, cfg, device, kernel)
+                     for kernel in ("cuda", "reference")], requests)
+
+
+# ------------------------------------------------------ dense-layout serving
+
+def counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    return {"paged_attention": paged_attention,
+            "flash_attention": flash_attention, "rglru_scan": rglru_scan}
+
+
+def make_dense_engine(params, cfg, device, batch_slots, cache_len):
+    from repro_torch.serve.engine import ServeEngine
+    return ServeEngine(params, cfg, kv_layout="dense", prefill_mode="bulk",
+                       batch_slots=batch_slots, cache_len=cache_len,
+                       device=device)
+
+
+def serve_dense(engine, requests, per_prefill: dict) -> dict:
+    """Phases 9 and 10's main path: every launch count set to 0 just
+    before the run and read just after; kernel k must have launched
+    per_prefill[k] x the bulk prefills, every other kernel not at all."""
+    reqs = [engine.submit(p, max_new_tokens=n, sampling=s)
+            for p, s, n in requests]
+    fns = counters()
+    torch.cuda.synchronize()
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in fns.items()}
+    cfg = engine.cfg
+    for r, (_, _, n) in zip(reqs, requests):
+        if r.error is not None or not r.done or len(r.output) != n:
+            raise AssertionError(f"request {r.request_id}: done={r.done} "
+                                 f"error={r.error!r} tokens={len(r.output)}"
+                                 f" of {n}")
+        if not all(0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"request {r.request_id}: token out of "
+                                 "the vocabulary")
+    decode = engine.step_times["decode"]
+    prefill = engine.step_times["prefill"]
+    for name, n in launches.items():
+        want = per_prefill.get(name, 0) * prefill.n
+        if n != want:
+            raise AssertionError(f"{name} launched {n} times, expected "
+                                 f"{per_prefill.get(name, 0)} x "
+                                 f"{prefill.n} bulk prefills = {want}")
+    decode_tokens = sum(len(r.output) - 1 for r in reqs)
+    return {"requests": len(reqs), "launches": launches,
+            "prefills": prefill.n, "decode_dispatches": decode.n,
+            "prefill_ms_mean": prefill.total / prefill.n,
+            "prefill_ms_max": prefill.vmax,
+            "decode_step_ms_mean": decode.total / decode.n,
+            "decode_tokens_per_s": decode_tokens / (decode.total / 1e3),
+            "tokens_per_s": sum(len(r.output) for r in reqs) / wall,
+            "wall_s": wall}
+
+
+def finite_round(engine, requests):
+    """A short greedy round outside the counted run, logits recorded: the
+    prefill and decode logits must be finite."""
+    rec = record_logits(engine)
+    for p, _, _ in requests:
+        engine.submit(p, max_new_tokens=4)
+    engine.run()
+    if not all_finite(rec):
+        raise AssertionError(f"{engine.cfg.arch_id}: non-finite logits")
+
+
+def log_profile(prof: dict):
+    if prof["busy_share"] is None:
+        log(f"  step {prof['step_ms']:.3f} ms; device time not measured "
+            "(the profiler recorded no device events)")
+        return
+    log(f"  step {prof['step_ms']:.3f} ms, device busy "
+        f"{prof['device_ms']:.3f} ms ({100 * prof['busy_share']:.1f}%), "
+        f"{prof['device_ops_per_step']:.0f} device ops per step "
+        f"(kernels and copies)")
+    for name, ms, count in prof["top"]:
+        log(f"    {ms:8.4f} ms/step  x{count:<4d} {name}")
+
+
+def log_served(s: dict):
+    log(f"  {s['requests']} requests, {s['prefills']} bulk prefills, "
+        f"{s['decode_dispatches']} decode dispatches, launches "
+        f"{s['launches']}")
+    log(f"  prefill {s['prefill_ms_mean']:.3f} ms mean per request (max "
+        f"{s['prefill_ms_max']:.3f}), decode step "
+        f"{s['decode_step_ms_mean']:.3f} ms mean, "
+        f"{s['decode_tokens_per_s']:.1f} decode tokens/s, "
+        f"{s['tokens_per_s']:.1f} tokens/s end to end over "
+        f"{s['wall_s']:.3f} s")
+
+
+def log_lockstep(c: dict):
+    log(f"  {c['steps']} lockstep decode steps, max |logit diff| prefill "
+        f"{c['max_abs_prefill_logit_diff']:.3g}, decode "
+        f"{c['max_abs_decode_logit_diff']:.3g} (tol {LOGIT_TOL}), greedy "
+        f"divergences {c['diverged_requests']}, outputs identical: "
+        f"{c['identical_outputs']}")
+
+
+def rgemma_config(dtype: str, **kw):
+    from repro_torch.configs import get
+    return get("recurrentgemma-9b").replace(dtype=dtype, param_dtype=dtype,
+                                            **kw)
+
+
+def rgemma_requests(cfg, new_tokens=16, seed=SEED):
+    """Six prompts of 64-512 tokens and one of 2560 (past the 2048
+    window, so the ring wraps); request 2 samples with a seed."""
+    from repro_torch.serve.sampler import SamplingParams
+    rng = np.random.default_rng(seed)
+    lens = list(rng.integers(64, 513, 6)) + [2560]
+    prompts = [rng.integers(0, cfg.vocab_size, int(m)).tolist()
+               for m in lens]
+    sampling = [None] * len(prompts)
+    sampling[2] = SamplingParams(temperature=0.8, top_k=50, seed=7)
+    return [(p, s, new_tokens) for p, s in zip(prompts, sampling)]
 
 
 def profile_decode(engine, requests, steps=8) -> dict:
-    """Phase 6: where a decode step's time goes, for a greedy batch of 8
-    at full width. Times `steps` steps with the host clock, then the same
-    number again under torch.profiler for the device-side breakdown (the
-    profiler's own host overhead stays out of the step time)."""
+    """Phases 6, 9 and 10: where a decode step's time goes, for a greedy
+    batch filling every slot at full width. Times `steps` steps with the
+    host clock, then the same number again under torch.profiler for the
+    device-side breakdown (the profiler's own host overhead stays out of
+    the step time)."""
     from torch.profiler import ProfilerActivity, profile
     engine.reset()
     for p, _, n in requests[:engine.slots]:
-        engine.submit(p, max_new_tokens=n)
+        # budget for every step below: no slot retires inside the window
+        engine.submit(p, max_new_tokens=max(n, 2 * steps + 3))
     engine.step()                  # admission, prefill, first decode
     engine.step()
     torch.cuda.synchronize()
@@ -434,6 +797,10 @@ def main(device: str = "cuda") -> int:
 
     log("[2] kernel against its plain version")
     errs = check_kernel(device)
+    log("[7] flash-attention kernel against its plain version")
+    flash_errs = check_flash(device)
+    log("[8] RG-LRU scan kernel against its plain version")
+    scan_errs = check_scan(device)
 
     log("[3] serving qwen3-1.7b at full width, bf16")
     cfg = full_config("bfloat16")
@@ -461,28 +828,29 @@ def main(device: str = "cuda") -> int:
         f"{served['wall_s']:.3f} s")
     # NaN check outside the counted run: a second, short round (which also
     # reuses the first round's cached prefixes) with its logits recorded
-    eng_decode_tok = eng._decode_tok
-    rec = record_logits(eng)
-    for p, _, _ in requests[:8]:
-        eng.submit(p, max_new_tokens=4)
-    eng.run()
-    if not rec or not all(bool(torch.isfinite(x).all()) for x in rec):
-        raise AssertionError("bf16 decode produced non-finite logits")
-    del rec
-    eng._decode_tok = eng_decode_tok
+    closures = eng._decode_tok, eng._prefill_tok
+    finite_round(eng, requests[:8])
+    eng._decode_tok, eng._prefill_tok = closures
 
     log("[6] where a greedy batch-8 decode step's time goes (bf16)")
-    prof = profile_decode(eng, requests)
-    if prof["busy_share"] is None:
-        log(f"  step {prof['step_ms']:.3f} ms; device time not measured "
-            "(the profiler recorded no device events)")
-    else:
-        log(f"  step {prof['step_ms']:.3f} ms, device busy "
-            f"{prof['device_ms']:.3f} ms ({100 * prof['busy_share']:.1f}%), "
-            f"{prof['device_ops_per_step']:.0f} device ops per step "
-            f"(kernels and copies)")
-        for name, ms, count in prof["top"]:
-            log(f"    {ms:8.4f} ms/step  x{count:<4d} {name}")
+    log_profile(profile_decode(eng, requests))
+    del eng
+    torch.cuda.empty_cache()
+
+    log("[9] serving qwen3-1.7b on the dense layout, bf16, "
+        "attention_impl='pallas' (bulk prefill through the flash kernel)")
+    cfg_d = cfg.replace(attention_impl="pallas")
+    eng = make_dense_engine(params, cfg_d, device, 8, 512)
+    for p, s, n in warm:
+        eng.submit(p, max_new_tokens=n, sampling=s)
+    eng.run()
+    eng.reset()
+    eng.step_times.clear()
+    dense_q = serve_dense(eng, requests, {"flash_attention": cfg.n_layers})
+    log_served(dense_q)
+    finite_round(eng, requests[:8])
+    log("[9] where a greedy batch-8 dense decode step's time goes (bf16)")
+    log_profile(profile_decode(eng, requests))
     del eng, params
     torch.cuda.empty_cache()
 
@@ -494,8 +862,15 @@ def main(device: str = "cuda") -> int:
     log(f"  {oracle['steps']} lockstep steps, max |logit diff| "
         f"{oracle['max_abs_logit_diff']:.3g} (last step "
         f"{oracle['last_step_max_abs_logit_diff']:.3g}, tol {LOGIT_TOL}), "
-        f"greedy divergences {oracle['diverged_slots']}, outputs identical: "
-        f"{oracle['identical_outputs']}")
+        f"greedy divergences {oracle['diverged_requests']}, outputs "
+        f"identical: {oracle['identical_outputs']}")
+
+    log("[9] dense qwen3-1.7b at full width, f32: 'pallas' against 'xla'")
+    dense_q32 = lockstep(
+        [make_dense_engine(params32, cfg32.replace(attention_impl=impl),
+                           device, 8, 512) for impl in ("pallas", "xla")],
+        make_requests(cfg32, n=8, new_tokens=16))
+    log_lockstep(dense_q32)
     del params32
     torch.cuda.empty_cache()
 
@@ -508,6 +883,63 @@ def main(device: str = "cuda") -> int:
         f"by {timing['bound_by']} ({timing['bytes']} bytes, "
         f"{timing['flops']} flops)")
 
+    log("[10] serving recurrentgemma-9b at full width on the dense layout, "
+        "bf16, attention_impl='pallas'")
+    cfg_r = rgemma_config("bfloat16", attention_impl="pallas")
+    t0 = time.perf_counter()
+    params = make_model(cfg_r, device)
+    n_params = numel(params)
+    log(f"  {n_params / 1e9:.3f} B parameters made in "
+        f"{time.perf_counter() - t0:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    eng = make_dense_engine(params, cfg_r, device, 4, 2048)
+    for p, s, n in rgemma_requests(cfg_r, new_tokens=2, seed=SEED + 1)[:4]:
+        eng.submit(p, max_new_tokens=n, sampling=s)
+    eng.run()
+    eng.reset()
+    eng.step_times.clear()
+    r_requests = rgemma_requests(cfg_r)
+    n_attn = cfg_r.layer_types().count("attn")
+    dense_r = serve_dense(eng, r_requests, {
+        "rglru_scan": cfg_r.n_layers - n_attn, "flash_attention": n_attn})
+    log_served(dense_r)
+    finite_round(eng, r_requests[-2:])
+    log("[10] where a greedy batch-4 decode step's time goes (bf16)")
+    log_profile(profile_decode(eng, r_requests))
+    del eng, params
+    torch.cuda.empty_cache()
+
+    cut = rgemma_config("float32", n_layers=5)
+    log(f"[10] recurrentgemma-9b at full width, f32, depth cut to "
+        f"{cut.n_layers} layers {cut.layer_types()}: 'pallas' against "
+        "'xla'")
+    params32 = make_model(cut, device)
+    r32 = [(p, None, 8) for p, _, _ in rgemma_requests(cut)[-3:]]
+    dense_r32 = lockstep(
+        [make_dense_engine(params32, cut.replace(attention_impl=impl),
+                           device, 4, 2048) for impl in ("pallas", "xla")],
+        r32)
+    log_lockstep(dense_r32)
+    del params32
+    torch.cuda.empty_cache()
+
+    log("[11] timings of the new kernels at their main-path shapes (bf16 "
+        "flash, f32 scan)")
+    flash_t = {}
+    for case in FLASH_CASES[-2:]:
+        t = flash_t[case] = time_flash(device, case)
+        log(f"  flash B,S,nh,nkv,hd,window={case}: kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
+            f"({t['flops']} flops over {t['pairs']} visible pairs at "
+            f"{BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s, {t['bytes']} bytes)")
+    scan_t = time_scan(device)
+    log(f"  rglru_scan B,S,C={SCAN_CASES[-1]}: kernel {scan_t['ms']:.4f} ms,"
+        f" plain {scan_t['plain_ms']:.4f} ms, no library call, bound "
+        f"{scan_t['bound_ms']:.4f} ms by {scan_t['bound_by']} "
+        f"({scan_t['bytes']} bytes)")
+    flash_main = flash_t[FLASH_CASES[-1]]
+
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -517,11 +949,42 @@ def main(device: str = "cuda") -> int:
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
+        "launches": (dense_q["launches"]["flash_attention"]
+                     + dense_r["launches"]["flash_attention"]),
+        "max_abs_err": flash_errs[torch.bfloat16],
+        "ms": flash_main["ms"], "plain_ms": flash_main["plain_ms"],
+        "bound_ms": flash_main["bound_ms"],
+        "bound_by": flash_main["bound_by"],
+        "library_ms": flash_main["library_ms"],
+    }, {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/kernel.py:25",
+        "launches": dense_r["launches"]["rglru_scan"],
+        "max_abs_err": scan_errs[torch.bfloat16],
+        "ms": scan_t["ms"], "plain_ms": scan_t["plain_ms"],
+        "bound_ms": scan_t["bound_ms"], "bound_by": scan_t["bound_by"],
+        "library_ms": None,
     }]
     log(f"kernels: paged_attention launches={served['launches']} "
         f"(decode dispatches {served['decode_dispatches']} x "
         f"{cfg.n_layers} layers); f32 max abs err "
         f"{errs[torch.float32]:.3g}, bf16 {errs[torch.bfloat16]:.3g}")
+    log(f"kernels: flash_attention launches="
+        f"{kernels[1]['launches']} (qwen3 {dense_q['prefills']} prefills x "
+        f"{cfg.n_layers} layers + recurrentgemma {dense_r['prefills']} "
+        f"prefills x {n_attn} layers); f32 max abs err "
+        f"{flash_errs[torch.float32]:.3g}, bf16 "
+        f"{flash_errs[torch.bfloat16]:.3g}")
+    log(f"kernels: rglru_scan launches={kernels[2]['launches']} "
+        f"({dense_r['prefills']} prefills x {cfg_r.n_layers - n_attn} "
+        f"layers); "
+        f"f32 max abs err {scan_errs[torch.float32]:.3g}, bf16 "
+        f"{scan_errs[torch.bfloat16]:.3g}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -116,7 +116,14 @@ class ModelConfig:
     dtype: str = "float32"                # activation dtype
     param_dtype: str = "float32"
     remat: bool = False                   # activation checkpointing per layer block
-    attention_impl: str = "xla"           # xla | pallas
+    attention_impl: str = "xla"           # xla | pallas. In the port "pallas"
+                                          # means the ports of the Pallas
+                                          # kernels (flash attention, RG-LRU
+                                          # scan): the CUDA kernel on CUDA
+                                          # tensors, its plain version on CPU
+                                          # tensors; "xla" the plain torch
+                                          # composition the reference runs
+                                          # there (dense SDPA, log-depth scan)
     source: str = ""                      # citation bracket from the assignment
 
     # ----- derived -----

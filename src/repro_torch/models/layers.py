@@ -1,19 +1,25 @@
-"""Core composable layers: norms, RoPE, GQA attention (prefill and paged
-decode), gated MLPs. Plain functions over parameter dicts of tensors, as
-in the reference (`repro.models.layers`), with the same layouts: weights
-are `(d_in, d_out)` and applied as `x @ W`, activations are `(B, S, ...)`.
+"""Core composable layers: norms, RoPE, GQA attention (prefill, dense
+ring-cache decode and paged decode), gated MLPs. Plain functions over
+parameter dicts of tensors, as in the reference (`repro.models.layers`),
+with the same layouts: weights are `(d_in, d_out)` and applied as `x @ W`,
+activations are `(B, S, ...)`.
 
 Attention supports:
   * grouped-query (n_kv_heads <= n_heads)
   * optional per-head RMS qk-norm (qwen3)
   * causal, sliding-window and cross (non-causal) masking
-  * single-token decode and suffix prefill over a paged KV pool
+  * full-sequence causal attention through the flash-attention kernel
+    (`cfg.attention_impl == "pallas"`) or the dense composition ("xla")
+  * single-token decode over a dense ring cache, and decode and suffix
+    prefill over a paged KV pool
 
 One difference from the reference: JAX arrays are immutable, so the
-reference's pool scatter (`kpool.at[blk, off].set(...)`) returns a fresh
-pool. The port writes the new K/V rows into the pool tensors in place
-(`index_put_`) and returns the same tensors, which saves a pool copy per
-layer per step.
+reference's cache writes (`kpool.at[blk, off].set(...)`, the one-hot blend
+of `attention_decode`) return fresh arrays. The port writes the new K/V
+rows into the cache tensors in place (`index_put_`) and returns the same
+tensors, which saves a cache copy per layer per step. The dense decode
+writes only the batch rows it is told to (`rows`), so a step that runs
+some slots leaves the others' caches as they were.
 """
 from __future__ import annotations
 
@@ -160,14 +166,14 @@ def attention(params, cfg, x, positions, *, kv=None, kv_positions=None,
     """Full-sequence attention (prefill / encoder / cross).
 
     x: (B, S, d). kv: optional (B, Sk, d) source for cross-attention.
-    Returns (out, (k, v)). The reference's sharding hint (`constrain_kv`)
-    is dropped: it is a no-op on one device.
+    Returns (out, (k, v)). Causal self-attention with
+    ``cfg.attention_impl == "pallas"`` goes through the flash-attention
+    kernel (`kernels/flash_attention`: the CUDA kernel on CUDA tensors, its
+    plain version on CPU tensors), which takes positions 0..S-1 as the
+    reference's kernel does; everything else through `_sdpa_xla`. The
+    reference's sharding hint (`constrain_kv`) is dropped: it is a no-op on
+    one device.
     """
-    if cfg.attention_impl == "pallas" and kv is None and causal:
-        raise NotImplementedError(
-            "attention_impl='pallas' reaches the flash-attention kernel, "
-            "which is not ported yet (ROADMAP.md Queue 1, 'Dense layout and "
-            "flash attention'; Queue 2 row 2)")
     B, S, d = x.shape
     hd, nh = cfg.resolved_head_dim, cfg.n_heads
     src = x if kv is None else kv
@@ -176,11 +182,60 @@ def attention(params, cfg, x, positions, *, kv=None, kv_positions=None,
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, kv_positions, cfg.rope_theta)
-    mask = _attn_mask(torch.broadcast_to(positions, (B, S)),
-                      torch.broadcast_to(kv_positions, (B, src.shape[1])),
-                      causal, window)
-    out = _sdpa_xla(q, k, v, mask, 1.0 / math.sqrt(hd))
+    if cfg.attention_impl == "pallas" and kv is None and causal:
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+    else:
+        mask = _attn_mask(torch.broadcast_to(positions, (B, S)),
+                          torch.broadcast_to(kv_positions, (B, src.shape[1])),
+                          causal, window)
+        out = _sdpa_xla(q, k, v, mask, 1.0 / math.sqrt(hd))
     return out.reshape(B, S, nh * hd) @ params["wo"], (k, v)
+
+
+def attention_decode(params, cfg, x, pos, cache_k, cache_v, cache_pos, *,
+                     window=None, rope=True, rows=None):
+    """Single-token decode over a dense (ring) KV cache.
+
+    x: (B, 1, d); pos: (B,) int32 absolute position of the new token;
+    cache_k/cache_v: (B, Sc, nkv, hd); cache_pos: (B, Sc) int32 positions
+    held in each cache slot (-1 = empty). Returns (out, cache_k, cache_v,
+    cache_pos), the caches updated in place.
+
+    The new token's k/v go to slot pos % Sc (a ring for windowed caches;
+    for full caches Sc >= max_seq and slot = pos), but only for the batch
+    rows in `rows` (a LongTensor of row indices; None = every row): rows
+    left out keep their cache untouched, and their output is garbage the
+    caller ignores. The read masks empty slots, positions after `pos` and,
+    with a window, positions at or before pos - window; masked logits take
+    finfo(f32).min, as in the reference.
+    """
+    B = x.shape[0]
+    hd, nh, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    Sc = cache_k.shape[1]
+    q, k_new, v_new = _project_qkv(params, cfg, x, x)
+    if rope:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+    if rows is None:
+        rows = torch.arange(B, device=x.device)
+    slot = (pos[rows] % Sc).long()
+    cache_k.index_put_((rows, slot), k_new[rows, 0])
+    cache_v.index_put_((rows, slot), v_new[rows, 0])
+    cache_pos.index_put_((rows, slot), pos[rows].to(cache_pos.dtype))
+    valid = (cache_pos >= 0) & (cache_pos <= pos[:, None])
+    if window is not None:
+        valid &= cache_pos > (pos[:, None] - window)
+    rep = nh // nkv
+    qr = q.reshape(B, nkv, rep, hd)
+    logits = torch.einsum("bkrh,bskh->bkrs", qr.float(),
+                          cache_k.float()) * (1.0 / math.sqrt(hd))
+    logits = logits.masked_fill(~valid[:, None, None, :],
+                                torch.finfo(torch.float32).min)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkrs,bskh->bkrh", w, cache_v.float())
+    out = out.reshape(B, 1, nh * hd).to(x.dtype) @ params["wo"]
+    return out, cache_k, cache_v, cache_pos
 
 
 def attention_decode_paged(params, cfg, x, pos, kpool, vpool, table, *,

@@ -9,6 +9,11 @@ dict per layer (`models/transformer.py`), so this is the one place where a
 layout changes: the blocks are unstacked per layer. Matrices keep the
 reference's `(d_in, d_out)` layout.
 
+Every leaf goes to `cfg.parameter_dtype` except those the reference's init
+keeps in float32 whatever the parameter dtype: the RG-LRU's gate biases and
+Lambda (`rglru.F32_LEAVES`, from `init_rglru_block`). The rule is the
+init's, not the numpy leaf's dtype.
+
 The caller hands the tree over as numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)``); this module imports no JAX.
 """
@@ -19,6 +24,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models import rglru as RG
 from repro_torch.models import transformer as T
 
 Path = Tuple
@@ -55,8 +61,9 @@ def _set(tree: dict, path: Path, value):
 
 def params_from_jax(tree, cfg, device="cuda") -> dict:
     """Convert the reference's parameter tree (numpy leaves) into the
-    port's params on `device`, in `cfg.parameter_dtype`. Raises ValueError
-    on a missing leaf, a shape mismatch, or any leaf left unused."""
+    port's params on `device`, in `cfg.parameter_dtype` (the RG-LRU's
+    float32 leaves stay float32). Raises ValueError on a missing leaf, a
+    shape mismatch, or any leaf left unused."""
     flat = _flatten(tree)
     used = set()
 
@@ -75,7 +82,10 @@ def params_from_jax(tree, cfg, device="cuda") -> dict:
                              f"{tuple(a.shape)}, expected {tuple(shape)}")
         if a.dtype.name == "bfloat16":        # ml_dtypes; torch can't wrap it
             a = a.astype(np.float32)
-        return torch.tensor(a, device=device, dtype=cfg.parameter_dtype)
+        f32 = len(path) >= 2 and path[-2] == "rglru" \
+            and path[-1] in RG.F32_LEAVES
+        dtype = torch.float32 if f32 else cfg.parameter_dtype
+        return torch.tensor(a, device=device, dtype=dtype)
 
     shapes = T.param_shapes(cfg)
     layer_shapes = shapes.pop("layers")

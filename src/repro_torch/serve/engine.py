@@ -1,12 +1,27 @@
-"""Batched serving engine on the paged KV layout: fixed-slot continuous
-batching, the port of `repro.serve.engine.ServeEngine`'s phased paged path.
+"""Batched serving engine: fixed-slot continuous batching, the port of
+`repro.serve.engine.ServeEngine`'s phased path on both KV layouts.
 
-A `ServeEngine` owns a paged KV pool and `batch_slots` sequences. Requests
-(prompt token lists) are admitted into free slots — reusing the longest
-prompt prefix already in the pool through the radix index, copy-on-write
-for a partially matching page — prefilled, then all active slots decode in
-lockstep, one token per `step()`. Finished sequences (EOS or
-max_new_tokens) free their slot and waiting requests are admitted.
+A `ServeEngine` owns a decode cache and `batch_slots` sequences. Requests
+(prompt token lists) are admitted into free slots, prefilled, then all
+active slots decode in lockstep, one token per `step()`. Finished
+sequences (EOS or max_new_tokens) free their slot and waiting requests are
+admitted. `kv_layout` picks the cache:
+
+  * "dense" (the default, as in the reference): each slot owns a private
+    (cache_len, ...) KV strip per attention layer, a ring when the model
+    has a sliding window, and the state of each RG-LRU layer. Every
+    ported family runs here, the hybrid recurrentgemma included. Bulk
+    prefill runs the whole prompt through `forward_prefill` (the flash-
+    attention and RG-LRU scan kernels with `cfg.attention_impl ==
+    "pallas"`) and copies the caches into the slot; pure-attention prompts
+    are right-padded to power-of-two buckets, recurrent ones run at their
+    exact length (padding would advance the state). A step writes only the
+    cache rows of the slots that ride it, so admitting a request never
+    touches a live peer's cache.
+  * "paged": KV in a pool of `block_size`-token pages; a request reuses
+    the longest prompt prefix already in the pool through the radix index
+    (copy-on-write for a partially matching page). Pure-attention decoders
+    only, no sliding window.
 
 The decode step returns last-position logits (or, when every live slot is
 greedy, the argmax taken on the device): each request carries its own
@@ -14,16 +29,23 @@ greedy, the argmax taken on the device): each request carries its own
 top-p with independent seeded streams. Logits reach the host sampler as
 float32 numpy (numpy has no bf16).
 
-`decode_kernel` picks the per-token attention read: "cuda" (the default)
-is the hand-written kernel (`kernels/paged_attention`, csrc/
-paged_attention.cu) on the card and its plain version for CPU tensors;
-"reference" is the dense-gather oracle. Everything runs on `device`
-("cuda" unless the caller passes another); the engine never moves work to
-the CPU on its own.
+`decode_kernel` picks the paged layout's per-token attention read: "cuda"
+(the paged default) is the hand-written kernel (`kernels/paged_attention`,
+csrc/paged_attention.cu) on the card and its plain version for CPU
+tensors; "reference" is the dense-gather oracle. The dense layout reads its
+cache with plain torch and takes only "reference", as the reference does.
+Everything runs on `device` ("cuda" unless the caller passes another); the
+engine never moves work to the CPU on its own.
+
+One deliberate difference from the reference: a dense slot is cleared when
+a request is admitted into it. The reference's decode-mode prefill leaves
+the previous request's RG-LRU state in the slot, so a recurrent model's
+tokens depended on what the slot served before (ROADMAP.md Queue 3);
+attention entries were already hidden by their positions.
 
 Not ported yet, and refused with NotImplementedError rather than served
-another way: the dense layout, fused multi-token decode, speculative
-decode and the chunked-prefill scheduler (ROADMAP.md Queue 1).
+another way: fused multi-token decode, speculative decode and the
+chunked-prefill scheduler (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -39,8 +61,10 @@ from repro_torch.models import transformer as T
 from repro_torch.obs import trace as otrace
 from repro_torch.obs.registry import Histogram
 from repro_torch.serve.sampler import GREEDY, Sampler, SamplingParams
-from repro_torch.serve.step import (build_decode_paged, build_prefill_paged,
-                                    bucket_len)
+from repro_torch.serve.step import (build_decode, build_decode_paged,
+                                    build_prefill_bucketed,
+                                    build_prefill_paged, bucket_len,
+                                    prefill_into_cache)
 
 DECODE_KERNELS = ("reference", "cuda")
 PREFILL_MODES = ("decode", "bulk")
@@ -67,8 +91,8 @@ class Request:
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP.md Queue 1, "
-        f"'{item}'); the port serves kv_layout='paged' with single-token "
-        "decode and the phased scheduler only")
+        f"'{item}'); the port serves single-token decode with the phased "
+        "scheduler only")
 
 
 class ServeEngine:
@@ -76,22 +100,27 @@ class ServeEngine:
                  cache_len: int = 256, window=None,
                  prefill_mode: str = "decode", kv_layout: str = "dense",
                  block_size: int = 16, pool_blocks: Optional[int] = None,
-                 decode_kernel: str = "cuda", fused_tokens: int = 1,
+                 decode_kernel: Optional[str] = None, fused_tokens: int = 1,
                  spec_tokens: int = 0, drafter=None,
                  scheduler: str = "phased", chunk_budget: int = 32,
                  device="cuda"):
         """The reference's constructor, plus `device`. prefill_mode:
-        "decode" feeds the uncached prompt suffix one token at a time
-        through the decode step; "bulk" runs it in one forward, right-
-        padded to a power-of-two bucket. kv_layout must be "paged" (KV in
-        a pool of `block_size`-token pages with radix prefix reuse; pure-
-        attention decoder archs only; window must be None). pool_blocks
-        sizes the pool (default: 2x the slots' worth of pages + the null
-        block, so retired prefixes stay cached). `drafter` and
+        "decode" feeds the (uncached) prompt one token at a time through
+        the decode step; "bulk" runs it in one forward. kv_layout: "dense"
+        (private per-slot strips; every ported family; ring caches for
+        sliding windows) or "paged" (KV in a pool of `block_size`-token
+        pages with radix prefix reuse; pure-attention decoder archs only;
+        window must be None; pool_blocks sizes the pool, by default 2x the
+        slots' worth of pages + the null block, so retired prefixes stay
+        cached). decode_kernel is the paged read, "cuda" (the default
+        there) or "reference"; the dense layout takes "reference" (its
+        default) only, as the reference does. `drafter` and
         `chunk_budget` belong to the unported speculative and chunked
         paths and are accepted for signature parity."""
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be dense|paged, got {kv_layout}")
+        if decode_kernel is None:
+            decode_kernel = "cuda" if kv_layout == "paged" else "reference"
         if decode_kernel not in DECODE_KERNELS:
             raise ValueError(f"decode_kernel must be one of "
                              f"{DECODE_KERNELS}, got {decode_kernel!r}")
@@ -103,9 +132,22 @@ class ServeEngine:
         if scheduler not in ("phased", "chunked"):
             raise ValueError(f"scheduler must be phased|chunked, got "
                              f"{scheduler!r}")
-        if kv_layout == "dense":
-            raise _not_ported("kv_layout='dense'",
-                              "Dense layout and flash attention")
+        if kv_layout != "paged":
+            if decode_kernel != "reference":
+                raise ValueError(f"decode_kernel={decode_kernel!r} targets "
+                                 "the paged block pool; use kv_layout="
+                                 "'paged'")
+            if fused_tokens > 1:
+                raise ValueError("fused multi-token decode scans the paged "
+                                 "decode step; use kv_layout='paged'")
+            if spec_tokens > 0:
+                raise ValueError("speculative decode verifies over (and "
+                                 "rolls back) paged KV; use kv_layout="
+                                 "'paged'")
+            if scheduler == "chunked":
+                raise ValueError("chunked prefill scatters bounded chunks "
+                                 "into paged block tables; use "
+                                 "kv_layout='paged'")
         if fused_tokens > 1:
             raise _not_ported("fused_tokens > 1",
                               "Fused multi-token decode")
@@ -113,12 +155,13 @@ class ServeEngine:
             raise _not_ported("spec_tokens > 0", "Speculative decode")
         if scheduler == "chunked":
             raise _not_ported("scheduler='chunked'", "Chunked prefill")
-        if (window if window is not None else cfg.window) is not None:
-            raise ValueError("paged KV cache does not support sliding-"
-                             "window (ring) caches; use kv_layout=dense")
-        if cache_len % block_size:
-            raise ValueError(f"cache_len {cache_len} must be a multiple "
-                             f"of block_size {block_size}")
+        if kv_layout == "paged":
+            if (window if window is not None else cfg.window) is not None:
+                raise ValueError("paged KV cache does not support sliding-"
+                                 "window (ring) caches; use kv_layout=dense")
+            if cache_len % block_size:
+                raise ValueError(f"cache_len {cache_len} must be a multiple "
+                                 f"of block_size {block_size}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but torch sees no CUDA device; "
@@ -137,27 +180,41 @@ class ServeEngine:
         self.prefill_mode = prefill_mode
         self.degraded = False
         self.block_size = block_size
-        nb = cache_len // block_size
-        if pool_blocks is None:
-            pool_blocks = 2 * batch_slots * nb + 1
-        self.cache = T.init_paged_cache(cfg, pool_blocks, block_size,
-                                        self.device)
-        self.manager = KVCacheManager(pool_blocks, block_size)
-        # per-slot block tables; row of ids into the pool tensors.
-        # Retired/empty slots are all-zero -> the reserved null block
-        self.table = np.zeros((batch_slots, nb), np.int32)
+        self.manager: Optional[KVCacheManager] = None
         self._slot_blocks: List[List[int]] = [[] for _ in range(batch_slots)]
         # two decode variants: the greedy one argmaxes on the device and
         # moves one int per slot to the host; the logits one feeds host-
         # side per-request sampling
-        self._decode_tok = build_decode_paged(cfg, window=window,
-                                              kernel=decode_kernel)
-        self._decode_lg = build_decode_paged(cfg, window=window,
-                                             return_logits=True,
-                                             kernel=decode_kernel)
-        self._prefill_tok = build_prefill_paged(cfg, window=window)
-        self._prefill_lg = build_prefill_paged(cfg, window=window,
-                                               return_logits=True)
+        if kv_layout == "paged":
+            nb = cache_len // block_size
+            if pool_blocks is None:
+                pool_blocks = 2 * batch_slots * nb + 1
+            self.cache = T.init_paged_cache(cfg, pool_blocks, block_size,
+                                            self.device)
+            self.manager = KVCacheManager(pool_blocks, block_size)
+            # per-slot block tables; row of ids into the pool tensors.
+            # Retired/empty slots are all-zero -> the reserved null block
+            self.table = np.zeros((batch_slots, nb), np.int32)
+            self._decode_tok = build_decode_paged(cfg, window=window,
+                                                  kernel=decode_kernel)
+            self._decode_lg = build_decode_paged(cfg, window=window,
+                                                 return_logits=True,
+                                                 kernel=decode_kernel)
+            self._prefill_tok = build_prefill_paged(cfg, window=window)
+            self._prefill_lg = build_prefill_paged(cfg, window=window,
+                                                   return_logits=True)
+        else:
+            self.cache = T.init_cache(cfg, batch_slots, cache_len,
+                                      self.device)
+            self._decode_tok = build_decode(cfg, window=window)
+            self._decode_lg = build_decode(cfg, window=window,
+                                           return_logits=True)
+            self._prefill_tok = build_prefill_bucketed(cfg, window=window)
+            self._prefill_lg = build_prefill_bucketed(cfg, window=window,
+                                                      return_logits=True)
+        # pad bulk prompts only where padding cannot distort state:
+        # recurrent mixers (rglru) advance over pad tokens
+        self._bucket_prompts = T.paged_supported(cfg)
         self.pos = np.full((batch_slots,), -1, np.int64)   # last written pos
         self.budget = np.zeros((batch_slots,), np.int64)
         self.active: List[Optional[Request]] = [None] * batch_slots
@@ -195,7 +252,8 @@ class ServeEngine:
     def enqueue(self, req: Request) -> Request:
         """Admit an externally-built Request (the gateway constructs its own
         so ids and samplers survive cross-replica retries)."""
-        if len(req.prompt) + req.max_new_tokens > self.cache_len:
+        if self.kv_layout == "paged" and \
+                len(req.prompt) + req.max_new_tokens > self.cache_len:
             raise ValueError(
                 f"request needs {len(req.prompt) + req.max_new_tokens} "
                 f"token positions, table holds {self.cache_len}")
@@ -216,31 +274,41 @@ class ServeEngine:
 
     # --------------------------------------------------- capacity / cache
     def token_capacity(self) -> int:
-        """Hard per-request ceiling (prompt + new tokens): the block
-        table's span, bounded by the pool itself (a pool smaller than one
-        table can never serve a request larger than its usable pages)."""
-        usable = (self.manager.pool.n_blocks - 1) * self.block_size
-        return min(self.cache_len, usable)
+        """Hard per-request ceiling (prompt + new tokens): the slot's
+        span, and on the paged layout also the pool itself (a pool smaller
+        than one table can never serve a request larger than its usable
+        pages)."""
+        if self.kv_layout == "paged":
+            usable = (self.manager.pool.n_blocks - 1) * self.block_size
+            return min(self.cache_len, usable)
+        return self.cache_len
 
     def free_token_capacity(self) -> int:
         """Token positions this engine could commit to right now: free
-        slots x per-slot capacity, bounded by free + idle-cached pool
-        blocks (the gateway's admission-by-token-budget consults this)."""
+        slots x per-slot capacity, bounded on the paged layout by free +
+        idle-cached pool blocks (the gateway's admission-by-token-budget
+        consults this)."""
         free = self.free_slots()
         if free <= 0:
             return 0
-        return min(free * self.cache_len, self.manager.free_tokens())
+        cap = free * self.cache_len
+        if self.kv_layout == "paged":
+            cap = min(cap, self.manager.free_tokens())
+        return cap
 
     def cached_prefix_tokens(self, prompt) -> int:
         """How many leading tokens of `prompt` are already prefilled here
-        (radix probe). The gateway's prefix-affinity policy ranks replicas
-        by this."""
+        (radix probe; 0 on the dense layout). The gateway's prefix-affinity
+        policy ranks replicas by this."""
+        if self.manager is None:
+            return 0
         return self.manager.match_len(prompt)
 
     @property
     def cache_metrics(self):
-        """kvcache.CacheMetrics of the paged pool."""
-        return self.manager.metrics
+        """kvcache.CacheMetrics of the paged pool; None on the dense
+        layout."""
+        return self.manager.metrics if self.manager is not None else None
 
     @property
     def spec_metrics(self) -> Optional[dict]:
@@ -255,13 +323,18 @@ class ServeEngine:
     # ---------------------------------------------------------- lifecycle
     def reset(self):
         """Warm rebuild for replica reintegration after a crash: device
-        pool re-initialized, fresh radix index, every slot and block table
-        empty. The step closures are kept."""
-        pool_blocks = self.manager.pool.n_blocks
-        self.cache = T.init_paged_cache(self.cfg, pool_blocks,
-                                        self.block_size, self.device)
-        self.manager = KVCacheManager(pool_blocks, self.block_size)
-        self.table = np.zeros_like(self.table)
+        cache re-initialized (with a fresh radix index and empty block
+        tables on the paged layout), every slot empty. The step closures
+        are kept."""
+        if self.kv_layout == "paged":
+            pool_blocks = self.manager.pool.n_blocks
+            self.cache = T.init_paged_cache(self.cfg, pool_blocks,
+                                            self.block_size, self.device)
+            self.manager = KVCacheManager(pool_blocks, self.block_size)
+            self.table = np.zeros_like(self.table)
+        else:
+            self.cache = T.init_cache(self.cfg, self.slots, self.cache_len,
+                                      self.device)
         self._slot_blocks = [[] for _ in range(self.slots)]
         self.pos = np.full((self.slots,), -1, np.int64)
         self.budget = np.zeros((self.slots,), np.int64)
@@ -289,10 +362,13 @@ class ServeEngine:
             h = self.step_times[kind] = Histogram()
         h.observe(dt * 1e3)
         if self.ledger is not None:
+            pool_blocks = self.manager.occupancy() \
+                if self.manager is not None else 0
             self.ledger.record_step(kind, dt, shares or [],
-                                    pool_blocks=self.manager.occupancy())
+                                    pool_blocks=pool_blocks)
 
     def _blocks_held(self, slot: int) -> int:
+        """KV blocks this slot pins (0 on the dense layout)."""
         return len(self._slot_blocks[slot])
 
     def step_summary(self) -> Optional[dict]:
@@ -315,24 +391,26 @@ class ServeEngine:
     def _admit_pending(self):
         for slot in range(self.slots):
             if self.active[slot] is None and self._pending:
-                req = self._pending[0]
-                try:
-                    adm = self.manager.admit(
-                        req.prompt, len(req.prompt) + req.max_new_tokens)
-                except PoolExhausted as err:
-                    if self.active_count() == 0:
-                        # nothing in flight will ever free blocks: the
-                        # request cannot be served — fail it, not the
-                        # replica
-                        self._pending.pop(0)
-                        req.error = err
-                        req.done = True
-                        if self.retain_finished:
-                            self._finished.append(req)
-                        if self.on_finish:
-                            self.on_finish(req)
-                        continue
-                    break       # retry after a running request retires
+                adm = None
+                if self.kv_layout == "paged":
+                    req = self._pending[0]
+                    try:
+                        adm = self.manager.admit(
+                            req.prompt, len(req.prompt) + req.max_new_tokens)
+                    except PoolExhausted as err:
+                        if self.active_count() == 0:
+                            # nothing in flight will ever free blocks: the
+                            # request cannot be served — fail it, not the
+                            # replica
+                            self._pending.pop(0)
+                            req.error = err
+                            req.done = True
+                            if self.retain_finished:
+                                self._finished.append(req)
+                            if self.on_finish:
+                                self.on_finish(req)
+                            continue
+                        break       # retry after a running request retires
                 req = self._pending.pop(0)
                 self.active[slot] = req
                 self._prefill_slot(slot, req, adm)
@@ -356,15 +434,19 @@ class ServeEngine:
     def _host_logits(self, row) -> np.ndarray:
         return row.float().cpu().numpy()
 
-    def _prefill_slot(self, slot: int, req: Request, adm):
-        """Fill this slot's pages from the prompt. `adm` is the Admission
-        (block chain + reused-prefix length) from the manager."""
+    def _prefill_slot(self, slot: int, req: Request, adm=None):
+        """Fill this slot's cache from the prompt. `adm` is the paged
+        layout's Admission (block chain + reused-prefix length) from the
+        manager; None on the dense layout."""
         t0 = time.perf_counter()
         tok0 = self.prefill_tokens_computed
         with otrace.span("engine.step", tid=self.trace_tid, step="prefill",
                          slot=slot, prompt_len=len(req.prompt),
-                         reused=adm.n_reused):
-            first = self._paged_prefill_slot(slot, req, adm)
+                         reused=(adm.n_reused if adm is not None else 0)):
+            if adm is not None:
+                first = self._paged_prefill_slot(slot, req, adm)
+            else:
+                first = self._dense_prefill_slot(slot, req)
             self._finish_prefill(slot, req, first)
         # share basis: prompt tokens actually computed (min 1 — a full
         # prefix hit still occupied the dispatch)
@@ -401,6 +483,50 @@ class ServeEngine:
             src, dst = adm.cow
             T.copy_pool_blocks(self.cache, [src], [dst])
             self.manager.cow_done(src)
+
+    def _write_slot(self, slot: int, one):
+        """Copy a one-row dense cache (`T.init_cache(cfg, 1, ...)` layout)
+        into row `slot` of the engine's cache, in place."""
+        for dst, src in zip(self.cache, one):
+            for key, t in dst.items():
+                t[slot] = src[key][0].to(t.dtype)
+
+    def _empty_row(self):
+        return T.init_cache(self.cfg, 1, self.cache_len, self.device)
+
+    def _dense_prefill_slot(self, slot: int, req: Request):
+        """Clear the slot, then fill it from the prompt: one bulk forward
+        whose caches are copied into the slot, or len(prompt) decode steps
+        that write this slot's cache rows and no other. Returns the first
+        generated token."""
+        greedy = req.sampling.is_greedy
+        P = len(req.prompt)
+        self.prefill_tokens_computed += P
+        if self.prefill_mode == "bulk" and req.prompt:
+            Sb = bucket_len(P, self.cache_len) if self._bucket_prompts else P
+            toks = self._ints([req.prompt + [0] * (Sb - P)])
+            prefill = self._prefill_tok if greedy else self._prefill_lg
+            out, nat = prefill(self.params, {"tokens": toks}, P)
+            self._write_slot(slot, prefill_into_cache(
+                self.cfg, nat, self._empty_row(), [P]))
+            return int(out[0]) if greedy else \
+                self._sample_safe(req, self._host_logits(out[0]))
+        self._write_slot(slot, self._empty_row())
+        if not req.prompt:
+            # degenerate empty prompt: argmax of a zero logits row
+            return 0 if greedy else self._sample_safe(
+                req, np.zeros((self.cfg.vocab_size,), np.float32))
+        decode = self._decode_tok if greedy else self._decode_lg
+        rows = torch.tensor([slot], device=self.device)
+        toks = np.zeros((self.slots, 1), np.int32)
+        pos = np.zeros((self.slots,), np.int32)
+        for t, tok in enumerate(req.prompt):
+            toks[slot, 0] = tok
+            pos[slot] = t
+            out, _ = decode(self.params, self._ints(toks), self._ints(pos),
+                            self.cache, rows)
+        return int(out[slot]) if greedy else \
+            self._sample_safe(req, self._host_logits(out[slot]))
 
     def _paged_prefill_slot(self, slot: int, req: Request, adm):
         """Prefix-reusing prefill: wire the slot's block table from the
@@ -497,11 +623,18 @@ class ServeEngine:
             decode = self._decode_tok if greedy_batch else self._decode_lg
             with otrace.span("device.decode", tid=self.trace_tid,
                              kind="single", greedy=greedy_batch):
-                # every live slot scatters exactly into its own frontier
-                # page; empty slots' zero tables hit the null block
-                out, _ = decode(self.params, self._ints(toks),
-                                self._ints(pos), self.cache,
-                                self._ints(self.table))
+                if self.kv_layout == "paged":
+                    # every live slot scatters exactly into its own
+                    # frontier page; empty slots' zero tables hit the
+                    # null block
+                    out, _ = decode(self.params, self._ints(toks),
+                                    self._ints(pos), self.cache,
+                                    self._ints(self.table))
+                else:
+                    # only the live slots' cache rows are written
+                    out, _ = decode(self.params, self._ints(toks),
+                                    self._ints(pos), self.cache,
+                                    torch.tensor(live, device=self.device))
                 otrace.fence((out, self.cache))
             out = out.cpu().numpy() if greedy_batch else \
                 out.float().cpu().numpy()

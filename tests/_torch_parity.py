@@ -43,7 +43,8 @@ def bridged_model(arch="qwen3-1.7b", seed=0):
     per process (the reference's init compiles for seconds). Callers must
     not modify the params."""
     jcfg, tcfg = configs(arch)
-    jparams = JT.init_lm(jax.random.PRNGKey(seed), jcfg)
+    jparams = jax.jit(JT.init_lm, static_argnums=1)(jax.random.PRNGKey(seed),
+                                                     jcfg)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
                               device="cpu")
     return jcfg, tcfg, jparams, tparams
@@ -65,3 +66,16 @@ def jax_pools(cache, n_layers):
 
 def torch_pools(cache):
     return [(to_np(p["k"]), to_np(p["v"])) for p in cache]
+
+
+def jax_layer_caches(cache, cfg):
+    """The reference's dense cache ({"blocks": tuple over block_pattern of
+    leaves stacked on n_blocks, "tail": tuple}) as the port's per-layer
+    list of numpy dicts, blocks then tail."""
+    n_pat = len(cfg.block_pattern)
+    out = []
+    for li in range(cfg.n_blocks * n_pat):
+        out.append({k: np.asarray(v[li // n_pat])
+                    for k, v in cache["blocks"][li % n_pat].items()})
+    out += [{k: np.asarray(v) for k, v in c.items()} for c in cache["tail"]]
+    return out

@@ -152,8 +152,7 @@ def test_prefill_and_decode_logits_match(model):
 def test_unported_paths_refuse_loudly(model):
     _, tcfg, _, tp = model
     base = dict(batch_slots=2, cache_len=32, block_size=BS, device="cpu")
-    for kw in (dict(kv_layout="dense"),
-               dict(kv_layout="paged", fused_tokens=4),
+    for kw in (dict(kv_layout="paged", fused_tokens=4),
                dict(kv_layout="paged", spec_tokens=2),
                dict(kv_layout="paged", scheduler="chunked")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

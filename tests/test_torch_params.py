@@ -31,7 +31,7 @@ def test_config_matches_reference(arch, reduced):
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert t.param_count() == j.param_count()
     assert t.activation_dtype == getattr(torch, t.dtype)
-    assert TT.paged_supported(t) and JT.paged_supported(j)
+    assert TT.paged_supported(t) == JT.paged_supported(j)
 
 
 def _shapes(tree):
@@ -103,3 +103,47 @@ def test_bridge_refuses_bad_trees():
                                                   tree["blocks"][0]),))
     with pytest.raises(ValueError, match="n_blocks"):
         params_from_jax(wrong_depth, cfg, device="cpu")
+
+
+def test_bridge_keeps_rglru_f32_leaves_and_uses_every_tail_leaf():
+    """Under a bf16 config the RG-LRU's b_r, b_i and Lambda stay float32
+    (the reference's init keeps them so) and every other leaf is bf16; a
+    hybrid with a tail has every block and tail leaf carried across once,
+    in layer order blocks then tail."""
+    from repro.configs.base import ModelConfig as JaxConfig
+    from repro.configs.base import RGLRUConfig as JaxRGLRU
+    from repro_torch.configs.base import ModelConfig, RGLRUConfig
+    kw = dict(arch_id="h", family="hybrid", n_layers=5, d_model=64,
+              n_heads=4, n_kv_heads=1, d_ff=128, vocab_size=97,
+              block_pattern=("rglru", "rglru", "attn"),
+              tail_pattern=("rglru", "rglru"), window=8,
+              dtype="bfloat16", param_dtype="bfloat16")
+    jcfg = JaxConfig(**kw, rglru=JaxRGLRU(lru_width=64))
+    tcfg = ModelConfig(**kw, rglru=RGLRUConfig(lru_width=64))
+    tree = jax.tree.map(np.asarray, JT.init_lm(jax.random.PRNGKey(2), jcfg))
+    params = params_from_jax(tree, tcfg, device="cpu")
+    assert _shapes(params) == TT.param_shapes(tcfg)
+    assert [("rglru" in layer) for layer in params["layers"]] == \
+        [t == "rglru" for t in tcfg.layer_types()]
+    n_ref = sum(a.size for a in jax.tree.leaves(tree))
+    assert sum(t.numel() for t in _leaves(params)) == n_ref
+    for layer in params["layers"]:
+        for name, t in layer.get("rglru", {}).items():
+            want = torch.float32 if name in ("b_r", "b_i", "Lambda") \
+                else torch.bfloat16
+            assert t.dtype == want, name
+        assert layer["ffn"]["w_up"].dtype == torch.bfloat16
+    # tail layer i is the reference's tail[i], block layers unstack
+    np.testing.assert_array_equal(
+        params["layers"][4]["rglru"]["Lambda"].numpy(),
+        tree["tail"][1]["rglru"]["Lambda"])
+    np.testing.assert_array_equal(
+        params["layers"][3]["rglru"]["w_r"].float().numpy(),
+        tree["tail"][0]["rglru"]["w_r"].astype(np.float32))
+    np.testing.assert_array_equal(
+        params["layers"][1]["rglru"]["b_i"].numpy(),
+        tree["blocks"][1]["rglru"]["b_i"][0])
+    # the port's own init draws the same dtypes
+    own = TT.init_lm(torch.Generator().manual_seed(0), tcfg)
+    assert own["layers"][0]["rglru"]["Lambda"].dtype == torch.float32
+    assert own["layers"][0]["rglru"]["w_x"].dtype == torch.bfloat16
