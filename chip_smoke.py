@@ -57,6 +57,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the H100's dense bf16 tensor rate, for flash; bytes for the scan) and,
    for flash, `scaled_dot_product_attention` (causal with GQA, or an
    explicit window mask; timed here only, the port never calls it).
+12. The SSD chunked-scan kernel against its plain version (the sequential
+   recurrence): the reference's four test shapes, a ragged sequence (1,
+   1000, 24 heads, hd 64, d_state 128) and mamba2-130m's 2,048-token
+   prefill; f32 (TF32 off) at 2e-4, bf16 x/B/C at 5e-2 (the reference
+   kernel test's own).
+13. Serving mamba2-130m at full width and depth (24 layers, d_model 768,
+   24 SSM heads of hd 64, d_state 128, chunk 256, vocab 50280, tied) on
+   the dense layout in bf16 with attention_impl="pallas": `batch_slots=8`,
+   ten prompts of 64-1,024 tokens (300 and 777 among them: not multiples
+   of the chunk, which the reference's Pallas route refuses) and one of
+   2,048, 32 new tokens each, one sampled. The SSD kernel must launch 24 x
+   the bulk prefills and no other kernel at all. A greedy batch-8 decode
+   step and the 2,048-token bulk prefill are profiled. Then, in f32 at
+   full depth, "pallas" against "xla" in lockstep, as in phase 9.
+14. Timings of the SSD kernel at the 2,048-token prefill (bf16 x/B/C, f32
+   dt): kernel, plain version and bound (the larger of bytes / 3.35 TB/s
+   and flops / 989 TFLOP/s, counting the score products over the visible
+   pairs of the reference's 256-token chunks); no single PyTorch call
+   computes SSD, so no library time.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; above it
 stand the card's name and power limit and one JSON line with each
@@ -94,6 +113,17 @@ FLASH_CASES = [
 ]
 # RG-LRU scan: the reference's (RGLRU_CASES) and recurrentgemma-9b's: B, S, C
 SCAN_CASES = [(2, 32, 64), (1, 100, 130), (2, 16, 16), (1, 2560, 4096)]
+# SSD scan: the reference's (tests/test_kernels.py SSD_CASES), a ragged
+# sequence and mamba2-130m's 2,048-token prefill: b, s, h, p, g, n, chunk
+SSD_CASES = [
+    (2, 32, 4, 16, 1, 8, 8),
+    (1, 64, 2, 8, 2, 16, 16),
+    (2, 16, 4, 32, 1, 32, 16),
+    (1, 128, 3, 16, 1, 8, 32),
+    (1, 1000, 24, 64, 1, 128, 256),
+    (1, 2048, 24, 64, 1, 128, 256),
+]
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 LOGIT_TOL = 1e-3
 # the reference's kernel test shapes (tests/test_paged_attention_kernel.py)
 # and the main path's: B, nb, bs, nkv, rep, hd, tokens resident per slot
@@ -266,6 +296,47 @@ def check_scan(device) -> dict:
     return errs
 
 
+def ssd_inputs(b, s, h, p, g, n, dtype, device, seed=SEED):
+    """x, B, C in `dtype`; dt = softplus(N(0,1)) * 0.1 and A = -exp(N(0,1)
+    * 0.5) in f32, as the reference's kernel test draws them."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    x = randn(b, s, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(randn(b, s, h)) * 0.1
+    A = -torch.exp(randn(h) * 0.5)
+    return x, dt, A, randn(b, s, g, n).to(dtype), randn(b, s, g, n).to(dtype)
+
+
+def check_ssd(device) -> dict:
+    """Phase 12. Returns the largest error (y and final state) per dtype at
+    mamba2-130m's shape (the last case)."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in SSD_CASES:
+            args = ssd_inputs(*case[:6], dtype, device)
+            y, st = ssd_scan(*args)
+            torch.cuda.synchronize()
+            ry, rst = ssd_ref(*args)
+            tol, err, bad = SSD_TOL[dtype], 0.0, 0
+            for out, ref in ((y.float(), ry), (st, rst)):
+                diff = (out - ref).abs()
+                err = max(err, diff.max().item())
+                bad += (diff > tol + tol * ref.abs()).sum().item()
+            if bad or y.dtype != dtype or not torch.isfinite(y).all() \
+                    or not torch.isfinite(st).all():
+                raise AssertionError(f"ssd kernel vs plain {dtype} {case}: "
+                                     f"max err {err} (tol {tol}), {bad} "
+                                     "elements out of tolerance")
+            log(f"  ssd_scan {str(dtype):14s} b,s,h,p,g,n,chunk={case}: max "
+                f"abs err {err:.3g} (tol {tol})")
+            errs[dtype] = err
+    return errs
+
+
 def time_cuda(fn, iters=200, warmup=20) -> float:
     """Mean ms per call from CUDA events around `iters` calls."""
     for _ in range(warmup):
@@ -399,6 +470,37 @@ def time_scan(device) -> dict:
     flops = 2 * B * S * C
     bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS * 1e3
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": bytes_, "flops": flops}
+
+
+def time_ssd(device) -> dict:
+    """Phase 14: mamba2-130m's 2,048-token prefill shape, bf16 x/B/C and
+    f32 dt as the model hands them over; eight input sets (60 MB, above the
+    50 MB L2) are cycled."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    b, s, h, p, g, n, q = SSD_CASES[-1]
+    sets = [ssd_inputs(b, s, h, p, g, n, torch.bfloat16, device,
+                       seed=SEED + i) for i in range(8)]
+    nxt = cycle(sets)
+    kernel_ms = time_cuda(lambda: ssd_scan(*nxt()), iters=50, warmup=5)
+    plain_ms = time_cuda(lambda: ssd_ref(*nxt()), iters=3, warmup=1)
+    # inputs read once, y (bf16) and the final state (f32) written once
+    bytes_ = (sum(t.numel() * t.element_size() for t in sets[0])
+              + b * s * h * p * 2 + b * h * p * n * 4)
+    # per (chunk, head) of the reference's chunks: C.B^T and the score
+    # product over the visible pairs (i >= j), the carried-state term and
+    # the state update
+    flops = 0
+    for c0 in range(0, s, q):
+        m = min(q, s - c0)
+        flops += 2 * (m * (m + 1) // 2) * (n + p) + 4 * m * n * p
+    flops *= b * h
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
     return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -604,8 +706,10 @@ def counters() -> dict:
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
     return {"paged_attention": paged_attention,
-            "flash_attention": flash_attention, "rglru_scan": rglru_scan}
+            "flash_attention": flash_attention, "rglru_scan": rglru_scan,
+            "ssd_scan": ssd_scan}
 
 
 def make_dense_engine(params, cfg, device, batch_slots, cache_len):
@@ -616,7 +720,7 @@ def make_dense_engine(params, cfg, device, batch_slots, cache_len):
 
 
 def serve_dense(engine, requests, per_prefill: dict) -> dict:
-    """Phases 9 and 10's main path: every launch count set to 0 just
+    """Phases 9, 10 and 13's main path: every launch count set to 0 just
     before the run and read just after; kernel k must have launched
     per_prefill[k] x the bulk prefills, every other kernel not at all."""
     reqs = [engine.submit(p, max_new_tokens=n, sampling=s)
@@ -669,17 +773,17 @@ def finite_round(engine, requests):
         raise AssertionError(f"{engine.cfg.arch_id}: non-finite logits")
 
 
-def log_profile(prof: dict):
+def log_profile(prof: dict, what: str = "step"):
     if prof["busy_share"] is None:
-        log(f"  step {prof['step_ms']:.3f} ms; device time not measured "
+        log(f"  {what} {prof['step_ms']:.3f} ms; device time not measured "
             "(the profiler recorded no device events)")
         return
-    log(f"  step {prof['step_ms']:.3f} ms, device busy "
+    log(f"  {what} {prof['step_ms']:.3f} ms, device busy "
         f"{prof['device_ms']:.3f} ms ({100 * prof['busy_share']:.1f}%), "
-        f"{prof['device_ops_per_step']:.0f} device ops per step "
+        f"{prof['device_ops_per_step']:.0f} device ops per {what} "
         f"(kernels and copies)")
     for name, ms, count in prof["top"]:
-        log(f"    {ms:8.4f} ms/step  x{count:<4d} {name}")
+        log(f"    {ms:8.4f} ms/{what}  x{count:<4d} {name}")
 
 
 def log_served(s: dict):
@@ -721,29 +825,65 @@ def rgemma_requests(cfg, new_tokens=16, seed=SEED):
     return [(p, s, new_tokens) for p, s in zip(prompts, sampling)]
 
 
+def mamba_config(dtype: str, **kw):
+    from repro_torch.configs import get
+    return get("mamba2-130m").replace(dtype=dtype, param_dtype=dtype, **kw)
+
+
+def mamba_requests(cfg, new_tokens=32, seed=SEED):
+    """Ten prompts of 64-1,024 tokens, the first two of 300 and 777 (not
+    multiples of the 256-token chunk), and one of 2,048; request 4
+    samples with a seed."""
+    from repro_torch.serve.sampler import SamplingParams
+    rng = np.random.default_rng(seed)
+    lens = [300, 777] + list(rng.integers(64, 1025, 8)) + [2048]
+    prompts = [rng.integers(0, cfg.vocab_size, int(m)).tolist()
+               for m in lens]
+    sampling = [None] * len(prompts)
+    sampling[4] = SamplingParams(temperature=0.8, top_k=50, seed=7)
+    return [(p, s, new_tokens) for p, s in zip(prompts, sampling)]
+
+
 def profile_decode(engine, requests, steps=8) -> dict:
-    """Phases 6, 9 and 10: where a decode step's time goes, for a greedy
-    batch filling every slot at full width. Times `steps` steps with the
-    host clock, then the same number again under torch.profiler for the
-    device-side breakdown (the profiler's own host overhead stays out of
-    the step time)."""
-    from torch.profiler import ProfilerActivity, profile
+    """Phases 6, 9, 10 and 13: where a decode step's time goes, for a greedy
+    batch filling every slot at full width."""
     engine.reset()
     for p, _, n in requests[:engine.slots]:
         # budget for every step below: no slot retires inside the window
         engine.submit(p, max_new_tokens=max(n, 2 * steps + 3))
     engine.step()                  # admission, prefill, first decode
     engine.step()
+    return profile_steps(engine.step, steps)
+
+
+def profile_prefill(engine, prompt, steps=3) -> dict:
+    """Phase 13: where one greedy bulk prefill's time goes. Each step
+    admits `prompt` with a budget of one token, so the engine prefills it
+    and retires it in the same step, with no decode."""
+    engine.reset()
+
+    def prefill():
+        engine.submit(prompt, max_new_tokens=1)
+        engine.step()
+    prefill()                      # warm-up
+    return profile_steps(prefill, steps)
+
+
+def profile_steps(fn, steps) -> dict:
+    """Times `steps` calls of `fn` with the host clock, then the same
+    number again under torch.profiler for the device-side breakdown (the
+    profiler's own host overhead stays out of the step time)."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        engine.step()
+        fn()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            engine.step()
+            fn()
         torch.cuda.synchronize()
 
     def dev_us(e):
@@ -801,6 +941,8 @@ def main(device: str = "cuda") -> int:
     flash_errs = check_flash(device)
     log("[8] RG-LRU scan kernel against its plain version")
     scan_errs = check_scan(device)
+    log("[12] SSD scan kernel against its plain version")
+    ssd_errs = check_ssd(device)
 
     log("[3] serving qwen3-1.7b at full width, bf16")
     cfg = full_config("bfloat16")
@@ -940,6 +1082,53 @@ def main(device: str = "cuda") -> int:
         f"({scan_t['bytes']} bytes)")
     flash_main = flash_t[FLASH_CASES[-1]]
 
+    log("[13] serving mamba2-130m at full width on the dense layout, bf16, "
+        "attention_impl='pallas'")
+    cfg_m = mamba_config("bfloat16", attention_impl="pallas")
+    params = make_model(cfg_m, device)
+    log(f"  {numel(params) / 1e6:.1f} M parameters (padded vocab "
+        f"{cfg_m.padded_vocab_size}; {cfg_m.param_count() / 1e6:.1f} M as "
+        "the config counts them)")
+    eng = make_dense_engine(params, cfg_m, device, 8, 4096)
+    for p, s, n in mamba_requests(cfg_m, new_tokens=2, seed=SEED + 1)[:4]:
+        eng.submit(p, max_new_tokens=n, sampling=s)
+    eng.run()
+    eng.reset()
+    eng.step_times.clear()
+    m_requests = mamba_requests(cfg_m)
+    dense_m = serve_dense(eng, m_requests, {"ssd_scan": cfg_m.n_layers})
+    log_served(dense_m)
+    finite_round(eng, m_requests[-2:])
+    log("[13] where a greedy batch-8 decode step's time goes (bf16)")
+    log_profile(profile_decode(eng, m_requests))
+    log(f"[13] where a greedy bulk prefill of {len(m_requests[-1][0])} "
+        "tokens goes (bf16)")
+    log_profile(profile_prefill(eng, m_requests[-1][0]), "prefill")
+    del eng, params
+    torch.cuda.empty_cache()
+
+    cfg_m32 = mamba_config("float32")
+    log("[13] mamba2-130m at full width and depth, f32: 'pallas' against "
+        "'xla'")
+    params32 = make_model(cfg_m32, device)
+    picked = mamba_requests(cfg_m32)
+    m32 = [(p, None, 8) for p, _, _ in picked[:3] + picked[-1:]]
+    dense_m32 = lockstep(
+        [make_dense_engine(params32, cfg_m32.replace(attention_impl=impl),
+                           device, 8, 4096) for impl in ("pallas", "xla")],
+        m32)
+    log_lockstep(dense_m32)
+    del params32
+    torch.cuda.empty_cache()
+
+    log("[14] SSD kernel timings at mamba2-130m's 2,048-token prefill")
+    ssd_t = time_ssd(device)
+    log(f"  ssd_scan b,s,h,p,g,n,chunk={SSD_CASES[-1]}: kernel "
+        f"{ssd_t['ms']:.4f} ms, plain {ssd_t['plain_ms']:.4f} ms, no library "
+        f"call, bound {ssd_t['bound_ms']:.4f} ms by {ssd_t['bound_by']} "
+        f"({ssd_t['bytes']} bytes, {ssd_t['flops']} flops at "
+        f"{BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s)")
+
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -969,6 +1158,15 @@ def main(device: str = "cuda") -> int:
         "ms": scan_t["ms"], "plain_ms": scan_t["plain_ms"],
         "bound_ms": scan_t["bound_ms"], "bound_by": scan_t["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:24",
+        "launches": dense_m["launches"]["ssd_scan"],
+        "max_abs_err": ssd_errs[torch.bfloat16],
+        "ms": ssd_t["ms"], "plain_ms": ssd_t["plain_ms"],
+        "bound_ms": ssd_t["bound_ms"], "bound_by": ssd_t["bound_by"],
+        "library_ms": None,
     }]
     log(f"kernels: paged_attention launches={served['launches']} "
         f"(decode dispatches {served['decode_dispatches']} x "
@@ -985,6 +1183,10 @@ def main(device: str = "cuda") -> int:
         f"layers); "
         f"f32 max abs err {scan_errs[torch.float32]:.3g}, bf16 "
         f"{scan_errs[torch.bfloat16]:.3g}")
+    log(f"kernels: ssd_scan launches={kernels[3]['launches']} "
+        f"({dense_m['prefills']} prefills x {cfg_m.n_layers} layers); f32 "
+        f"max abs err {ssd_errs[torch.float32]:.3g}, bf16 "
+        f"{ssd_errs[torch.bfloat16]:.3g}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -119,11 +119,12 @@ class ModelConfig:
     attention_impl: str = "xla"           # xla | pallas. In the port "pallas"
                                           # means the ports of the Pallas
                                           # kernels (flash attention, RG-LRU
-                                          # scan): the CUDA kernel on CUDA
-                                          # tensors, its plain version on CPU
-                                          # tensors; "xla" the plain torch
-                                          # composition the reference runs
-                                          # there (dense SDPA, log-depth scan)
+                                          # scan, SSD scan): the CUDA kernel
+                                          # on CUDA tensors, its plain
+                                          # version on CPU tensors; "xla" the
+                                          # plain torch composition the
+                                          # reference runs there (dense SDPA,
+                                          # log-depth scan, chunked SSD)
     source: str = ""                      # citation bracket from the assignment
 
     # ----- derived -----

@@ -1,9 +1,9 @@
 """Config registry: --arch <id> -> ModelConfig, full or reduced.
 
-The port registers the pure-attention decoder archs and the RG-LRU hybrid
-(recurrentgemma-9b), the families its models run; the MoE, Mamba2,
-enc-dec and modality-prefix families wait for their own slices
-(ROADMAP.md Queue 1). `reduce_config` is the
+The port registers the pure-attention decoder archs, the RG-LRU hybrid
+(recurrentgemma-9b) and Mamba2 (mamba2-130m), the families its models
+run; the MoE, enc-dec and modality-prefix families wait for their own
+slices (ROADMAP.md Queue 1). `reduce_config` is the
 reference's, so a reduced config here equals the reduced config there
 field for field (the parity tests rely on it).
 """
@@ -14,6 +14,7 @@ from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
 
+from repro_torch.configs.mamba2_130m import CONFIG as _mamba2
 from repro_torch.configs.mistral_nemo_12b import CONFIG as _nemo
 from repro_torch.configs.qwen3_1_7b import CONFIG as _qwen17b
 from repro_torch.configs.qwen3_4b import CONFIG as _qwen4b
@@ -21,7 +22,7 @@ from repro_torch.configs.recurrentgemma_9b import CONFIG as _rgemma
 from repro_torch.configs.starcoder2_7b import CONFIG as _starcoder2
 
 REGISTRY: Dict[str, ModelConfig] = {c.arch_id: c for c in [
-    _nemo, _qwen17b, _qwen4b, _rgemma, _starcoder2,
+    _mamba2, _nemo, _qwen17b, _qwen4b, _rgemma, _starcoder2,
 ]}
 
 ARCH_IDS = sorted(REGISTRY)

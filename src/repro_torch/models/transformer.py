@@ -1,6 +1,6 @@
 """Decoder LM over a dense (ring) or paged KV cache: the serving half of
-`repro.models.transformer` for the pure-attention decoders and the RG-LRU
-hybrid (recurrentgemma).
+`repro.models.transformer` for the pure-attention decoders, the RG-LRU
+hybrid (recurrentgemma) and Mamba2 (attention-free SSM stacks).
 
 The reference stacks block parameters on a leading n_blocks axis and runs
 them with `lax.scan`, then the unstacked tail layers. The port keeps one
@@ -23,18 +23,21 @@ Entry points:
 Params: {"embed": {"table"}, "layers": [per-layer dict], "final_norm":
 {"scale"}, and "lm_head" when embeddings are untied}. An attention layer
 dict is {"norm1", "attn", "norm2", "ffn"}, an RG-LRU layer dict {"norm1",
-"rglru", "norm2", "ffn"}, with the reference's leaf names.
+"rglru", "norm2", "ffn"}, a Mamba2 layer dict {"norm1", "mamba"} (no FFN,
+as in the reference), with the reference's leaf names.
 
 Caches are lists with one dict per layer, updated in place. Dense: {"k",
 "v": (B, Sc, nkv, hd), "pos": (B, Sc) int32, -1 = empty} for attention,
-{"h": (B, w) f32, "conv": (B, d_conv-1, w)} for RG-LRU. Paged: {"k", "v"}
-pools of (P, bs, nkv, hd) per attention layer.
+{"h": (B, w) f32, "conv": (B, d_conv-1, w)} for RG-LRU, {"ssm": (B, nh,
+hd, d_state) f32, "conv": (B, d_conv-1, conv_dim)} for Mamba2. Paged:
+{"k", "v"} pools of (P, bs, nkv, hd) per attention layer.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import rglru as RG
 
 
@@ -47,11 +50,6 @@ def paged_supported(cfg) -> bool:
 
 
 def _check_ported(cfg):
-    if "ssm" in cfg.layer_types():
-        raise NotImplementedError(
-            f"{cfg.arch_id}: Mamba2 (ssm) layers and the ssd_scan kernel are "
-            "not ported yet (ROADMAP.md Queue 1, 'The other families'; "
-            "Queue 2 row 3)")
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.arch_id}: encoder-decoder cross-attention is not ported "
@@ -86,6 +84,10 @@ def param_shapes(cfg) -> dict:
         mixer["rglru"] = ("rglru", RG.param_shapes(cfg))
     layers = []
     for t in cfg.layer_types():
+        if t == "ssm":
+            layers.append({"norm1": {"scale": (d,)},
+                           "mamba": M2.param_shapes(cfg)})
+            continue
         name, shapes = mixer[t]
         layers.append({"norm1": {"scale": (d,)}, name: shapes,
                        "norm2": {"scale": (d,)}, "ffn": ffn})
@@ -98,6 +100,9 @@ def param_shapes(cfg) -> dict:
 
 def _init_layer(gen, cfg, ltype: str):
     pdt, d = cfg.parameter_dtype, cfg.d_model
+    if ltype == "ssm":
+        return {"norm1": L.init_rms_norm(d, pdt, gen.device),
+                "mamba": M2.init_mamba2(gen, cfg)}
     if ltype == "attn":
         name, mixer = "attn", L.init_attention(gen, cfg)
     else:
@@ -111,7 +116,8 @@ def _init_layer(gen, cfg, ltype: str):
 def init_lm(gen: torch.Generator, cfg) -> dict:
     """Random weights with the reference's distributions (uniform
     +-1/sqrt(d_in) matrices, N(0, 0.02^2) embedding, zero norm scales, the
-    RG-LRU's Lambda from a^c in [0.9, 0.999]), drawn from `gen` on
+    RG-LRU's Lambda from a^c in [0.9, 0.999], Mamba2's A_log = log(1..nh)
+    and dt_bias spanning [dt_min, dt_max]), drawn from `gen` on
     `gen.device`. The draws differ from the reference's `jax.random` bits;
     parity tests bridge the reference's weights instead
     (`params.params_from_jax`)."""
@@ -147,6 +153,9 @@ def _logits(params, cfg, x):
 def _layer_full(lp, cfg, ltype, x, positions, window):
     """One layer, full sequence. Returns (x, cache at natural length)."""
     h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
+    if ltype == "ssm":
+        out, cache = M2.mamba2_forward(lp["mamba"], cfg, h)
+        return x + out, cache
     if ltype == "attn":
         att, (k, v) = L.attention(lp["attn"], cfg, h, positions,
                                   causal=True, window=window)
@@ -182,7 +191,8 @@ def forward_prefill(params, cfg, batch, window=None):
 
 def init_cache(cfg, batch_size: int, cache_len: int, device="cuda"):
     """Empty dense cache: per attention layer (B, cache_len) K/V slots with
-    pos -1; per RG-LRU layer a zero f32 state and a zero conv window."""
+    pos -1; per RG-LRU or Mamba2 layer a zero f32 state and a zero conv
+    window."""
     _check_ported(cfg)
     hd, nkv = cfg.resolved_head_dim, cfg.n_kv_heads
     adt = cfg.activation_dtype
@@ -194,6 +204,15 @@ def init_cache(cfg, batch_size: int, cache_len: int, device="cuda"):
                     "v": torch.zeros(shape, dtype=adt, device=device),
                     "pos": torch.full((batch_size, cache_len), -1,
                                       dtype=torch.int32, device=device)}
+        if ltype == "ssm":
+            s = cfg.ssm
+            nh = s.n_heads(cfg.d_model)
+            return {"ssm": torch.zeros((batch_size, nh, s.head_dim,
+                                        s.d_state), dtype=torch.float32,
+                                       device=device),
+                    "conv": torch.zeros((batch_size, s.d_conv - 1,
+                                         M2.conv_dim(cfg)), dtype=adt,
+                                        device=device)}
         w = cfg.rglru.lru_width or cfg.d_model
         return {"h": torch.zeros((batch_size, w), dtype=torch.float32,
                                  device=device),
@@ -202,16 +221,24 @@ def init_cache(cfg, batch_size: int, cache_len: int, device="cuda"):
     return [one(t) for t in cfg.layer_types()]
 
 
+def _write_rows(cache, new, rows):
+    for key, t in new.items():
+        cache[key][rows] = t[rows].to(cache[key].dtype)
+
+
 def _layer_decode(lp, cfg, ltype, x, pos, cache, window, rows):
     h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
+    if ltype == "ssm":
+        out, new = M2.mamba2_decode(lp["mamba"], cfg, h, cache)
+        _write_rows(cache, new, rows)
+        return x + out
     if ltype == "attn":
         att, _, _, _ = L.attention_decode(
             lp["attn"], cfg, h, pos, cache["k"], cache["v"], cache["pos"],
             window=window, rows=rows)
     else:
         att, new = RG.rglru_block_decode(lp["rglru"], cfg, h, cache)
-        for key in ("h", "conv"):
-            cache[key][rows] = new[key][rows].to(cache[key].dtype)
+        _write_rows(cache, new, rows)
     x = x + att
     h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
     return x + _ffn_apply(lp, cfg, h)

@@ -11,8 +11,9 @@ reference's `(d_in, d_out)` layout.
 
 Every leaf goes to `cfg.parameter_dtype` except those the reference's init
 keeps in float32 whatever the parameter dtype: the RG-LRU's gate biases and
-Lambda (`rglru.F32_LEAVES`, from `init_rglru_block`). The rule is the
-init's, not the numpy leaf's dtype.
+Lambda (`rglru.F32_LEAVES`, from `init_rglru_block`) and Mamba2's A_log and
+dt_bias (`mamba2.F32_LEAVES`, from `init_mamba2`). The rule is the init's,
+not the numpy leaf's dtype.
 
 The caller hands the tree over as numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)``); this module imports no JAX.
@@ -24,10 +25,13 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import rglru as RG
 from repro_torch.models import transformer as T
 
 Path = Tuple
+# float32 leaves, by the name of the mixer that holds them
+F32_LEAVES = {"rglru": RG.F32_LEAVES, "mamba": M2.F32_LEAVES}
 
 
 def _flatten(tree, prefix: Path = ()) -> Dict[Path, np.ndarray]:
@@ -61,9 +65,9 @@ def _set(tree: dict, path: Path, value):
 
 def params_from_jax(tree, cfg, device="cuda") -> dict:
     """Convert the reference's parameter tree (numpy leaves) into the
-    port's params on `device`, in `cfg.parameter_dtype` (the RG-LRU's
-    float32 leaves stay float32). Raises ValueError on a missing leaf, a
-    shape mismatch, or any leaf left unused."""
+    port's params on `device`, in `cfg.parameter_dtype` (the RG-LRU's and
+    Mamba2's float32 leaves stay float32). Raises ValueError on a missing
+    leaf, a shape mismatch, or any leaf left unused."""
     flat = _flatten(tree)
     used = set()
 
@@ -82,8 +86,8 @@ def params_from_jax(tree, cfg, device="cuda") -> dict:
                              f"{tuple(a.shape)}, expected {tuple(shape)}")
         if a.dtype.name == "bfloat16":        # ml_dtypes; torch can't wrap it
             a = a.astype(np.float32)
-        f32 = len(path) >= 2 and path[-2] == "rglru" \
-            and path[-1] in RG.F32_LEAVES
+        f32 = len(path) >= 2 \
+            and path[-1] in F32_LEAVES.get(path[-2], ())
         dtype = torch.float32 if f32 else cfg.parameter_dtype
         return torch.tensor(a, device=device, dtype=dtype)
 

@@ -9,15 +9,16 @@ admitted. `kv_layout` picks the cache:
 
   * "dense" (the default, as in the reference): each slot owns a private
     (cache_len, ...) KV strip per attention layer, a ring when the model
-    has a sliding window, and the state of each RG-LRU layer. Every
-    ported family runs here, the hybrid recurrentgemma included. Bulk
-    prefill runs the whole prompt through `forward_prefill` (the flash-
-    attention and RG-LRU scan kernels with `cfg.attention_impl ==
-    "pallas"`) and copies the caches into the slot; pure-attention prompts
-    are right-padded to power-of-two buckets, recurrent ones run at their
-    exact length (padding would advance the state). A step writes only the
-    cache rows of the slots that ride it, so admitting a request never
-    touches a live peer's cache.
+    has a sliding window, and the state of each recurrent layer (RG-LRU or
+    Mamba2). Every ported family runs here, the hybrid recurrentgemma and
+    the attention-free Mamba2 included. Bulk prefill runs the whole prompt
+    through `forward_prefill` (the flash-attention, RG-LRU scan and SSD
+    scan kernels with `cfg.attention_impl == "pallas"`) and copies the
+    caches into the slot; pure-attention prompts are right-padded to
+    power-of-two buckets, prompts of models with a recurrent mixer run at
+    their exact length (padding would advance the state). A step writes
+    only the cache rows of the slots that ride it, so admitting a request
+    never touches a live peer's cache.
   * "paged": KV in a pool of `block_size`-token pages; a request reuses
     the longest prompt prefix already in the pool through the radix index
     (copy-on-write for a partially matching page). Pure-attention decoders
@@ -39,9 +40,10 @@ engine never moves work to the CPU on its own.
 
 One deliberate difference from the reference: a dense slot is cleared when
 a request is admitted into it. The reference's decode-mode prefill leaves
-the previous request's RG-LRU state in the slot, so a recurrent model's
-tokens depended on what the slot served before (ROADMAP.md Queue 3);
-attention entries were already hidden by their positions.
+the previous request's recurrent state (RG-LRU or SSM state and conv
+window) in the slot, so a recurrent model's tokens depended on what the
+slot served before (ROADMAP.md Queue 3); attention entries were already
+hidden by their positions.
 
 Not ported yet, and refused with NotImplementedError rather than served
 another way: fused multi-token decode, speculative decode and the
@@ -213,7 +215,7 @@ class ServeEngine:
             self._prefill_lg = build_prefill_bucketed(cfg, window=window,
                                                       return_logits=True)
         # pad bulk prompts only where padding cannot distort state:
-        # recurrent mixers (rglru) advance over pad tokens
+        # recurrent mixers (rglru, ssm) advance over pad tokens
         self._bucket_prompts = T.paged_supported(cfg)
         self.pos = np.full((batch_slots,), -1, np.int64)   # last written pos
         self.budget = np.zeros((batch_slots,), np.int64)

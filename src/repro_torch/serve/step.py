@@ -76,12 +76,13 @@ def prefill_into_cache(cfg, caches, cache, prompt_lens):
     (B,) real prompt lengths; entries at positions >= prompt_lens[b] are
     padding and get pos = -1 so decode masks them. Attention entries keep
     the last min(Sc, S_p) positions, at slot = pos % Sc, so linear and ring
-    caches follow one rule. RG-LRU states are final after the prefill and
-    are taken as they are. Returns the updated cache list.
+    caches follow one rule. Recurrent states (RG-LRU, Mamba2) are final
+    after the prefill and are taken as they are. Returns the updated cache
+    list.
     """
     out = []
     for dst, src in zip(cache, caches):
-        if "k" not in dst:                      # rglru: state already final
+        if "k" not in dst:              # rglru / ssm: state already final
             out.append(src)
             continue
         Sc = dst["k"].shape[1]

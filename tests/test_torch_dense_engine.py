@@ -1,16 +1,19 @@
 """The port's dense-layout ServeEngine against the JAX ServeEngine(kv_layout=
 "dense"), float32 on the CPU, with the reference's own weights bridged
-over: reduced qwen3-1.7b and reduced recurrentgemma-9b, both prefill
-modes, both `attention_impl` values, tests/test_decode_parity.py's prompts
-and samplers.
+over: reduced qwen3-1.7b, reduced recurrentgemma-9b and reduced
+mamba2-130m, both prefill modes, both `attention_impl` values,
+tests/test_decode_parity.py's prompts and samplers.
 
 Bars (ROADMAP.md): greedy and seeded-sampled tokens identical. Two
 properties of the port on top: admitting a request never disturbs a live
 peer's decode, and a slot starts every request from a clean state. The
 second is where the port parts from the reference, whose decode-mode
-prefill keeps the previous request's RG-LRU state in a reused slot
-(ROADMAP.md Queue 3): the recurrent decode-mode cells therefore run with a
-slot per request, where no slot is reused.
+prefill keeps the previous request's recurrent state (RG-LRU or SSM) in a
+reused slot (ROADMAP.md Queue 3): the recurrent decode-mode cells
+therefore run with a slot per request, where no slot is reused. A third:
+the port's "pallas" route serves a Mamba2 prompt that is not a multiple of
+the SSD chunk, which the reference's Pallas route refuses (Queue 3); it
+matches the reference's "xla" route there.
 """
 import pytest
 
@@ -23,7 +26,8 @@ from repro_torch.serve.sampler import SamplingParams  # noqa: E402
 from _torch_parity import bridged_model  # noqa: E402
 from _torch_parity import one_torch_thread  # noqa: E402,F401
 
-ARCHS = ["qwen3-1.7b", "recurrentgemma-9b"]
+ARCHS = ["qwen3-1.7b", "recurrentgemma-9b", "mamba2-130m"]
+RECURRENT = ("recurrentgemma-9b", "mamba2-130m")
 PROMPTS = [[3, 1, 4, 3, 1, 4, 3, 1], [3, 1, 4, 3, 7], [9, 10, 11, 12],
            [5, 5, 5, 5, 5, 5]]
 SAMPLERS = {
@@ -41,7 +45,7 @@ def _model(arch, impl):
 
 
 def _slots(arch, prefill_mode):
-    return len(PROMPTS) if (arch == "recurrentgemma-9b"
+    return len(PROMPTS) if (arch in RECURRENT
                             and prefill_mode == "decode") else 2
 
 
@@ -125,12 +129,7 @@ def test_admission_leaves_a_live_peer_alone(arch):
     assert q.done and len(q.output) == 4
 
 
-def test_reused_slot_starts_clean():
-    """One slot serving two requests in turn: the second request's tokens
-    do not depend on the first, in decode-mode prefill as in bulk, and
-    equal the JAX engine's bulk-mode tokens."""
-    arch = "recurrentgemma-9b"
-
+def _check_reused_slot_starts_clean(arch):
     def second(eng, sampling):
         first = eng.submit(PROMPTS[0], max_new_tokens=3, sampling=sampling)
         later = eng.submit(PROMPTS[1], max_new_tokens=5, sampling=sampling)
@@ -145,6 +144,34 @@ def test_reused_slot_starts_clean():
             for mode in ("decode", "bulk")]
     jax_bulk = second(_jax_engine(arch, "xla", "bulk", 1), JaxSampling())
     assert outs[0] == outs[1] == r.output == jax_bulk
+
+
+def test_reused_slot_starts_clean():
+    """One slot serving two requests in turn: the second request's tokens
+    do not depend on the first, in decode-mode prefill as in bulk, and
+    equal the JAX engine's bulk-mode tokens."""
+    _check_reused_slot_starts_clean("recurrentgemma-9b")
+
+
+def test_reused_slot_starts_clean_mamba2():
+    """The same for Mamba2, whose slot carries an SSM state and a conv
+    window."""
+    _check_reused_slot_starts_clean("mamba2-130m")
+
+
+@pytest.mark.parametrize("sampler", ["greedy", "temperature"])
+def test_ragged_mamba2_prompt_on_the_kernel_route(sampler):
+    """A 20-token prompt at the reduced chunk of 16: the port's "pallas"
+    engine (the SSD kernel's route) gives the JAX "xla" engine's tokens;
+    the JAX "pallas" engine refuses the prompt."""
+    prompts = [list(range(3, 23)), [7, 1, 8] * 7 + [2, 8]]
+    jax_eng = _jax_engine("mamba2-130m", "xla", "bulk", 2)
+    want = _serve(jax_eng, JaxSampling(**SAMPLERS[sampler]), prompts)
+    eng = _engine("mamba2-130m", "pallas", "bulk", 2)
+    assert _serve(eng, SamplingParams(**SAMPLERS[sampler]), prompts) == want
+    refusing = _jax_engine("mamba2-130m", "pallas", "bulk", 2)
+    with pytest.raises(AssertionError):
+        _serve(refusing, JaxSampling(), prompts[:1])
 
 
 def test_gateway_surface():

@@ -147,3 +147,35 @@ def test_bridge_keeps_rglru_f32_leaves_and_uses_every_tail_leaf():
     own = TT.init_lm(torch.Generator().manual_seed(0), tcfg)
     assert own["layers"][0]["rglru"]["Lambda"].dtype == torch.float32
     assert own["layers"][0]["rglru"]["w_x"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bridge_carries_mamba2_and_keeps_its_f32_leaves(dtype):
+    """Reduced mamba2-130m: every leaf carried across once, unstacked per
+    layer into {"norm1", "mamba"} (no FFN); under a bf16 config A_log and
+    dt_bias stay float32 (the reference's init keeps them so) and every
+    other leaf is bf16."""
+    jcfg = jreg.get("mamba2-130m", reduced=True).replace(
+        dtype=dtype, param_dtype=dtype)
+    tcfg = treg.get("mamba2-130m", reduced=True).replace(
+        dtype=dtype, param_dtype=dtype)
+    tree = jax.tree.map(np.asarray, JT.init_lm(jax.random.PRNGKey(3), jcfg))
+    params = params_from_jax(tree, tcfg, device="cpu")
+    assert _shapes(params) == TT.param_shapes(tcfg)
+    assert sum(t.numel() for t in _leaves(params)) == \
+        sum(a.size for a in jax.tree.leaves(tree))
+    pdt = getattr(torch, dtype)
+    for i, layer in enumerate(params["layers"]):
+        assert set(layer) == {"norm1", "mamba"}
+        for name, t in layer["mamba"].items():
+            want = torch.float32 if name in ("A_log", "dt_bias") else pdt
+            assert t.dtype == want, name
+            np.testing.assert_array_equal(
+                t.float().numpy(),
+                tree["blocks"][0]["mamba"][name][i].astype(np.float32))
+    # the port's own init draws the same shapes and dtypes
+    own = TT.init_lm(torch.Generator().manual_seed(0), tcfg)
+    assert _shapes(own) == TT.param_shapes(tcfg)
+    assert own["layers"][0]["mamba"]["A_log"].dtype == torch.float32
+    assert own["layers"][0]["mamba"]["dt_bias"].dtype == torch.float32
+    assert own["layers"][0]["mamba"]["in_proj"].dtype == pdt
