@@ -8,11 +8,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. Build: every `src/repro_torch/csrc/*.cu` with nvcc for sm_90a, one
    process per source, all started together (timed as set-up).
 2. Kernel against its plain version on the card: the paged-attention
-   kernel on the reference's five test shapes and the main path's shape
+   kernel (flash-decoding: each chain's pages split across blocks by
+   `ops.split_plan`, the f32 partials folded in split order by a second
+   launch) on the reference's five test shapes and the main path's shape
    (batch 8, 16/8 heads, head_dim 128, 16-token pages, 512-token chains),
    in f32 (TF32 off) and bf16, with empty slots and poisoned pages beyond
-   the causal frontier. Tolerance: 2e-5 in f32, 2e-2 in bf16 (the JAX
-   reference kernel test's own).
+   the causal frontier (the output must not move by one bit). Tolerance:
+   2e-5 in f32, 2e-2 in bf16 (the JAX reference kernel test's own).
 3. Serving, the main path: `ServeEngine(kv_layout="paged",
    decode_kernel="cuda", prefill_mode="bulk")` on qwen3-1.7b at full width
    (28 layers, d_model 2048, 16/8 heads, head_dim 128, d_ff 6144, vocab
@@ -28,12 +30,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. Timings at the main path's shape: the kernel, its plain version, the
    bound (bytes it must move / 3.35 TB/s, the H100's memory rate) and
    `scaled_dot_product_attention` over the pre-gathered dense view (a
-   library yardstick, timed here only; the port never calls it).
-6. Where a greedy batch-8 paged decode step's time goes (torch.profiler).
+   library yardstick, timed here only; the port never calls it). The
+   kernel and SDPA are timed two ways: per call from Python (CUDA events
+   around a loop of calls, which counts the host's dispatch once it is the
+   longer: the `ms` and `library_ms` of the kernels line, as every run has
+   reported them) and on the card alone (the calls captured in a CUDA
+   graph and replayed: `card_ms` and `library_card_ms`); beside them the
+   previous design's times per call (PERF.md's kernel table).
+6. Where a greedy batch-8 paged decode step's time goes (torch.profiler),
+   with the paged kernel's share (both its launches) of the step.
 7. The flash-attention kernel against its plain version: the reference's
    five test shapes, qwen3-1.7b's prefill (B=1, S=256, 16/8 heads, hd 128)
    and recurrentgemma-9b's (B=1, S=2560, 16/1 heads, hd 256, window
-   2048); f32 (TF32 off) at 2e-5, bf16 at 2e-2.
+   2048); f32 (TF32 off, the CUDA-core template) at 2e-5, bf16 (the
+   tensor-core template: mma.sync with cp.async double buffering) at 2e-2.
 8. The RG-LRU scan kernel against its plain version: the reference's three
    test shapes and recurrentgemma-9b's (1, 2560, 4096); f32 at 1e-4, bf16
    inputs at 5e-2.
@@ -49,14 +59,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bf16 with attention_impl="pallas": `batch_slots=4, cache_len=2048`, six
    prompts of 64-512 tokens and one of 2560 (past the 2048 window: the
    ring wraps), 16 new tokens each, one sampled. The scan kernel must
-   launch 26 x and the flash kernel 12 x the bulk prefills. Then the f32
-   check of "pallas" against "xla" at full width, depth cut to one block
-   plus the tail (r, r, a, r, r: 5 layers), as in phase 9.
+   launch 26 x and the flash kernel 12 x the bulk prefills. A greedy
+   batch-4 decode step and the 2,560-token bulk prefill are profiled, with
+   the flash kernel's share of the prefill. Then the f32 check of "pallas"
+   against "xla" at full width, depth cut to one block plus the tail (r,
+   r, a, r, r: 5 layers), as in phase 9.
 11. Timings of the new kernels at their main-path shapes: kernel, plain
    version, bound (the larger of bytes / 3.35 TB/s and flops / 989 TFLOP/s,
    the H100's dense bf16 tensor rate, for flash; bytes for the scan) and,
    for flash, `scaled_dot_product_attention` (causal with GQA, or an
-   explicit window mask; timed here only, the port never calls it).
+   explicit window mask; timed here only, the port never calls it); flash
+   and SDPA per call from Python and on the card alone, as in phase 5,
+   beside the previous design's times; the scan's time per call and on
+   the card alone.
 12. The SSD chunked-scan kernel against its plain version (the sequential
    recurrence): the reference's four test shapes, a ragged sequence (1,
    1000, 24 heads, hd 64, d_state 128) and mamba2-130m's 2,048-token
@@ -74,8 +89,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 14. Timings of the SSD kernel at the 2,048-token prefill (bf16 x/B/C, f32
    dt): kernel, plain version and bound (the larger of bytes / 3.35 TB/s
    and flops / 989 TFLOP/s, counting the score products over the visible
-   pairs of the reference's 256-token chunks); no single PyTorch call
-   computes SSD, so no library time.
+   pairs of the reference's 256-token chunks), per call and on the card
+   alone; no single PyTorch call computes SSD, so no library time.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; above it
 stand the card's name and power limit and one JSON line with each
@@ -84,6 +99,7 @@ kernel's numbers.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -136,10 +152,30 @@ KERNEL_CASES = [
     (8, 32, 16, 8, 2, 128, (512, 300, 1, 0, 17, 256, 511, 64)),
 ]
 MAIN_SHAPE = (8, 32, 16, 8, 2, 128, (512,) * 8)
+# the previous design of each attention kernel, per call from Python on an
+# H100 80GB HBM3 at 700 W (PERF.md's kernel table), logged beside this
+# run's: (kernel ms, SDPA ms)
+PREVIOUS_MS = {"paged_attention": (0.1426, 0.0246),
+               (1, 256, 16, 8, 128, None): (0.0610, 0.0547),
+               (1, 2560, 16, 1, 256, 2048): (2.9387, 0.5069)}
 
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def entry_name(mangled: str) -> str:
+    """'paged_attention_split<bf16, 128, 2>' from the mangled name of a
+    kernel template that ptxas reports (dtype, then integer arguments)."""
+    found = re.search(r"\d+([a-z_]+)I((?:13__nv_bfloat16|f)?(?:Li\d+E)*)E",
+                      mangled)
+    if not found:
+        return mangled
+    args = found.group(2)
+    dtype = ["bf16"] if args.startswith("13__nv_bfloat16") else (
+        ["f32"] if args.startswith("f") else [])
+    ints = re.findall(r"Li(\d+)E", args)
+    return f"{found.group(1)}<{', '.join(dtype + ints)}>"
 
 
 def card_line() -> str:
@@ -352,41 +388,62 @@ def time_cuda(fn, iters=200, warmup=20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_graph(fn, iters=50, replays=5) -> float:
+    """Mean ms per call on the card alone: `iters` calls captured in one
+    CUDA graph and replayed, so the host's dispatch stays out of the time
+    (a loop of calls from Python measures the host once the kernel is
+    shorter than its dispatch)."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
 def time_kernel(device) -> dict:
     """Phase 5 (kernel part): the main-path shape in bf16, every slot at
     the end of a 512-token chain. Six copies of the inputs (>50 MB, the
     L2 size) are cycled so each call finds its pages cold, as each of the
     28 layers does in a decode step."""
     import torch.nn.functional as F
-    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ops import (paged_attention,
+                                                         split_plan)
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     sets = [paged_case(*MAIN_SHAPE, torch.bfloat16, device, seed=SEED + i)
             for i in range(6)]
     B, nb, bs, nkv, rep, hd, _ = MAIN_SHAPE
-    it = [0]
-
-    def nxt():
-        it[0] = (it[0] + 1) % len(sets)
-        return sets[it[0]]
-
+    nxt = cycle(sets)
     kernel_ms = time_cuda(lambda: paged_attention(*nxt(), kernel="cuda"))
+    kernel_card_ms = time_graph(lambda: paged_attention(*nxt(),
+                                                        kernel="cuda"))
     plain_ms = time_cuda(lambda: paged_attention_ref(*nxt()), iters=50)
     # library yardstick: SDPA over the dense view gathered beforehand (the
     # gather is not timed); every slot's chain is full, so no mask
-    dense = []
-    for q, kp, vp, table, _ in sets:
-        idx = table.long()
-        k = kp[idx].reshape(B, nb * bs, nkv, hd).transpose(1, 2).contiguous()
-        v = vp[idx].reshape(B, nb * bs, nkv, hd).transpose(1, 2).contiguous()
-        dense.append((q[:, :, None, :], k, v))
-    it[0] = 0
+    nxt_d = cycle([dense_view(q, kp, vp, table, MAIN_SHAPE)
+                   for q, kp, vp, table, _ in sets])
 
     def sdpa():
-        it[0] = (it[0] + 1) % len(dense)
-        q, k, v = dense[it[0]]
-        return F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+        return F.scaled_dot_product_attention(*nxt_d(), enable_gqa=True)
 
     library_ms = time_cuda(sdpa)
+    library_card_ms = time_graph(sdpa)
     # the bound, from what this data needs: q, the K/V rows up to each
     # slot's position, the table and positions, and the output
     q, kp, vp, table, pos = sets[0]
@@ -397,10 +454,22 @@ def time_kernel(device) -> dict:
     flops = 4 * tokens * nkv * rep * hd
     bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS * 1e3
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    return {"ms": kernel_ms, "card_ms": kernel_card_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_card_ms": library_card_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": bytes_, "flops": flops}
+            "bytes": bytes_, "flops": flops,
+            "plan": split_plan(B, nkv, nb, bs)[:2]}
+
+
+def dense_view(q, kp, vp, table, shape):
+    """SDPA's inputs for a paged case: q as one query per head, K and V
+    gathered from the pool into (B, nkv, nb * bs, hd)."""
+    B, nb, bs, nkv, _, hd, _ = shape
+    idx = table.long()
+    k = kp[idx].reshape(B, nb * bs, nkv, hd).transpose(1, 2).contiguous()
+    v = vp[idx].reshape(B, nb * bs, nkv, hd).transpose(1, 2).contiguous()
+    return q[:, :, None, :], k, v
 
 
 def cycle(sets):
@@ -425,6 +494,8 @@ def time_flash(device, case) -> dict:
     nxt = cycle(sets)
     kernel_ms = time_cuda(lambda: flash_attention(*nxt(), window=window),
                           iters=50, warmup=5)
+    kernel_card_ms = time_graph(
+        lambda: flash_attention(*nxt(), window=window), iters=20)
     plain_ms = time_cuda(lambda: attention_ref(*nxt(), window=window),
                          iters=5, warmup=1)
     # library yardstick: SDPA in its (B, heads, S, hd) layout, transposed
@@ -436,18 +507,22 @@ def time_flash(device, case) -> dict:
     nxt_t = cycle([tuple(t.transpose(1, 2).contiguous() for t in s)
                    for s in sets])
     if window is None:
-        library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
-            *nxt_t(), is_causal=True, enable_gqa=True), iters=50, warmup=5)
+        def sdpa():
+            return F.scaled_dot_product_attention(*nxt_t(), is_causal=True,
+                                                  enable_gqa=True)
     else:
-        library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
-            *nxt_t(), attn_mask=visible, enable_gqa=True), iters=50,
-            warmup=5)
+        def sdpa():
+            return F.scaled_dot_product_attention(*nxt_t(), attn_mask=visible,
+                                                  enable_gqa=True)
+    library_ms = time_cuda(sdpa, iters=50, warmup=5)
+    library_card_ms = time_graph(sdpa, iters=20)
     pairs = int(visible.sum())
     flops = 4 * hd * nh * pairs * B
     bytes_ = sum(t.numel() for t in sets[0]) * 2 + B * S * nh * hd * 2
     bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    return {"ms": kernel_ms, "card_ms": kernel_card_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_card_ms": library_card_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": bytes_, "flops": flops, "pairs": pairs}
@@ -464,13 +539,15 @@ def time_scan(device) -> dict:
             for i in range(3)]
     nxt = cycle(sets)
     kernel_ms = time_cuda(lambda: rglru_scan(*nxt()), iters=50, warmup=5)
+    kernel_card_ms = time_graph(lambda: rglru_scan(*nxt()), iters=20)
     plain_ms = time_cuda(lambda: rglru_ref(*nxt()), iters=3, warmup=1)
     B, S, C = case
     bytes_ = 3 * B * S * C * 4               # a, b read; y written
     flops = 2 * B * S * C
     bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS * 1e3
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+    return {"ms": kernel_ms, "card_ms": kernel_card_ms, "plain_ms": plain_ms,
+            "library_ms": None, "library_card_ms": None,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": bytes_, "flops": flops}
@@ -487,6 +564,7 @@ def time_ssd(device) -> dict:
                        seed=SEED + i) for i in range(8)]
     nxt = cycle(sets)
     kernel_ms = time_cuda(lambda: ssd_scan(*nxt()), iters=50, warmup=5)
+    kernel_card_ms = time_graph(lambda: ssd_scan(*nxt()), iters=20)
     plain_ms = time_cuda(lambda: ssd_ref(*nxt()), iters=3, warmup=1)
     # inputs read once, y (bf16) and the final state (f32) written once
     bytes_ = (sum(t.numel() * t.element_size() for t in sets[0])
@@ -501,7 +579,8 @@ def time_ssd(device) -> dict:
     flops *= b * h
     bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+    return {"ms": kernel_ms, "card_ms": kernel_card_ms, "plain_ms": plain_ms,
+            "library_ms": None, "library_card_ms": None,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": bytes_, "flops": flops}
@@ -786,6 +865,30 @@ def log_profile(prof: dict, what: str = "step"):
         log(f"    {ms:8.4f} ms/{what}  x{count:<4d} {name}")
 
 
+def log_share(prof: dict, kernel: str, what: str):
+    """The device time of the ops whose name holds `kernel`, per `what` and
+    as a share of the device's busy time and of the host-clock time."""
+    if prof["busy_share"] is None:
+        return
+    ms = sum(t for k, t in prof["by_name"].items() if kernel in k)
+    log(f"  {kernel}: {ms:.4f} ms per {what}, "
+        f"{100 * ms / prof['device_ms']:.1f}% of the device's busy time, "
+        f"{100 * ms / prof['step_ms']:.1f}% of the {what}'s "
+        f"{prof['step_ms']:.3f} ms")
+
+
+def log_timing(what: str, t: dict, previous: tuple, library: str):
+    """Phases 5 and 11: a kernel's time per call from Python and on the
+    card alone, beside the library call's and the previous design's (per
+    call, as it was measured)."""
+    log(f"  {what}: kernel {t['ms']:.4f} ms per call from Python (previous "
+        f"design: {previous[0]:.4f}), {t['card_ms']:.4f} ms on the card "
+        f"alone; {library} {t['library_ms']:.4f} ms per call (then: "
+        f"{previous[1]:.4f}), {t['library_card_ms']:.4f} ms on the card "
+        f"alone; kernel / {library} {t['ms'] / t['library_ms']:.3f} per "
+        f"call, {t['card_ms'] / t['library_card_ms']:.3f} on the card")
+
+
 def log_served(s: dict):
     log(f"  {s['requests']} requests, {s['prefills']} bulk prefills, "
         f"{s['decode_dispatches']} decode dispatches, launches "
@@ -857,7 +960,7 @@ def profile_decode(engine, requests, steps=8) -> dict:
 
 
 def profile_prefill(engine, prompt, steps=3) -> dict:
-    """Phase 13: where one greedy bulk prefill's time goes. Each step
+    """Phases 10 and 13: where one greedy bulk prefill's time goes. Each step
     admits `prompt` with a budget of one token, so the engine prefills it
     and retires it in the same step, with no decode."""
     engine.reset()
@@ -900,7 +1003,8 @@ def profile_steps(fn, steps) -> dict:
             "busy_share": device_ms / step_ms if events else None,
             "device_ops_per_step": sum(e.count for e in events) / steps,
             "top": [(e.key[:60], dev_us(e) / 1e3 / steps, e.count // steps)
-                    for e in top]}
+                    for e in top],
+            "by_name": {e.key: dev_us(e) / 1e3 / steps for e in events}}
 
 
 # ----------------------------------------------------------------- main
@@ -931,9 +1035,13 @@ def main(device: str = "cuda") -> int:
     log(f"[1] build: {len(logs)} source(s) compiled in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
+        entry = name
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            found = re.search(r"Compiling entry function '(\S+)'", line)
+            if found:
+                entry = entry_name(found.group(1))
+            elif "registers" in line or "spill" in line:
+                log(f"  {entry}: {line.strip()}")
 
     log("[2] kernel against its plain version")
     errs = check_kernel(device)
@@ -975,7 +1083,9 @@ def main(device: str = "cuda") -> int:
     eng._decode_tok, eng._prefill_tok = closures
 
     log("[6] where a greedy batch-8 decode step's time goes (bf16)")
-    log_profile(profile_decode(eng, requests))
+    prof = profile_decode(eng, requests)
+    log_profile(prof)
+    log_share(prof, "paged_attention", "step")
     del eng
     torch.cuda.empty_cache()
 
@@ -1019,11 +1129,13 @@ def main(device: str = "cuda") -> int:
     log("[5] timings at the main path's shape (bf16, B=8, 16/8 heads, "
         "hd 128, 16-token pages, 512-token chains)")
     timing = time_kernel(device)
-    log(f"  kernel {timing['ms']:.4f} ms, plain version "
-        f"{timing['plain_ms']:.4f} ms, SDPA on the dense view "
-        f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms "
-        f"by {timing['bound_by']} ({timing['bytes']} bytes, "
-        f"{timing['flops']} flops)")
+    log_timing("paged_attention", timing, PREVIOUS_MS["paged_attention"],
+               "SDPA on the dense view")
+    log(f"  plain version {timing['plain_ms']:.4f} ms, bound "
+        f"{timing['bound_ms']:.4f} ms by {timing['bound_by']} "
+        f"({timing['bytes']} bytes, {timing['flops']} flops)")
+    log(f"  split plan {timing['plan'][0]} splits of {timing['plan'][1]} "
+        "pages")
 
     log("[10] serving recurrentgemma-9b at full width on the dense layout, "
         "bf16, attention_impl='pallas'")
@@ -1048,6 +1160,11 @@ def main(device: str = "cuda") -> int:
     finite_round(eng, r_requests[-2:])
     log("[10] where a greedy batch-4 decode step's time goes (bf16)")
     log_profile(profile_decode(eng, r_requests))
+    log(f"[10] where a greedy bulk prefill of {len(r_requests[-1][0])} "
+        "tokens goes (bf16)")
+    prof = profile_prefill(eng, r_requests[-1][0])
+    log_profile(prof, "prefill")
+    log_share(prof, "flash_attention", "prefill")
     del eng, params
     torch.cuda.empty_cache()
 
@@ -1070,14 +1187,16 @@ def main(device: str = "cuda") -> int:
     flash_t = {}
     for case in FLASH_CASES[-2:]:
         t = flash_t[case] = time_flash(device, case)
-        log(f"  flash B,S,nh,nkv,hd,window={case}: kernel {t['ms']:.4f} ms, "
-            f"plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, "
-            f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
-            f"({t['flops']} flops over {t['pairs']} visible pairs at "
-            f"{BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s, {t['bytes']} bytes)")
+        log_timing(f"flash B,S,nh,nkv,hd,window={case}", t, PREVIOUS_MS[case],
+                   "SDPA")
+        log(f"  plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"by {t['bound_by']} ({t['flops']} flops over {t['pairs']} "
+            f"visible pairs at {BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s, "
+            f"{t['bytes']} bytes)")
     scan_t = time_scan(device)
-    log(f"  rglru_scan B,S,C={SCAN_CASES[-1]}: kernel {scan_t['ms']:.4f} ms,"
-        f" plain {scan_t['plain_ms']:.4f} ms, no library call, bound "
+    log(f"  rglru_scan B,S,C={SCAN_CASES[-1]}: kernel {scan_t['ms']:.4f} ms"
+        f" per call, {scan_t['card_ms']:.4f} ms on the card alone, plain "
+        f"{scan_t['plain_ms']:.4f} ms, no library call, bound "
         f"{scan_t['bound_ms']:.4f} ms by {scan_t['bound_by']} "
         f"({scan_t['bytes']} bytes)")
     flash_main = flash_t[FLASH_CASES[-1]]
@@ -1124,8 +1243,9 @@ def main(device: str = "cuda") -> int:
     log("[14] SSD kernel timings at mamba2-130m's 2,048-token prefill")
     ssd_t = time_ssd(device)
     log(f"  ssd_scan b,s,h,p,g,n,chunk={SSD_CASES[-1]}: kernel "
-        f"{ssd_t['ms']:.4f} ms, plain {ssd_t['plain_ms']:.4f} ms, no library "
-        f"call, bound {ssd_t['bound_ms']:.4f} ms by {ssd_t['bound_by']} "
+        f"{ssd_t['ms']:.4f} ms per call, {ssd_t['card_ms']:.4f} ms on the "
+        f"card alone, plain {ssd_t['plain_ms']:.4f} ms, no library call, "
+        f"bound {ssd_t['bound_ms']:.4f} ms by {ssd_t['bound_by']} "
         f"({ssd_t['bytes']} bytes, {ssd_t['flops']} flops at "
         f"{BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s)")
 
@@ -1138,6 +1258,8 @@ def main(device: str = "cuda") -> int:
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
+        "card_ms": timing["card_ms"],
+        "library_card_ms": timing["library_card_ms"],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1149,6 +1271,8 @@ def main(device: str = "cuda") -> int:
         "bound_ms": flash_main["bound_ms"],
         "bound_by": flash_main["bound_by"],
         "library_ms": flash_main["library_ms"],
+        "card_ms": flash_main["card_ms"],
+        "library_card_ms": flash_main["library_card_ms"],
     }, {
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/rglru_scan.cu",
@@ -1157,7 +1281,8 @@ def main(device: str = "cuda") -> int:
         "max_abs_err": scan_errs[torch.bfloat16],
         "ms": scan_t["ms"], "plain_ms": scan_t["plain_ms"],
         "bound_ms": scan_t["bound_ms"], "bound_by": scan_t["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "card_ms": scan_t["card_ms"],
+        "library_card_ms": None,
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
@@ -1166,7 +1291,8 @@ def main(device: str = "cuda") -> int:
         "max_abs_err": ssd_errs[torch.bfloat16],
         "ms": ssd_t["ms"], "plain_ms": ssd_t["plain_ms"],
         "bound_ms": ssd_t["bound_ms"], "bound_by": ssd_t["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "card_ms": ssd_t["card_ms"],
+        "library_card_ms": None,
     }]
     log(f"kernels: paged_attention launches={served['launches']} "
         f"(decode dispatches {served['decode_dispatches']} x "

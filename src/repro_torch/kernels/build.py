@@ -14,6 +14,7 @@ every module, and the CPU has no nvcc.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -100,3 +101,13 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def on_device(device):
+    """A context in which `device` is the current CUDA device, for a launch
+    on PyTorch's current stream there: nothing to enter when it already is
+    (the common case, and the cheap one on every launch)."""
+    import torch
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

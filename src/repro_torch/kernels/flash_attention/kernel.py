@@ -47,12 +47,11 @@ def flash_attention_kernel(q, k, v, *, window, scale: float):
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
                                    *v.stride()[:3])
     out = torch.empty((B, Sq, nh, hd), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with build.on_device(q.device):
         err = fns[q.dtype](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            out.data_ptr(), B, Sq, Sk, nh, nkv, hd, strides,
                            float(scale), -1 if window is None else int(window),
-                           stream)
+                           torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err} ({err_str(err).decode()})")

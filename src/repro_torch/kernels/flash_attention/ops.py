@@ -9,7 +9,11 @@ answered with the plain version.
 
 The kernel reads q, k and v in the reference's (B, S, heads, hd) layout
 through their strides and masks the ragged edges of Sq and Sk itself, so
-the reference wrapper's pad-to-block copies are gone. Like the reference
+the reference wrapper's pad-to-block copies are gone. bf16 runs on the
+tensor cores and f32 on the CUDA cores (TF32 would break the f32
+tolerance); the bf16 kernel copies rows 16 bytes at a time, so it refuses
+a base pointer that is not 16-byte aligned or a stride that is not a
+multiple of 8 elements. Like the reference
 wrapper (`ops.py:37-39`), it takes causal attention only: padded or ragged
 keys are safe because no query may see past itself.
 
@@ -29,31 +33,42 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_cuda_args(q, k, v, window):
-    """Raise ValueError on anything the CUDA kernel does not take."""
+    """Raise ValueError on anything the CUDA kernel does not take. Runs on
+    every launch, so each tensor attribute is read once."""
+    dev, dt = q.device, q.dtype
     for name, t in (("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != q.dtype:
-            raise ValueError(f"{name} dtype {t.dtype} must equal q's "
-                             f"{q.dtype}")
-    if q.dtype not in DTYPES:
-        raise ValueError(f"q dtype {q.dtype} not in {DTYPES}")
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if t.dtype != dt:
+            raise ValueError(f"{name} dtype {t.dtype} must equal q's {dt}")
+    if dt not in DTYPES:
+        raise ValueError(f"q dtype {dt} not in {DTYPES}")
+    qs, ks, vs = q.shape, k.shape, v.shape
+    if len(qs) != 4 or len(ks) != 4 or len(vs) != 4:
         raise ValueError("expected q (B,Sq,nh,hd), k and v (B,Sk,nkv,hd)")
-    B, Sq, nh, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
-        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)}")
-    nkv = k.shape[2]
+    B, Sq, nh, hd = qs
+    if ks != vs or ks[0] != B or ks[3] != hd:
+        raise ValueError(f"k {tuple(ks)} / v {tuple(vs)} do not match q "
+                         f"{tuple(qs)}")
+    nkv = ks[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if nkv < 1 or nh % nkv:
         raise ValueError(f"n_heads {nh} not a multiple of n_kv_heads {nkv}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1:
+    bf16 = dt == torch.bfloat16
+    for name, t, n in (("q", q, qs), ("k", k, ks), ("v", v, vs)):
+        st = t.stride()
+        if st[3] != 1:
             raise ValueError(f"{name}'s last dim must be contiguous")
+        # the bf16 kernel copies rows by 16-byte cp.async: every row start
+        # must be 16-byte aligned (the f32 kernel reads element by element)
+        if bf16 and (t.data_ptr() % 16 or (st[0] % 8 and n[0] > 1)
+                     or (st[1] % 8 and n[1] > 1) or (st[2] % 8 and n[2] > 1)):
+            raise ValueError(f"{name}: the bf16 kernel needs a 16-byte-"
+                             f"aligned base and strides that are multiples "
+                             f"of 8 elements, got strides {st}")
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None):

@@ -61,16 +61,84 @@ def test_kernel_matches_plain_version(device, case, dtype):
                                rtol=TOL[dtype])
 
 
-def test_strided_inputs_need_no_copy(device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_strided_inputs_need_no_copy(device, dtype):
     """q, k and v sliced out of one fused (B, S, heads, hd) projection, as
     a model could hand them over: the kernel reads them through their
-    strides."""
-    q, k, v = _qkv(device, 2, 96, 12, 4, 64, torch.float32)
+    strides (in bf16 by 16-byte copies: the slices' rows stay aligned)."""
+    q, k, v = _qkv(device, 2, 96, 12, 4, 64, dtype)
     qkv = torch.cat([q, k, v], dim=2)             # (B, S, 12+4+4, hd)
     qs, ks, vs = qkv[:, :, :12], qkv[:, :, 12:16], qkv[:, :, 16:]
     assert not qs.is_contiguous()
     out = flash_attention(qs, ks, vs, window=40)
-    torch.testing.assert_close(out, attention_ref(q, k, v, window=40),
+    torch.testing.assert_close(out.float(),
+                               attention_ref(q, k, v, window=40).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+# ragged bf16 shapes on the tensor-core template: a sequence that is no
+# multiple of any tile at hd 256 with a window, a single token, and fewer
+# query rows than one warp's 16 at the smallest head dims: B, S, nh, nkv,
+# hd, window
+RAGGED_BF16 = [
+    (1, 300, 4, 2, 256, 128),
+    (2, 1, 4, 2, 128, None),
+    (1, 7, 4, 2, 16, None),
+    (2, 13, 4, 1, 32, 5),
+]
+
+
+@pytest.mark.parametrize("case", RAGGED_BF16)
+def test_bf16_ragged_shapes_on_the_tensor_cores(device, case):
+    B, S, nh, nkv, hd, window = case
+    q, k, v = _qkv(device, B, S, nh, nkv, hd, torch.bfloat16, seed=1)
+    out = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    ref = attention_ref(q, k, v, window=window)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_repeat_calls_return_equal_bits(device, dtype):
+    q, k, v = _qkv(device, 1, 300, 8, 2, 128, dtype)
+    a = flash_attention(q, k, v, window=100)
+    b = flash_attention(q, k, v, window=100)
+    assert torch.equal(a, b)
+
+
+def test_misaligned_bf16_rows_are_refused(device):
+    """The bf16 kernel copies rows 16 bytes at a time: a stride that is no
+    multiple of 8 elements, or a base pointer off a 16-byte boundary, is
+    refused with ValueError, never read some other way."""
+    q, k, v = _qkv(device, 1, 32, 4, 2, 32, torch.bfloat16)
+    before = flash_attention.launches
+    # rows 4 elements (8 bytes) apart past a multiple of 16 bytes
+    wide = torch.zeros((1, 32, 4 * 32 + 4), dtype=torch.bfloat16,
+                       device=device)
+    qs = wide[:, :, :4 * 32].unflatten(2, (4, 32))
+    qs.copy_(q)
+    assert qs.stride(1) % 8
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(qs, k, v)
+    # a base pointer 2 bytes past an aligned one
+    flat = torch.zeros(k.numel() + 1, dtype=torch.bfloat16, device=device)
+    ks = flat[1:].view(k.shape)
+    ks.copy_(k)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, ks, v)
+    assert flash_attention.launches == before
+    # the f32 kernel reads element by element: such views are fine there
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    wide32 = torch.zeros((1, 32, 4 * 32 + 1), device=device)
+    qs32 = wide32[:, :, :4 * 32].unflatten(2, (4, 32))
+    qs32.copy_(q32)
+    flat32 = torch.zeros(k32.numel() + 1, device=device)
+    ks32 = flat32[1:].view(k32.shape)
+    ks32.copy_(k32)
+    out = flash_attention(qs32, ks32, v32)
+    torch.testing.assert_close(out, attention_ref(q32, k32, v32),
                                atol=2e-5, rtol=2e-5)
 
 

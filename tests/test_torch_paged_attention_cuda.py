@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.paged_attention.ops import paged_attention, split_plan
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 pytestmark = pytest.mark.gpu
@@ -37,9 +37,11 @@ def device():
     return torch.device("cuda")
 
 
-def _case(device, B, nb, bs, nkv, rep, hd, fills, dtype, seed=0):
+def _case(device, B, nb, bs, nkv, rep, hd, fills, dtype, seed=0,
+          null_slots=()):
     """fills[b]: tokens resident in slot b (0 = empty slot, all-null
-    table); pos[b] = fills[b] - 1. Pool rows are handed out shuffled."""
+    table); pos[b] = fills[b] - 1. Pool rows are handed out shuffled. A slot
+    in null_slots keeps its position but maps every page to block 0."""
     rng = np.random.default_rng(seed)
     P = B * nb + 1
     kpool = rng.standard_normal((P, bs, nkv, hd), np.float32)
@@ -49,7 +51,7 @@ def _case(device, B, nb, bs, nkv, rep, hd, fills, dtype, seed=0):
     table = np.zeros((B, nb), np.int32)
     pos = np.zeros((B,), np.int32)
     for b in range(B):
-        if fills[b] > 0:
+        if fills[b] > 0 and b not in null_slots:
             need = -(-fills[b] // bs)
             table[b, :need] = [rows.pop() for _ in range(need)]
         pos[b] = max(fills[b] - 1, 0)
@@ -115,3 +117,59 @@ def test_launch_counter_and_guards(device):
         paged_attention(q, kpool.bfloat16(), vpool, table, pos,
                         kernel="cuda")
     assert paged_attention.launches == before + 1
+
+
+# the split plan at work: 2,048-token chains (nb 128) cut into many splits,
+# the last one partial, with ragged and empty slots; block sizes 8, 16 and
+# 32 at one head dim; and 9 query heads a KV head (starcoder2-7b's GQA
+# group), which a block serves 4 at a time: B, nb, bs, nkv, rep, hd, fills
+SPLIT_CASES = [
+    (5, 128, 16, 8, 2, 128, (2048, 2047, 1, 0, 1500)),
+    (2, 40, 8, 2, 2, 64, (300, 17)),
+    (2, 20, 16, 2, 2, 64, (300, 17)),
+    (2, 10, 32, 2, 2, 64, (300, 0)),
+    (3, 8, 16, 2, 9, 128, (100, 0, 128)),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_pages_match_plain_version(device, case, dtype):
+    B, nb, bs, nkv = case[:4]
+    plan = split_plan(B, nkv, nb, bs)
+    if nb == 128:
+        assert plan.n_splits >= 8
+        assert plan.ranges[-1][1] - plan.ranges[-1][0] < plan.pages_per_split
+    args = _case(device, *case, dtype)
+    out = paged_attention(*args, kernel="cuda")
+    torch.cuda.synchronize()
+    ref = paged_attention_ref(*args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    for b, f in enumerate(case[6]):
+        if f == 0:
+            assert torch.equal(out[b], torch.zeros_like(out[b]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_all_null_chain_writes_exact_zeros(device, dtype):
+    """Slot 1 sits at position 24 but every page of its chain is the null
+    block 0: it attends nothing and writes exact zeros."""
+    args = _case(device, 3, 4, 8, 2, 2, 32, (20, 25, 9), dtype,
+                 null_slots=(1,))
+    out = paged_attention(*args, kernel="cuda")
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+    torch.testing.assert_close(out.float(),
+                               paged_attention_ref(*args).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("case", [CASES[-1], SPLIT_CASES[0]])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_repeat_calls_return_equal_bits(device, case, dtype):
+    """No atomics go into any sum: the splits are folded in a fixed order,
+    so every call returns the same bits."""
+    args = _case(device, *case, dtype)
+    first = paged_attention(*args, kernel="cuda")
+    for _ in range(3):
+        assert torch.equal(first, paged_attention(*args, kernel="cuda"))
