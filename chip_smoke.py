@@ -44,9 +44,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and recurrentgemma-9b's (B=1, S=2560, 16/1 heads, hd 256, window
    2048); f32 (TF32 off, the CUDA-core template) at 2e-5, bf16 (the
    tensor-core template: mma.sync with cp.async double buffering) at 2e-2.
-8. The RG-LRU scan kernel against its plain version: the reference's three
-   test shapes and recurrentgemma-9b's (1, 2560, 4096); f32 at 1e-4, bf16
-   inputs at 5e-2.
+8. The RG-LRU scan kernel (a chunked scan in one pass: 64-step tiles of
+   128 channels, each tile's carry folded from the earlier tiles'
+   aggregates in chunk order) against its plain version: the reference's
+   three test shapes and recurrentgemma-9b's (1, 2560, 4096); f32 at 1e-4,
+   bf16 inputs at 5e-2.
 9. Serving on the dense layout: `ServeEngine(kv_layout="dense",
    prefill_mode="bulk", batch_slots=8, cache_len=512)` on qwen3-1.7b with
    attention_impl="pallas", bf16, phase 3's weights and requests. The
@@ -61,9 +63,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ring wraps), 16 new tokens each, one sampled. The scan kernel must
    launch 26 x and the flash kernel 12 x the bulk prefills. A greedy
    batch-4 decode step and the 2,560-token bulk prefill are profiled, with
-   the flash kernel's share of the prefill. Then the f32 check of "pallas"
-   against "xla" at full width, depth cut to one block plus the tail (r,
-   r, a, r, r: 5 layers), as in phase 9.
+   the flash kernel's and the scan's shares of the prefill. Then the f32
+   check of "pallas" against "xla" at full width, depth cut to one block
+   plus the tail (r, r, a, r, r: 5 layers), as in phase 9.
 11. Timings of the new kernels at their main-path shapes: kernel, plain
    version, bound (the larger of bytes / 3.35 TB/s and flops / 989 TFLOP/s,
    the H100's dense bf16 tensor rate, for flash; bytes for the scan) and,
@@ -71,30 +73,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    explicit window mask; timed here only, the port never calls it); flash
    and SDPA per call from Python and on the card alone, as in phase 5,
    beside the previous design's times; the scan's time per call and on
-   the card alone.
+   the card alone, beside its previous design's (one thread per channel;
+   PREVIOUS_SCAN_MS).
 12. The SSD chunked-scan kernel against its plain version (the sequential
    recurrence): the reference's four test shapes, a ragged sequence (1,
    1000, 24 heads, hd 64, d_state 128) and mamba2-130m's 2,048-token
    prefill; f32 (TF32 off) at 2e-4, bf16 x/B/C at 5e-2 (the reference
-   kernel test's own).
+   kernel test's own). Each case logs its route: bf16 tiles the tensor
+   cores take run three passes on them (chunk states, carry, output),
+   f32 and the rest the first design, on the CUDA cores.
 13. Serving mamba2-130m at full width and depth (24 layers, d_model 768,
    24 SSM heads of hd 64, d_state 128, chunk 256, vocab 50280, tied) on
    the dense layout in bf16 with attention_impl="pallas": `batch_slots=8`,
    ten prompts of 64-1,024 tokens (300 and 777 among them: not multiples
    of the chunk, which the reference's Pallas route refuses) and one of
    2,048, 32 new tokens each, one sampled. The SSD kernel must launch 24 x
-   the bulk prefills and no other kernel at all. A greedy batch-8 decode
-   step and the 2,048-token bulk prefill are profiled. Then, in f32 at
-   full depth, "pallas" against "xla" in lockstep, as in phase 9.
+   the bulk prefills, every call on the tensor-core route, and no other
+   kernel at all. A greedy batch-8 decode step and the 2,048-token bulk
+   prefill are profiled, with the SSD kernel's share of the prefill. Then,
+   in f32 at full depth, "pallas" against "xla" in lockstep, as in phase
+   9.
 14. Timings of the SSD kernel at the 2,048-token prefill (bf16 x/B/C, f32
    dt): kernel, plain version and bound (the larger of bytes / 3.35 TB/s
    and flops / 989 TFLOP/s, counting the score products over the visible
    pairs of the reference's 256-token chunks), per call and on the card
-   alone; no single PyTorch call computes SSD, so no library time.
+   alone, beside the first design's (PREVIOUS_SCAN_MS); no single PyTorch
+   call computes SSD, so no library time.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; above it
 stand the card's name and power limit and one JSON line with each
-kernel's numbers.
+kernel's numbers (the SSD kernel's launches also by route).
 """
 from __future__ import annotations
 
@@ -158,6 +166,11 @@ MAIN_SHAPE = (8, 32, 16, 8, 2, 128, (512,) * 8)
 PREVIOUS_MS = {"paged_attention": (0.1426, 0.0246),
                (1, 256, 16, 8, 128, None): (0.0610, 0.0547),
                (1, 2560, 16, 1, 256, 2048): (2.9387, 0.5069)}
+# the previous design of each scan (the RG-LRU walk of one thread per
+# channel, the SSD kernel on the CUDA cores), per call from Python and on
+# the card alone, on an H100 80GB HBM3 at 700 W (PERF.md's kernel table)
+PREVIOUS_SCAN_MS = {"rglru_scan": (0.2711, 0.2701),
+                    "ssd_scan": (0.9742, 0.9617)}
 
 
 def log(msg: str):
@@ -166,16 +179,27 @@ def log(msg: str):
 
 def entry_name(mangled: str) -> str:
     """'paged_attention_split<bf16, 128, 2>' from the mangled name of a
-    kernel template that ptxas reports (dtype, then integer arguments)."""
-    found = re.search(r"\d+([a-z_]+)I((?:13__nv_bfloat16|f)?(?:Li\d+E)*)E",
-                      mangled)
-    if not found:
+    kernel that ptxas reports: the last name of its nested name, then, for
+    a template, its dtype and integer arguments."""
+    rest = mangled[3:] if mangled.startswith("_ZN") else mangled
+    name = None
+    while True:
+        found = re.match(r"(\d+)", rest)
+        if not found:
+            break
+        start, end = len(found.group(1)), len(found.group(1)) + int(
+            found.group(1))
+        name, rest = rest[start:end], rest[end:]
+    if name is None:
         return mangled
-    args = found.group(2)
+    found = re.match(r"I((?:13__nv_bfloat16|f)?(?:Li\d+E)*)E", rest)
+    if not found:
+        return name
+    args = found.group(1)
     dtype = ["bf16"] if args.startswith("13__nv_bfloat16") else (
         ["f32"] if args.startswith("f") else [])
     ints = re.findall(r"Li(\d+)E", args)
-    return f"{found.group(1)}<{', '.join(dtype + ints)}>"
+    return f"{name}<{', '.join(dtype + ints)}>"
 
 
 def card_line() -> str:
@@ -348,12 +372,13 @@ def ssd_inputs(b, s, h, p, g, n, dtype, device, seed=SEED):
 def check_ssd(device) -> dict:
     """Phase 12. Returns the largest error (y and final state) per dtype at
     mamba2-130m's shape (the last case)."""
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ops import route, ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for case in SSD_CASES:
             args = ssd_inputs(*case[:6], dtype, device)
+            which = route(args[0], args[3], args[4])
             y, st = ssd_scan(*args)
             torch.cuda.synchronize()
             ry, rst = ssd_ref(*args)
@@ -367,8 +392,8 @@ def check_ssd(device) -> dict:
                 raise AssertionError(f"ssd kernel vs plain {dtype} {case}: "
                                      f"max err {err} (tol {tol}), {bad} "
                                      "elements out of tolerance")
-            log(f"  ssd_scan {str(dtype):14s} b,s,h,p,g,n,chunk={case}: max "
-                f"abs err {err:.3g} (tol {tol})")
+            log(f"  ssd_scan {str(dtype):14s} b,s,h,p,g,n,chunk={case} "
+                f"({which} route): max abs err {err:.3g} (tol {tol})")
             errs[dtype] = err
     return errs
 
@@ -559,6 +584,7 @@ def time_ssd(device) -> dict:
     50 MB L2) are cycled."""
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    from repro_torch.kernels.ssd_scan.ops import route
     b, s, h, p, g, n, q = SSD_CASES[-1]
     sets = [ssd_inputs(b, s, h, p, g, n, torch.bfloat16, device,
                        seed=SEED + i) for i in range(8)]
@@ -583,7 +609,8 @@ def time_ssd(device) -> dict:
             "library_ms": None, "library_card_ms": None,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": bytes_, "flops": flops}
+            "bytes": bytes_, "flops": flops,
+            "route": route(sets[0][0], *sets[0][3:])}
 
 
 # ----------------------------------------------------------------- serving
@@ -808,11 +835,15 @@ def serve_dense(engine, requests, per_prefill: dict) -> dict:
     torch.cuda.synchronize()
     for fn in fns.values():
         fn.launches = 0
+        for route in getattr(fn, "route_launches", {}):
+            fn.route_launches[route] = 0
     t0 = time.perf_counter()
     engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in fns.items()}
+    routes = {name: dict(fn.route_launches) for name, fn in fns.items()
+              if hasattr(fn, "route_launches")}
     cfg = engine.cfg
     for r, (_, _, n) in zip(reqs, requests):
         if r.error is not None or not r.done or len(r.output) != n:
@@ -832,6 +863,7 @@ def serve_dense(engine, requests, per_prefill: dict) -> dict:
                                  f"{prefill.n} bulk prefills = {want}")
     decode_tokens = sum(len(r.output) - 1 for r in reqs)
     return {"requests": len(reqs), "launches": launches,
+            "route_launches": routes,
             "prefills": prefill.n, "decode_dispatches": decode.n,
             "prefill_ms_mean": prefill.total / prefill.n,
             "prefill_ms_max": prefill.vmax,
@@ -887,6 +919,18 @@ def log_timing(what: str, t: dict, previous: tuple, library: str):
         f"{previous[1]:.4f}), {t['library_card_ms']:.4f} ms on the card "
         f"alone; kernel / {library} {t['ms'] / t['library_ms']:.3f} per "
         f"call, {t['card_ms'] / t['library_card_ms']:.3f} on the card")
+
+
+def log_scan_timing(what: str, t: dict, previous: tuple):
+    """Phases 11 and 14: a scan's time per call from Python and on the card
+    alone beside the previous design's (PREVIOUS_SCAN_MS), its plain
+    version's and its bound; no single PyTorch call computes a scan."""
+    log(f"  {what}: kernel {t['ms']:.4f} ms per call from Python (previous "
+        f"design: {previous[0]:.4f}), {t['card_ms']:.4f} ms on the card "
+        f"alone (previous: {previous[1]:.4f}; {previous[1] / t['card_ms']:.2f}"
+        f"x); plain {t['plain_ms']:.4f} ms, no library call, bound "
+        f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} bytes), "
+        f"card / bound {t['card_ms'] / t['bound_ms']:.2f}")
 
 
 def log_served(s: dict):
@@ -1165,6 +1209,7 @@ def main(device: str = "cuda") -> int:
     prof = profile_prefill(eng, r_requests[-1][0])
     log_profile(prof, "prefill")
     log_share(prof, "flash_attention", "prefill")
+    log_share(prof, "rglru_scan", "prefill")
     del eng, params
     torch.cuda.empty_cache()
 
@@ -1194,11 +1239,8 @@ def main(device: str = "cuda") -> int:
             f"visible pairs at {BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s, "
             f"{t['bytes']} bytes)")
     scan_t = time_scan(device)
-    log(f"  rglru_scan B,S,C={SCAN_CASES[-1]}: kernel {scan_t['ms']:.4f} ms"
-        f" per call, {scan_t['card_ms']:.4f} ms on the card alone, plain "
-        f"{scan_t['plain_ms']:.4f} ms, no library call, bound "
-        f"{scan_t['bound_ms']:.4f} ms by {scan_t['bound_by']} "
-        f"({scan_t['bytes']} bytes)")
+    log_scan_timing(f"rglru_scan B,S,C={SCAN_CASES[-1]}", scan_t,
+                    PREVIOUS_SCAN_MS["rglru_scan"])
     flash_main = flash_t[FLASH_CASES[-1]]
 
     log("[13] serving mamba2-130m at full width on the dense layout, bf16, "
@@ -1217,12 +1259,18 @@ def main(device: str = "cuda") -> int:
     m_requests = mamba_requests(cfg_m)
     dense_m = serve_dense(eng, m_requests, {"ssd_scan": cfg_m.n_layers})
     log_served(dense_m)
+    if dense_m["route_launches"]["ssd_scan"]["simt"]:
+        raise AssertionError("a bf16 SSD call of the served prefills left the "
+                             f"tensor-core route: "
+                             f"{dense_m['route_launches']['ssd_scan']}")
     finite_round(eng, m_requests[-2:])
     log("[13] where a greedy batch-8 decode step's time goes (bf16)")
     log_profile(profile_decode(eng, m_requests))
     log(f"[13] where a greedy bulk prefill of {len(m_requests[-1][0])} "
         "tokens goes (bf16)")
-    log_profile(profile_prefill(eng, m_requests[-1][0]), "prefill")
+    prof = profile_prefill(eng, m_requests[-1][0])
+    log_profile(prof, "prefill")
+    log_share(prof, "ssd_scan", "prefill")
     del eng, params
     torch.cuda.empty_cache()
 
@@ -1242,12 +1290,10 @@ def main(device: str = "cuda") -> int:
 
     log("[14] SSD kernel timings at mamba2-130m's 2,048-token prefill")
     ssd_t = time_ssd(device)
-    log(f"  ssd_scan b,s,h,p,g,n,chunk={SSD_CASES[-1]}: kernel "
-        f"{ssd_t['ms']:.4f} ms per call, {ssd_t['card_ms']:.4f} ms on the "
-        f"card alone, plain {ssd_t['plain_ms']:.4f} ms, no library call, "
-        f"bound {ssd_t['bound_ms']:.4f} ms by {ssd_t['bound_by']} "
-        f"({ssd_t['bytes']} bytes, {ssd_t['flops']} flops at "
-        f"{BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s)")
+    log_scan_timing(f"ssd_scan b,s,h,p,g,n,chunk={SSD_CASES[-1]}", ssd_t,
+                    PREVIOUS_SCAN_MS["ssd_scan"])
+    log(f"  ({ssd_t['flops']} flops at {BF16_TENSOR_FLOPS / 1e12:.0f} "
+        f"TFLOP/s; the {ssd_t['route']} route)")
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",
@@ -1288,6 +1334,7 @@ def main(device: str = "cuda") -> int:
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:24",
         "launches": dense_m["launches"]["ssd_scan"],
+        "route_launches": dense_m["route_launches"]["ssd_scan"],
         "max_abs_err": ssd_errs[torch.bfloat16],
         "ms": ssd_t["ms"], "plain_ms": ssd_t["plain_ms"],
         "bound_ms": ssd_t["bound_ms"], "bound_by": ssd_t["bound_by"],
@@ -1310,7 +1357,8 @@ def main(device: str = "cuda") -> int:
         f"f32 max abs err {scan_errs[torch.float32]:.3g}, bf16 "
         f"{scan_errs[torch.bfloat16]:.3g}")
     log(f"kernels: ssd_scan launches={kernels[3]['launches']} "
-        f"({dense_m['prefills']} prefills x {cfg_m.n_layers} layers); f32 "
+        f"({dense_m['prefills']} prefills x {cfg_m.n_layers} layers; by "
+        f"route {kernels[3]['route_launches']}); f32 "
         f"max abs err {ssd_errs[torch.float32]:.3g}, bf16 "
         f"{ssd_errs[torch.bfloat16]:.3g}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -6,8 +6,9 @@ with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so a changed
-source builds anew on first use and an unchanged one is loaded as it is.
+The library name carries a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so a changed source or header builds anew on
+first use and an unchanged one is loaded as it is.
 `build()` starts one nvcc per source that needs it, all at once, and waits
 for all of them. Nothing here runs at import time: the CPU tests import
 every module, and the CPU has no nvcc.
@@ -56,6 +57,8 @@ def nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

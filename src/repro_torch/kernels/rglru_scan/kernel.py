@@ -15,9 +15,11 @@ import torch
 
 from repro_torch.kernels import build
 
-_ARGTYPES = ([ctypes.c_void_p] * 3        # a, b, y
-             + [ctypes.c_int] * 3         # B, S, C
+_ARGTYPES = ([ctypes.c_void_p] * 5        # a, b, y, and the scratch agg,
+                                          # flags
+             + [ctypes.c_int] * 4         # B, S, C, chunk
              + [ctypes.c_void_p])         # stream
+_CHANNELS = 128                           # channels of a tile (the kernel's)
 
 
 @functools.cache
@@ -35,16 +37,26 @@ def _entry_points():
     return fns, lib.rglru_scan_error_string
 
 
-def rglru_scan_kernel(a, b):
-    """a, b: (B, S, C) contiguous CUDA f32/bf16 of one dtype. Returns y
-    (B, S, C) f32. Raises RuntimeError if the launch is refused."""
+def rglru_scan_kernel(a, b, chunk):
+    """a, b: (B, S, C) contiguous CUDA f32/bf16 of one dtype; `chunk` in
+    {32, 64, 128} time steps a tile. Returns y (B, S, C) f32. Allocates the
+    tiles' aggregates and ready flags (the C side zeroes the flags with a
+    memset on the stream, then launches the kernel). Raises RuntimeError if
+    the launch is refused."""
     fns, err_str = _entry_points()
     B, S, C = a.shape
+    tiles = B * -(-C // _CHANNELS) * -(-S // chunk)
     y = torch.empty((B, S, C), dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
+    # one allocation: the aggregates (float2 per channel of a tile), then
+    # the flags and the ticket (int32)
+    scratch = torch.empty((tiles * _CHANNELS * 2 + tiles + 1,),
+                          dtype=torch.float32, device=a.device)
+    agg = scratch.data_ptr()
+    flags = agg + tiles * _CHANNELS * 8
+    with build.on_device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fns[a.dtype](a.data_ptr(), b.data_ptr(), y.data_ptr(), B, S, C,
-                           stream)
+        err = fns[a.dtype](a.data_ptr(), b.data_ptr(), y.data_ptr(), agg,
+                           flags, B, S, C, chunk, stream)
     if err != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
                            f"{err} ({err_str(err).decode()})")

@@ -6,7 +6,10 @@ version (ref.py), because there is no kernel to run there. That choice is
 made by the tensors' device alone: on a CUDA tensor the wrapper launches
 the kernel or raises, and a build or launch failure is never answered with
 the plain version. The kernel masks ragged S and C itself, so the
-reference wrapper's identity padding (a = 1, b = 0) is gone.
+reference wrapper's identity padding (a = 1, b = 0) is gone. It scans
+tiles of CHUNK time steps by 128 channels in one pass over memory, each
+tile's carry folded from the aggregates of the earlier ones in chunk order
+(ref.py's `rglru_chunked_ref` is the same arithmetic in plain PyTorch).
 
 `rglru_scan.launches` counts kernel launches (CUDA tensors only), so a run
 can show that its main path went through the kernel.
@@ -18,6 +21,7 @@ import torch
 from repro_torch.kernels.rglru_scan.ref import rglru_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
+CHUNK = 64      # time steps a tile, the fastest of PERF.md's sweep
 
 
 def _check_cuda_args(a, b):
@@ -50,7 +54,7 @@ def rglru_scan(a, b):
         y = torch.zeros(a.shape, dtype=torch.float32, device=a.device)
         return y, y[:, -1]
     from repro_torch.kernels.rglru_scan.kernel import rglru_scan_kernel
-    y = rglru_scan_kernel(a, b)
+    y = rglru_scan_kernel(a, b, CHUNK)
     rglru_scan.launches += 1
     return y, y[:, -1]
 

@@ -19,3 +19,33 @@ def rglru_ref(a, b):
         h = a32[:, t] * h + b32[:, t]
         y[:, t] = h
     return y
+
+
+def rglru_chunked_ref(a, b, chunk):
+    """The kernel's chunked scan (csrc/rglru_scan.cu) in plain PyTorch: the
+    same recurrence in tiles of `chunk` time steps (the last may be short).
+    Each tile's aggregate is (prod a, its end value from h = 0); the carry
+    into tile c is the aggregates of tiles 0 .. c-1 folded in chunk order,
+    and the tile is then scanned from its carry. Every product and sum is
+    rounded on its own, as in `rglru_ref`. a, b: (B, S, C) -> y (B, S, C)
+    f32."""
+    a32, b32 = a.float(), b.float()
+    S = a.shape[1]
+    starts = range(0, S, chunk)
+    aggs = []
+    for t0 in starts:
+        prod = torch.ones_like(a32[:, 0])
+        h = torch.zeros_like(a32[:, 0])
+        for t in range(t0, min(t0 + chunk, S)):
+            prod = prod * a32[:, t]
+            h = a32[:, t] * h + b32[:, t]
+        aggs.append((prod, h))
+    y = torch.empty_like(a32)
+    for c, t0 in enumerate(starts):
+        h = torch.zeros_like(a32[:, 0])
+        for prod, end in aggs[:c]:
+            h = prod * h + end
+        for t in range(t0, min(t0 + chunk, S)):
+            h = a32[:, t] * h + b32[:, t]
+            y[:, t] = h
+    return y

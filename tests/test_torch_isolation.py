@@ -1,8 +1,8 @@
-"""The port stands alone: no module of `repro_torch`, and not the root
-`chip_smoke.py`, imports JAX or the reference package `repro` — not at
-import time (a fresh interpreter imports every module and inspects
-`sys.modules`) and not lazily inside a function (every import statement
-in the sources is read)."""
+"""The port stands alone: no module of `repro_torch`, not the root
+`chip_smoke.py` and not the card probes `tools/probe_*.py` imports JAX or
+the reference package `repro` — not at import time (a fresh interpreter
+imports every module and inspects `sys.modules`) and not lazily inside a
+function (every import statement in the sources is read)."""
 import ast
 import os
 import subprocess
@@ -13,7 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "tools").glob("probe_*.py")))
 
 _PROBE = r"""
 import importlib, pkgutil, sys

@@ -2,8 +2,10 @@
 ref.py, what `ops.rglru_scan` runs for CPU tensors) against the
 reference's Pallas kernel in interpret mode and its `lax.scan` oracle, on
 the reference's three kernel cases (tests/test_kernels.py RGLRU_CASES) in
-f32 and bf16 inputs, and the model's log-depth scan (`models.rglru.
-_linear_scan`, the "xla" route) against the same oracle.
+f32 and bf16 inputs, the model's log-depth scan (`models.rglru.
+_linear_scan`, the "xla" route) against the same oracle, and the plain
+model of the kernel's chunked scan (`rglru_chunked_ref`) against the
+sequential plain version, the oracle and the Pallas kernel.
 
 Tolerances are the reference kernel test's own: 1e-4 for f32 inputs, 5e-2
 for bf16 inputs. Inputs are numpy draws from a seed; bf16 inputs are
@@ -20,6 +22,7 @@ import torch  # noqa: E402
 from repro.kernels.rglru_scan.ops import rglru_scan as jax_rglru_scan  # noqa: E402
 from repro.kernels.rglru_scan.ref import rglru_ref as jax_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.ops import rglru_scan  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_chunked_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_ref  # noqa: E402
 from repro_torch.models.rglru import _linear_scan  # noqa: E402
 from _torch_parity import one_torch_thread  # noqa: E402,F401
@@ -70,3 +73,31 @@ def test_cpu_tensors_never_count_as_launches():
     assert rglru_scan.launches == before
     with pytest.raises(ValueError, match="time step"):
         rglru_scan(a[:, :0], b[:, :0])
+
+
+# the plain model of the kernel's chunked scan (ref.rglru_chunked_ref) at
+# each chunk the kernel is built for, on the reference's cases and on
+# ragged sequences of 20, 100 and 1,000 steps (ragged channels too)
+CHUNKED_CASES = [case[:3] for case in RGLRU_CASES] + [
+    (2, 20, 48), (1, 100, 130), (1, 1000, 200)]
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+@pytest.mark.parametrize("case", CHUNKED_CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_chunked_ref_matches_sequential_and_pallas(case, dtype, chunk):
+    B, S, C = case
+    jdt, tdt, tol = DTYPES[dtype]
+    a, b = _ab(B, S, C)
+    ja, jb = jnp.asarray(a).astype(jdt), jnp.asarray(b).astype(jdt)
+    ta, tb = torch.as_tensor(a).to(tdt), torch.as_tensor(b).to(tdt)
+    y = rglru_chunked_ref(ta, tb, chunk)
+    assert y.dtype == torch.float32 and tuple(y.shape) == case
+    np.testing.assert_allclose(y.numpy(), rglru_ref(ta, tb).numpy(),
+                               atol=tol, rtol=tol)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jax_ref(ja, jb)),
+                               atol=tol, rtol=tol)
+    # the Pallas kernel pads a ragged S or C with the identity
+    jy, _ = jax_rglru_scan(ja, jb, block_s=min(16, S), block_c=min(128, C),
+                           interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=tol, rtol=tol)

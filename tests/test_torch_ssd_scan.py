@@ -4,14 +4,19 @@ Pallas kernel in interpret mode and its `lax.scan` oracle, on the
 reference's four kernel cases (tests/test_kernels.py SSD_CASES) in f32 and
 bf16; on ragged sequences (not a multiple of the chunk, which the
 reference's Pallas wrapper refuses) against the reference's XLA route
-`models.mamba2.ssd_chunked`; and the port's own `ssd_chunked` (the "xla"
-route) against the same functions.
+`models.mamba2.ssd_chunked`; the port's own `ssd_chunked` (the "xla"
+route) against the same functions; the plain model of the kernel's
+tensor-core route (`ssd_chunk_passes_ref`) against the sequential plain
+version, the reference's oracle and its Pallas kernel; and the wrapper's
+route rule.
 
 Tolerances are the reference kernel test's own: 2e-4 in f32, 5e-2 in bf16.
 Inputs are numpy draws from a seed; bf16 inputs are rounded from the same
 f32 values on both sides. The kernel itself is tested on the card
 (test_torch_ssd_scan_cuda.py).
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -22,7 +27,8 @@ import torch  # noqa: E402
 from repro.kernels.ssd_scan.ops import ssd_scan as jax_ssd_scan  # noqa: E402
 from repro.kernels.ssd_scan.ref import ssd_ref as jax_ssd_ref  # noqa: E402
 from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked  # noqa: E402
-from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import route, ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunk_passes_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_ref  # noqa: E402
 from repro_torch.models.mamba2 import ssd_chunked  # noqa: E402
 from _torch_parity import to_np  # noqa: E402
@@ -133,3 +139,59 @@ def test_cpu_tensors_never_count_as_launches():
     assert ssd_scan.launches == before
     with pytest.raises(ValueError, match="CUDA or CPU"):
         ssd_scan(*(t.to("meta") for t in tx))
+
+
+# the plain model of the tensor-core route's three passes
+# (ref.ssd_chunk_passes_ref) at each chunk the kernel is built for, on the
+# reference's cases and on ragged sequences of 20, 100 and 1,000 tokens
+# (none a multiple of every chunk)
+PASSES_CASES = SSD_CASES + RAGGED_CASES + [(1, 1000, 8, 64, 1, 128, 256)]
+
+
+@functools.cache
+def _oracles(case, dtype):
+    """The reference's lax.scan oracle and, where the sequence is a
+    multiple of the case's chunk, its Pallas kernel in interpret mode."""
+    jx, _ = _both(case, dtype)
+    out = [tuple(to_np(t) for t in jax_ssd_ref(*jx))]
+    if case[1] % case[-1] == 0:
+        out.append(tuple(to_np(t) for t in jax_ssd_scan(
+            *jx, chunk_size=case[-1], interpret=True)))
+    return out
+
+
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+@pytest.mark.parametrize("case", PASSES_CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_chunk_passes_match_sequential_and_pallas(case, dtype, chunk):
+    tol = DTYPES[dtype][2]
+    _, tx = _both(case, dtype)
+    y, st = ssd_chunk_passes_ref(*tx, chunk)
+    assert y.dtype == tx[0].dtype and st.dtype == torch.float32
+    assert tuple(y.shape) == case[:4]
+    ry, rst = ssd_ref(*tx)
+    _close(y, ry, tol)
+    _close(st, rst, tol)
+    for oy, ost in _oracles(case, dtype):
+        np.testing.assert_allclose(to_np(y), oy, atol=tol, rtol=tol)
+        np.testing.assert_allclose(st.numpy(), ost, atol=tol, rtol=tol)
+
+
+def test_route_rule():
+    """bf16 tiles the tensor cores take run "mma" (the model's strided xBC
+    views included); f32, head dims or d_state off the tiles, and bases or
+    strides off 16 bytes run "simt"."""
+    b, s, h, p, g, n = 1, 40, 4, 64, 1, 128
+    di = h * p
+    xBC = torch.zeros((b, s, di + 2 * g * n), dtype=torch.bfloat16)
+    x = xBC[..., :di].reshape(b, s, h, p)
+    B = xBC[..., di:di + g * n].reshape(b, s, g, n)
+    C = xBC[..., di + g * n:].reshape(b, s, g, n)
+    assert route(x, B, C) == "mma"
+    assert route(x.float(), B.float(), C.float()) == "simt"
+    assert route(x[..., :48], B, C) == "simt"            # p 48
+    assert route(x, B[..., :120], C[..., :120]) == "simt"  # n 120
+    odd = torch.zeros((b, s, di + 2 * g * n + 4), dtype=torch.bfloat16)
+    assert route(odd[..., :di].reshape(b, s, h, p), B, C) == "simt"
+    shifted = xBC.reshape(-1)[1:1 + b * s * di].reshape(b, s, h, p)
+    assert route(shifted, B, C) == "simt"
