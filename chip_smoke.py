@@ -99,10 +99,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
    pairs of the reference's 256-token chunks), per call and on the card
    alone, beside the first design's (PREVIOUS_SCAN_MS); no single PyTorch
    call computes SSD, so no library time.
+15. Fused decode: phase 3's engine with `fused_tokens=8` on phase 3's bf16
+   weights and requests. While every live slot is greedy a dispatch is one
+   CUDA graph replay of 8 decode steps (captured at the first fused
+   dispatch, after two eager warm-up runs that write only the null page);
+   the sampled request's batches take single steps. The paged kernel must
+   launch exactly 28 x (8 x (replays + warm-up runs) + single dispatches):
+   a replay adds the launches its capture recorded. Logs ms per dispatch
+   and per decode position beside phase 3's single step, and profiles a
+   greedy batch-8 dispatch (device busy share of a replay). Then, in f32
+   on phase 4's model, the fused greedy tokens must equal phase 4's
+   single-step "cuda" tokens, except after a first divergence at a token
+   whose top-2 logit gap in that run is below 1e-3.
+16. Speculative decode, `spec_tokens=4`: with the n-gram drafter on phase
+   3's bf16 weights and requests (the verify forward is a dense gather, no
+   kernel: the paged kernel must launch exactly 28 x the single-step
+   dispatches), then in f32 with depth cut to 4 layers, drafting with a
+   `ModelDrafter` on the target's own weights: tokens against the single-
+   step run under the top-2 rule, acceptance at least 0.9. Logs tokens
+   per dispatch, acceptance and rollbacks.
+17. Chunked prefill, `scheduler="chunked", chunk_budget=64` on phase 3's
+   bf16 weights and requests: the paged kernel (the mixed step's decode
+   rows, its second caller) must launch exactly 28 x (mixed + single
+   dispatches). Logs ms per mixed dispatch and, with a 256-token prompt
+   arriving among 7 decoding requests, the longest gap between two tokens
+   of a decoding request, chunked and phased. Then the f32 tokens on phase
+   4's model against its single-step run under the top-2 rule.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; above it
 stand the card's name and power limit and one JSON line with each
-kernel's numbers (the SSD kernel's launches also by route).
+kernel's numbers (the SSD kernel's launches also by route, the paged
+kernel's also by path).
 """
 from __future__ import annotations
 
@@ -149,6 +176,9 @@ SSD_CASES = [
 ]
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 LOGIT_TOL = 1e-3
+FUSED_TOKENS = 8                   # phase 15's fused dispatch
+CHUNK_BUDGET = 64                  # phase 17's chunks
+SPEC_F32_LAYERS = 4                # phase 16's f32 check: depth cut to this
 # the reference's kernel test shapes (tests/test_paged_attention_kernel.py)
 # and the main path's: B, nb, bs, nkv, rep, hd, tokens resident per slot
 KERNEL_CASES = [
@@ -795,6 +825,7 @@ def lockstep(engines, requests) -> dict:
         outs.append([r.output for r in reqs])
     out = compare_runs(*recs)
     out["identical_outputs"] = outs[0] == outs[1]
+    out["outs"], out["rec"] = outs[0], recs[0]    # the first engine's run
     return out
 
 
@@ -1051,6 +1082,222 @@ def profile_steps(fn, steps) -> dict:
             "by_name": {e.key: dev_us(e) / 1e3 / steps for e in events}}
 
 
+# --------------------------------------------- fused, speculative, chunked
+
+def make_variant(params, cfg, device, warm=True, **kw):
+    """Phases 15-17's engine: phase 3's, plus one decode variant. With
+    `warm`, four greedy requests of 24 new tokens run through it first (the
+    fused graph's capture, first calls at new shapes), with no reset after
+    them (a reset drops the graph); their step times are cleared."""
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(params, cfg, kv_layout="paged", decode_kernel="cuda",
+                      prefill_mode="bulk", batch_slots=8, cache_len=512,
+                      block_size=16, device=device, **kw)
+    if warm:
+        for p, _, _ in make_requests(cfg, n=4, seed=SEED + 1):
+            eng.submit(p, max_new_tokens=24)
+        eng.run()
+        eng.step_times.clear()
+    return eng
+
+
+def serve_variant(engine, requests) -> dict:
+    """Phases 15-17's counted run: every launch count set to 0 just before
+    and read just after. The paged kernel must have launched n_layers x
+    (fused_tokens x (fused graph replays + its eager warm-up runs) +
+    single-token dispatches + mixed dispatches) times, exactly (a replay
+    adds the launches its capture recorded; the verify forward has none);
+    no other kernel at all. Outputs are checked as in phase 3."""
+    reqs = [engine.submit(p, max_new_tokens=n, sampling=s)
+            for p, s, n in requests]
+    fns = counters()
+    graph = engine._decode_fused
+    replays0 = graph.replays if graph is not None else 0
+    warm0 = graph.warmup_runs if graph is not None else 0
+    before = [engine.spec_metrics, engine.scheduler_metrics,
+              engine.cache_metrics.as_dict()]
+    sync(engine)
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    engine.run()
+    sync(engine)
+    wall = time.perf_counter() - t0
+    cfg = engine.cfg
+    for r, (_, _, n) in zip(reqs, requests):
+        if r.error is not None or not r.done or len(r.output) != n:
+            raise AssertionError(f"request {r.request_id}: done={r.done} "
+                                 f"error={r.error!r} tokens={len(r.output)}"
+                                 f" of {n}")
+        if not all(0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"request {r.request_id}: token out of "
+                                 "the vocabulary")
+    kinds = {k: h.n for k, h in engine.step_times.items()}
+    replays = (graph.replays - replays0) if graph is not None else 0
+    warmups = (graph.warmup_runs - warm0) if graph is not None else 0
+    if replays != kinds.get("fused", 0):
+        raise AssertionError(f"{kinds.get('fused', 0)} fused dispatches, "
+                             f"{replays} graph replays")
+    want = cfg.n_layers * (engine.fused_tokens * (replays + warmups)
+                           + kinds.get("decode", 0) + kinds.get("mixed", 0))
+    launches = {k: fn.launches for k, fn in fns.items()}
+    if launches["paged_attention"] != want or any(
+            n for k, n in launches.items() if k != "paged_attention"):
+        raise AssertionError(
+            f"launches {launches}, expected paged_attention {want} = "
+            f"{cfg.n_layers} x ({engine.fused_tokens} x ({replays} replays "
+            f"+ {warmups} warm-up runs) + {kinds.get('decode', 0)} single "
+            f"+ {kinds.get('mixed', 0)} mixed dispatches)")
+    times = {k: h.total / h.n for k, h in engine.step_times.items()}
+    return {"requests": len(reqs), "launches": launches["paged_attention"],
+            "dispatches": kinds, "replays": replays, "warmups": warmups,
+            "step_ms_mean": times, "wall_s": wall,
+            "tokens_per_s": sum(len(r.output) for r in reqs) / wall,
+            "outputs": [r.output for r in reqs],
+            "spec": counted(engine.spec_metrics, before[0]),
+            "scheduler": counted(engine.scheduler_metrics, before[1]),
+            "cache": counted(engine.cache_metrics.as_dict(), before[2])}
+
+
+def counted(after, before):
+    """An engine's counters over one run (the warm-up's taken off), with
+    the rates taken again from them."""
+    if after is None:
+        return None
+    out = {k: (v - before[k] if isinstance(v, int) and not isinstance(
+        v, bool) and k not in ("spec_tokens", "chunk_budget") else v)
+        for k, v in after.items()}
+    if "tokens_drafted" in out:
+        out["acceptance_rate"] = (out["tokens_accepted"]
+                                  / max(out["tokens_drafted"], 1))
+        out["tokens_per_dispatch"] = (out["tokens_emitted"]
+                                      / max(out["dispatches"], 1))
+    if "chunks_dispatched" in out:
+        out["tokens_per_chunk"] = (out["prefill_tokens_chunked"]
+                                   / max(out["chunks_dispatched"], 1))
+    return out
+
+
+def sync(engine):
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def log_variant(s: dict):
+    log(f"  {s['requests']} requests; dispatches by kind {s['dispatches']}; "
+        f"paged kernel launches {s['launches']} (graph replays "
+        f"{s['replays']}, warm-up runs {s['warmups']}); step ms mean by kind "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+            s["step_ms_mean"].items()))
+        + f"; {s['tokens_per_s']:.1f} tokens/s end to end over "
+        f"{s['wall_s']:.3f} s")
+
+
+def log_spec(spec: dict, cache: dict):
+    log(f"  drafter {spec['drafter']}: {spec['dispatches']} verify "
+        f"dispatches, {spec['tokens_per_dispatch']:.3f} tokens per dispatch "
+        f"(all slots), acceptance {spec['acceptance_rate']:.4f} "
+        f"({spec['tokens_accepted']} of {spec['tokens_drafted']} drafts), "
+        f"{cache['rollbacks']} rollbacks of {spec['tokens_rolled_back']} "
+        "tokens")
+
+
+def greedy(requests, new_tokens=None):
+    return [(p, None, n if new_tokens is None else new_tokens)
+            for p, _, n in requests]
+
+
+def tokens_by_request(rec) -> dict:
+    """The logits behind each generated token of a `record_logits` run:
+    {request_id: [logits of token 0 (prefill), token 1, ...]}."""
+    out = {}
+    for _, rows in rec:
+        for rid, x in rows.items():
+            out.setdefault(rid, []).append(x)
+    return out
+
+
+def match_tokens(outs, ref_outs, ref_rec) -> dict:
+    """Phases 15-17's f32 token checks: `outs` must equal `ref_outs` (the
+    single-step engine's, whose logits `ref_rec` recorded) request for
+    request, except after a first divergence at a token whose logits'
+    top-2 gap in the single-step run is below LOGIT_TOL."""
+    logits = tokens_by_request(ref_rec)
+    diverged = {}
+    for rid, (a, b) in enumerate(zip(outs, ref_outs)):
+        if a == b:
+            continue
+        t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        if t >= len(b) or t >= len(a):
+            raise AssertionError(f"request {rid}: {len(a)} tokens against "
+                                 f"{len(b)}")
+        top2 = torch.topk(logits[rid][t], 2).values
+        gap = (top2[0] - top2[1]).item()
+        if gap >= LOGIT_TOL:
+            raise AssertionError(f"request {rid}: token {t} differs from "
+                                 f"the single-step run's with its top-2 "
+                                 f"gap {gap}")
+        diverged[str(rid)] = (t, gap)
+    return {"requests": len(outs), "diverged": diverged,
+            "identical": not diverged}
+
+
+def single_step_reference(params, cfg, device, requests) -> dict:
+    """The single-token paged engine's greedy outputs and recorded logits
+    for `requests` (phase 16's cut-depth model)."""
+    eng = make_engine(params, cfg, device, "cuda")
+    rec = record_logits(eng)
+    reqs = [eng.submit(p, max_new_tokens=n) for p, _, n in requests]
+    eng.run()
+    return {"outs": [r.output for r in reqs], "rec": rec}
+
+
+def profile_fused(engine, requests, steps=3) -> dict:
+    """Phase 15: where a greedy batch-8 fused dispatch's time goes (one
+    graph replay and the host's reconcile per engine step), every slot
+    live with budget enough for every step."""
+    engine.reset()
+    n = engine.fused_tokens
+    for p, _, _ in requests[:engine.slots]:
+        engine.submit(p, max_new_tokens=1 + n * (2 + 2 * steps) + n)
+    engine.step()                  # admission, prefills, the capture
+    engine.step()
+    return profile_steps(engine.step, steps)
+
+
+def stall_gap(engine, requests, long_prompt) -> dict:
+    """Phase 17: every slot but one decoding greedily, then `long_prompt`
+    arrives. Returns the longest gap between two tokens of one decoding
+    request (host clock, from its token of the step before the arrival to
+    its token of the step that gives the long request its first token),
+    the steps after the arrival, and the long request's wait for its first
+    token."""
+    engine.reset()
+    for p, _, _ in requests[:engine.slots - 1]:
+        engine.submit(p, max_new_tokens=64)
+    while engine.pending_count() or (engine.scheduler is not None and
+                                     engine.scheduler.has_prefill_work()):
+        engine.step()
+    stamps = {}
+    engine.on_token = lambda req, tok: stamps.setdefault(
+        req.request_id, []).append(time.perf_counter())
+    try:
+        engine.step()              # each decoding request's last token before
+        longr = engine.submit(long_prompt, max_new_tokens=2)
+        t0 = time.perf_counter()
+        steps = 0
+        while not longr.output:
+            engine.step()
+            steps += 1
+    finally:
+        engine.on_token = None
+    gaps = [b - a for rid, ts in stamps.items() if rid != longr.request_id
+            for a, b in zip(ts, ts[1:])]
+    return {"max_gap_ms": max(gaps) * 1e3, "steps": steps,
+            "first_token_ms": (stamps[longr.request_id][0] - t0) * 1e3}
+
+
 # ----------------------------------------------------------------- main
 
 def main(device: str = "cuda") -> int:
@@ -1133,6 +1380,55 @@ def main(device: str = "cuda") -> int:
     del eng
     torch.cuda.empty_cache()
 
+    log(f"[15] fused decode, fused_tokens={FUSED_TOKENS}, one CUDA graph "
+        "replay a dispatch (bf16, phase 3's weights and requests)")
+    eng = make_variant(params, cfg, device, fused_tokens=FUSED_TOKENS)
+    fused = serve_variant(eng, requests)
+    log_variant(fused)
+    per_dispatch = fused["step_ms_mean"]["fused"]
+    log(f"  {per_dispatch:.3f} ms per fused dispatch, "
+        f"{per_dispatch / FUSED_TOKENS:.3f} ms per decode position, beside "
+        f"phase 3's single step {served['decode_step_ms_mean']:.3f} ms "
+        f"({served['decode_step_ms_mean'] * FUSED_TOKENS / per_dispatch:.2f}"
+        "x)")
+    log("[15] where a greedy batch-8 fused dispatch's time goes (bf16)")
+    prof_f = profile_fused(eng, requests)
+    log_profile(prof_f, "dispatch")
+    log_share(prof_f, "paged_attention", "dispatch")
+    del eng
+
+    log("[16] speculative decode, spec_tokens=4, drafter='ngram' (bf16, "
+        "phase 3's weights and requests)")
+    eng = make_variant(params, cfg, device, spec_tokens=4, drafter="ngram")
+    spec = serve_variant(eng, requests)
+    log_variant(spec)
+    log_spec(spec["spec"], spec["cache"])
+    del eng
+
+    log("[17] chunked prefill, chunk_budget=64 (bf16, phase 3's weights and "
+        "requests)")
+    eng = make_variant(params, cfg, device, scheduler="chunked",
+                       chunk_budget=CHUNK_BUDGET)
+    chunked = serve_variant(eng, requests)
+    log_variant(chunked)
+    log(f"  {chunked['step_ms_mean']['mixed']:.3f} ms per mixed dispatch; "
+        f"scheduler {chunked['scheduler']}")
+    long_prompt = np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab_size, 256).tolist()
+    stall = {"chunked": stall_gap(eng, requests, long_prompt)}
+    del eng
+    eng = make_engine(params, cfg, device, "cuda")
+    stall["phased"] = stall_gap(eng, requests, long_prompt)
+    for name, g in stall.items():
+        log(f"  {name}: a 256-token prompt arrives among 7 decoding "
+            f"requests: longest gap between two tokens of a decoding "
+            f"request {g['max_gap_ms']:.3f} ms, {g['steps']} steps to its "
+            f"first token ({g['first_token_ms']:.3f} ms)")
+    log(f"  (phase 3's bulk prefill: {served['prefill_ms_mean']:.3f} ms mean "
+        "per request)")
+    del eng
+    torch.cuda.empty_cache()
+
     log("[9] serving qwen3-1.7b on the dense layout, bf16, "
         "attention_impl='pallas' (bulk prefill through the flash kernel)")
     cfg_d = cfg.replace(attention_impl="pallas")
@@ -1160,6 +1456,47 @@ def main(device: str = "cuda") -> int:
         f"{oracle['last_step_max_abs_logit_diff']:.3g}, tol {LOGIT_TOL}), "
         f"greedy divergences {oracle['diverged_requests']}, outputs "
         f"identical: {oracle['identical_outputs']}")
+
+    f32_requests = make_requests(cfg32, n=8, new_tokens=16)
+    log(f"[15] f32 (TF32 off, phase 4's model): fused_tokens={FUSED_TOKENS} "
+        "tokens against phase 4's single-step 'cuda' run")
+    eng = make_variant(params32, cfg32, device, warm=False,
+                       fused_tokens=FUSED_TOKENS)
+    fused32 = serve_variant(eng, greedy(f32_requests))
+    log_variant(fused32)
+    fused_match = match_tokens(fused32["outputs"], oracle["outs"],
+                               oracle["rec"])
+    log(f"  tokens: {fused_match}")
+    del eng
+    log("[17] f32 (TF32 off, phase 4's model): chunked, chunk_budget=64, "
+        "against phase 4's single-step 'cuda' run")
+    eng = make_variant(params32, cfg32, device, warm=False,
+                       scheduler="chunked", chunk_budget=CHUNK_BUDGET)
+    chunked32 = serve_variant(eng, greedy(f32_requests))
+    log_variant(chunked32)
+    chunk_match = match_tokens(chunked32["outputs"], oracle["outs"],
+                               oracle["rec"])
+    log(f"  tokens: {chunk_match}")
+    del eng
+    cut32 = cfg32.replace(n_layers=SPEC_F32_LAYERS)
+    log(f"[16] f32 (TF32 off), depth cut to {cut32.n_layers} layers: "
+        "spec_tokens=4 with a ModelDrafter on the target's own weights, "
+        "against the single-step 'cuda' run")
+    p_cut = make_model(cut32, device)
+    spec_requests = greedy(f32_requests[:4])
+    ref = single_step_reference(p_cut, cut32, device, spec_requests)
+    from repro_torch.serve.draft import ModelDrafter
+    eng = make_variant(p_cut, cut32, device, warm=False, spec_tokens=4,
+                       drafter=ModelDrafter(p_cut, cut32, cache_len=512))
+    spec32 = serve_variant(eng, spec_requests)
+    log_variant(spec32)
+    log_spec(spec32["spec"], spec32["cache"])
+    spec_match = match_tokens(spec32["outputs"], ref["outs"], ref["rec"])
+    log(f"  tokens: {spec_match}")
+    if spec32["spec"]["acceptance_rate"] < 0.9:
+        raise AssertionError(f"self-drafting acceptance "
+                             f"{spec32['spec']['acceptance_rate']} < 0.9")
+    del eng, p_cut, ref
 
     log("[9] dense qwen3-1.7b at full width, f32: 'pallas' against 'xla'")
     dense_q32 = lockstep(
@@ -1301,6 +1638,10 @@ def main(device: str = "cuda") -> int:
         "replaces": "src/repro/kernels/paged_attention/kernel.py:43",
         "launches": served["launches"],
         "max_abs_err": errs[torch.bfloat16],
+        "launches_by_path": {"single": served["launches"],
+                             "fused": fused["launches"],
+                             "speculative": spec["launches"],
+                             "chunked": chunked["launches"]},
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
@@ -1344,7 +1685,15 @@ def main(device: str = "cuda") -> int:
     log(f"kernels: paged_attention launches={served['launches']} "
         f"(decode dispatches {served['decode_dispatches']} x "
         f"{cfg.n_layers} layers); f32 max abs err "
-        f"{errs[torch.float32]:.3g}, bf16 {errs[torch.bfloat16]:.3g}")
+        f"{errs[torch.float32]:.3g}, bf16 {errs[torch.bfloat16]:.3g}; on "
+        f"the fused path {fused['launches']} ({fused['replays']} replays, "
+        f"{fused['warmups']} warm-up runs of {FUSED_TOKENS} steps, "
+        f"{fused['dispatches'].get('decode', 0)} single dispatches), the "
+        f"speculative {spec['launches']} "
+        f"({spec['dispatches'].get('decode', 0)} single dispatches; the "
+        f"verify has none), the chunked {chunked['launches']} "
+        f"({chunked['dispatches'].get('mixed', 0)} mixed + "
+        f"{chunked['dispatches'].get('decode', 0)} single dispatches)")
     log(f"kernels: flash_attention launches="
         f"{kernels[1]['launches']} (qwen3 {dense_q['prefills']} prefills x "
         f"{cfg.n_layers} layers + recurrentgemma {dense_r['prefills']} "

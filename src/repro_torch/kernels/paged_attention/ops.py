@@ -20,7 +20,10 @@ arithmetic in plain torch, for the tests.
 
 `paged_attention.launches` counts wrapper calls that launched the kernel
 (CUDA tensors only; one per call, both passes together), so a run can show
-that its main path went through the kernel.
+that its main path went through the kernel. A call made while a CUDA graph
+is being captured launches nothing then: it counts in
+`paged_attention.captured` instead, and whoever replays the graph adds its
+captured launches to `.launches` per replay (`serve.graph`).
 """
 from __future__ import annotations
 
@@ -139,8 +142,12 @@ def paged_attention(q, kpool, vpool, table, pos, *, scale=None, window=None,
     out = paged_attention_kernel(q, kpool, vpool, table, pos, scale=scale,
                                  n_splits=plan.n_splits,
                                  pages_per_split=plan.pages_per_split)
-    paged_attention.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        paged_attention.captured += 1
+    else:
+        paged_attention.launches += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.captured = 0

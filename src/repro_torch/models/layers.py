@@ -10,8 +10,9 @@ Attention supports:
   * causal, sliding-window and cross (non-causal) masking
   * full-sequence causal attention through the flash-attention kernel
     (`cfg.attention_impl == "pallas"`) or the dense composition ("xla")
-  * single-token decode over a dense ring cache, and decode and suffix
-    prefill over a paged KV pool
+  * single-token decode over a dense ring cache; over a paged KV pool,
+    decode, suffix prefill, the speculative verify (T tokens per slot),
+    one prefill chunk, and the chunked scheduler's mixed decode + chunk
 
 One difference from the reference: JAX arrays are immutable, so the
 reference's cache writes (`kpool.at[blk, off].set(...)`, the one-hot blend
@@ -318,6 +319,161 @@ def attention_prefill_paged(params, cfg, x, q_pos, n_tok, kpool, vpool,
     if window is not None:
         mask &= kv_pos[None, :] > (q_pos[:, None] - window)
     out = _sdpa_xla(q, kall, vall, mask[None], 1.0 / math.sqrt(hd))
+    return out.reshape(B, S, nh * hd) @ params["wo"], kpool, vpool
+
+
+def _gather_chain(pool, table):
+    """The pages named by `table` (..., nb) as one dense run per row:
+    (..., nb * bs, nkv, hd), index = absolute position."""
+    g = pool[table.long()]
+    return g.reshape(*table.shape[:-1], -1, *pool.shape[2:])
+
+
+def attention_verify_paged(params, cfg, x, pos, kpool, vpool, table, *,
+                           window=None, rope=True):
+    """Multi-token batched decode over a paged cache, the speculative-
+    decoding verify forward: slot s's T tokens sit at absolute positions
+    pos[s] + [0, T); their K/V are scattered into the slot's pages first,
+    then all T queries attend the whole chain, causal by absolute position
+    (draft j sees the resident prefix plus drafts 0..j).
+
+    x: (B, T, d); pos: (B,) int32; kpool/vpool: (P, bs, nkv, hd); table:
+    (B, nb). Returns (out (B, T, d), kpool, vpool), the pools written in
+    place. Positions past the table's span (a burst near the request's
+    budget) scatter into null block 0, as do dead slots' all-zero rows
+    (repeated indices; see `attention_decode_paged`); their outputs are
+    garbage the caller's acceptance mask never reads. The read is the
+    dense gather, as in the reference: no kernel is owed for it.
+    """
+    B, T, _ = x.shape
+    hd, nh = cfg.resolved_head_dim, cfg.n_heads
+    bs = kpool.shape[1]
+    nb = table.shape[1]
+    q, k, v = _project_qkv(params, cfg, x, x)
+    q_pos = pos[:, None] + torch.arange(T, dtype=pos.dtype,
+                                        device=x.device)[None, :]   # (B, T)
+    if rope:
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k = apply_rope(k, q_pos, cfg.rope_theta)
+    in_span = q_pos < nb * bs
+    page = (q_pos // bs).clamp(0, nb - 1).long()
+    blk = torch.where(in_span, torch.gather(table, 1, page), 0).long()
+    off = torch.where(in_span, q_pos % bs, 0).long()
+    kpool.index_put_((blk, off), k)
+    vpool.index_put_((blk, off), v)
+    kv_pos = torch.arange(nb * bs, device=x.device)
+    mask = kv_pos[None, None, :] <= q_pos[:, :, None]            # (B, T, Sk)
+    if window is not None:
+        mask &= kv_pos[None, None, :] > (q_pos[:, :, None] - window)
+    mask &= (table != 0).repeat_interleave(bs, dim=1)[:, None, :]  # null pages
+    out = _sdpa_xla(q, _gather_chain(kpool, table),
+                    _gather_chain(vpool, table), mask, 1.0 / math.sqrt(hd))
+    return out.reshape(B, T, nh * hd) @ params["wo"], kpool, vpool
+
+
+def attention_mixed_paged(params, cfg, x, pos, n_chunk, kpool, vpool, table,
+                          ctable, *, window=None, rope=True, kernel="cuda"):
+    """Mixed decode + chunk attention over a paged cache in one pass, the
+    per-layer unit of the chunked-prefill scheduler's mixed step.
+
+    x: (1, B + C, d): the first B rows are one decode token per slot (B ==
+    table.shape[0]), the last C one prompt's prefill chunk (right-padded;
+    `n_chunk` of them real). pos: (B + C,) int32 absolute positions of
+    every row. All rows' K/V are scattered in ONE combined pool write, then
+    two reads run from the same pools:
+
+      * decode rows attend their own chains through `table`, kernel-
+        switched exactly like `attention_decode_paged` (the paged-attention
+        kernel's second caller);
+      * chunk rows attend the chunk slot's chain through `ctable`
+        (truncated by the caller to the pages the chunk can causally see),
+        causal by absolute position, by the dense gather (the contract of
+        `attention_prefill_chunk_paged`, the chunk-only oracle).
+
+    The decode slots and the chunk slot never share a frontier page (the
+    copy-on-write guarantee), so the order of the two row groups' writes
+    is irrelevant. Pad chunk rows and masked decode slots (all-zero table
+    rows) scatter into null block 0. Returns (out (1, B + C, d), kpool,
+    vpool), the pools written in place.
+    """
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    R = x.shape[1]
+    hd, nh = cfg.resolved_head_dim, cfg.n_heads
+    bs = kpool.shape[1]
+    B = table.shape[0]
+    C = R - B
+    nbc = ctable.shape[0]
+    q, k, v = (t[0] for t in _project_qkv(params, cfg, x, x))  # (R, h, hd)
+    if rope:
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    # one combined scatter: decode rows land in their slots' frontier
+    # pages, chunk rows in the chunk chain at their absolute offsets
+    dec_blk = torch.gather(table, 1, (pos[:B] // bs).long()[:, None])[:, 0]
+    cpos = pos[B:]
+    real = (torch.arange(C, device=x.device) < n_chunk) & (cpos < nbc * bs)
+    chk_blk = torch.where(real, ctable[(cpos // bs).clamp(0, nbc - 1).long()],
+                          0)
+    blk = torch.cat([dec_blk, chk_blk]).long()
+    off = torch.cat([pos[:B] % bs, torch.where(real, cpos % bs, 0)]).long()
+    kpool.index_put_((blk, off), k)
+    vpool.index_put_((blk, off), v)
+    # read 1: per-slot decode attention, kernel-switched
+    out_dec = pa_ops.paged_attention(q[:B].contiguous(), kpool, vpool, table,
+                                     pos[:B], window=window, kernel=kernel)
+    # read 2: the chunk attends its truncated chain, causal by position
+    kv_pos = torch.arange(nbc * bs, device=x.device)
+    mask = kv_pos[None, :] <= cpos[:, None]
+    if window is not None:
+        mask &= kv_pos[None, :] > (cpos[:, None] - window)
+    mask &= (ctable != 0).repeat_interleave(bs)[None, :]
+    out_chk = _sdpa_xla(q[None, B:], _gather_chain(kpool, ctable)[None],
+                        _gather_chain(vpool, ctable)[None], mask[None],
+                        1.0 / math.sqrt(hd))[0]
+    out = torch.cat([out_dec.reshape(B, nh * hd).to(x.dtype),
+                     out_chk.reshape(C, nh * hd)])
+    return (out @ params["wo"])[None], kpool, vpool
+
+
+def attention_prefill_chunk_paged(params, cfg, x, start, n_tok, kpool, vpool,
+                                  table, *, window=None, rope=True):
+    """One bounded chunk of a prompt's prefill over a paged cache, the
+    chunk half's oracle (the engine's mixed step fuses it with the
+    lockstep decode, `attention_mixed_paged`; tests hold the two against
+    each other).
+
+    x: (1, S, d) with S == the chunk budget; the first `n_tok` rows are
+    real tokens at absolute positions start..start+n_tok-1, the rest
+    right-pad; table: (nb,) this slot's block ids. The chunk's K/V are
+    scattered at their absolute offsets (pad rows and any position past
+    the table's span into null block 0), then the chunk attends, causal by
+    absolute position, everything resident below `start` plus itself;
+    null pages never contribute keys. Returns (out (1, S, d), kpool,
+    vpool), the pools written in place.
+    """
+    B, S, _ = x.shape
+    hd, nh = cfg.resolved_head_dim, cfg.n_heads
+    bs = kpool.shape[1]
+    nb = table.shape[0]
+    q, k, v = _project_qkv(params, cfg, x, x)
+    q_pos = start + torch.arange(S, device=x.device)
+    if rope:
+        q = apply_rope(q, q_pos[None, :], cfg.rope_theta)
+        k = apply_rope(k, q_pos[None, :], cfg.rope_theta)
+    real = (torch.arange(S, device=x.device) < n_tok) & (q_pos < nb * bs)
+    page = (q_pos // bs).clamp(0, nb - 1).long()
+    blk = torch.where(real, table[page], 0).long()
+    off = torch.where(real, q_pos % bs, 0).long()
+    kpool.index_put_((blk, off), k[0])
+    vpool.index_put_((blk, off), v[0])
+    kv_pos = torch.arange(nb * bs, device=x.device)
+    mask = kv_pos[None, :] <= q_pos[:, None]             # causal, absolute
+    if window is not None:
+        mask &= kv_pos[None, :] > (q_pos[:, None] - window)
+    mask &= (table != 0).repeat_interleave(bs)[None, :]
+    out = _sdpa_xla(q, _gather_chain(kpool, table)[None],
+                    _gather_chain(vpool, table)[None], mask[None],
+                    1.0 / math.sqrt(hd))
     return out.reshape(B, S, nh * hd) @ params["wo"], kpool, vpool
 
 

@@ -18,6 +18,12 @@ Entry points:
     decode_step_paged(params, cfg, tokens, pos, cache, table) -> (logits, cache)
     forward_prefill_paged(params, cfg, tokens, start, n_tok, cache, table)
                                                           -> (logits, cache)
+    verify_step_paged(params, cfg, tokens, pos, cache, table)
+                                                          -> (logits, cache)
+    mixed_step_paged(params, cfg, tokens, pos, n_chunk, cache, table, ctable)
+                                                          -> (logits, cache)
+    prefill_chunk_paged(params, cfg, tokens, start, n_tok, cache, table)
+                                                          -> (logits, cache)
     copy_pool_blocks(cache, src_ids, dst_ids)             -> cache
 
 Params: {"embed": {"table"}, "layers": [per-layer dict], "final_norm":
@@ -346,5 +352,89 @@ def forward_prefill_paged(params, cfg, tokens, start, n_tok, cache, table,
     for lp, pool in zip(params["layers"], cache):
         x = _layer_prefill_paged(lp, cfg, x, q_pos, n_tok, pool, table,
                                  window)
+    x = L.apply_rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return _logits(params, cfg, x), cache
+
+
+def _layer_verify_paged(lp, cfg, x, pos, pool, table, window):
+    h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
+    att, _, _ = L.attention_verify_paged(
+        lp["attn"], cfg, h, pos, pool["k"], pool["v"], table, window=window)
+    x = x + att
+    h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
+    return x + _ffn_apply(lp, cfg, h)
+
+
+def verify_step_paged(params, cfg, tokens, pos, cache, table, window=None):
+    """Multi-token `decode_step_paged`, the speculative-decoding verify
+    forward. tokens: (B, T); slot s's tokens occupy absolute positions
+    pos[s] + [0, T). All T tokens' K/V are written into the slot's pages
+    and all T positions' logits come back from one forward, causal within
+    the burst by absolute position. Returns (logits (B, T, V), cache). The
+    caller decides afterwards which written positions survive and rewinds
+    its frontier past the rest: stale rows beyond the frontier are masked
+    by every later read."""
+    _check_ported(cfg)
+    window = cfg.window if window is None else window
+    x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
+    for lp, pool in zip(params["layers"], cache):
+        x = _layer_verify_paged(lp, cfg, x, pos, pool, table, window)
+    x = L.apply_rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return _logits(params, cfg, x), cache
+
+
+def _layer_mixed_paged(lp, cfg, x, pos, n_chunk, pool, table, ctable,
+                       window, kernel):
+    h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
+    att, _, _ = L.attention_mixed_paged(
+        lp["attn"], cfg, h, pos, n_chunk, pool["k"], pool["v"], table,
+        ctable, window=window, kernel=kernel)
+    x = x + att
+    h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
+    return x + _ffn_apply(lp, cfg, h)
+
+
+def mixed_step_paged(params, cfg, tokens, pos, n_chunk, cache, table, ctable,
+                     window=None, kernel="cuda"):
+    """One chunked-prefill scheduler iteration: a single pass over the stack
+    for B decode rows plus C chunk rows (`tokens` (B + C,), `pos` (B + C,)
+    int32, rows laid out as in `layers.attention_mixed_paged`), with one
+    combined pool write per layer. The decode rows' read is kernel-
+    switched like `decode_step_paged`'s. Returns (logits (B + C, V),
+    cache)."""
+    _check_ported(cfg)
+    window = cfg.window if window is None else window
+    x = L.embed(params["embed"], tokens)[None].to(cfg.activation_dtype)
+    for lp, pool in zip(params["layers"], cache):
+        x = _layer_mixed_paged(lp, cfg, x, pos, n_chunk, pool, table, ctable,
+                               window, kernel)
+    x = L.apply_rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return _logits(params, cfg, x)[0], cache
+
+
+def _layer_prefill_chunk_paged(lp, cfg, x, start, n_tok, pool, table, window):
+    h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
+    att, _, _ = L.attention_prefill_chunk_paged(
+        lp["attn"], cfg, h, start, n_tok, pool["k"], pool["v"], table,
+        window=window)
+    x = x + att
+    h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
+    return x + _ffn_apply(lp, cfg, h)
+
+
+def prefill_chunk_paged(params, cfg, tokens, start, n_tok, cache, table,
+                        window=None):
+    """One fixed-shape prefill chunk against a paged cache, the chunk-only
+    oracle of the mixed step. tokens: (1, C), C the chunk budget; start:
+    absolute position of tokens[0, 0]; n_tok: real (non-pad) tokens;
+    table: (nb,) the slot's block chain, with positions [0, start) already
+    resident. Returns (logits (1, C, V), cache); only logits[:, :n_tok]
+    are meaningful."""
+    _check_ported(cfg)
+    window = cfg.window if window is None else window
+    x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
+    for lp, pool in zip(params["layers"], cache):
+        x = _layer_prefill_chunk_paged(lp, cfg, x, start, n_tok, pool, table,
+                                       window)
     x = L.apply_rms_norm(params["final_norm"], x, cfg.norm_eps)
     return _logits(params, cfg, x), cache

@@ -38,16 +38,36 @@ cache with plain torch and takes only "reference", as the reference does.
 Everything runs on `device` ("cuda" unless the caller passes another); the
 engine never moves work to the CPU on its own.
 
+Three decode variants stack on the paged layout, as in the reference:
+
+  * `fused_tokens=N` (N > 1): while every live slot is greedy, `step()`
+    runs up to N decode steps in one dispatch
+    (`serve.step.build_decode_fused`), EOS and budgets masked on the
+    device and reconciled on the host afterwards. On the card the N steps
+    are one CUDA graph replay (`serve.graph.FusedDecodeGraph`, the port's
+    stand-in for the reference's jit), captured at the first fused
+    dispatch and again after `reset()` (which reallocates the pools the
+    graph writes). A batch with a sampled slot takes single steps.
+  * `spec_tokens=K` (K >= 1): a drafter (`serve.draft`; "ngram" by
+    default) proposes K tokens per slot, one batched verify forward
+    (`serve.step.build_decode_spec`) keeps what the model itself would
+    have produced plus a bonus token, and rejected drafts roll back at
+    block granularity (`KVCacheManager.rollback`). Greedy only like the
+    fused path, and it takes precedence over it.
+  * `scheduler="chunked"` (chunk_budget=N): while a prompt is being
+    prefilled, each step is one mixed dispatch
+    (`serve.step.build_mixed_step`): the lockstep decode of every decoding
+    slot plus up to N tokens of the prompt, so a long prompt no longer
+    stalls every decoding slot for its whole prefill. The first token is
+    deferred to the chunk that completes the prompt; pages are radix-
+    committed at every chunk boundary.
+
 One deliberate difference from the reference: a dense slot is cleared when
 a request is admitted into it. The reference's decode-mode prefill leaves
 the previous request's recurrent state (RG-LRU or SSM state and conv
 window) in the slot, so a recurrent model's tokens depended on what the
 slot served before (ROADMAP.md Queue 3); attention entries were already
 hidden by their positions.
-
-Not ported yet, and refused with NotImplementedError rather than served
-another way: fused multi-token decode, speculative decode and the
-chunked-prefill scheduler (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -62,9 +82,13 @@ from repro_torch.kvcache import KVCacheManager, PoolExhausted
 from repro_torch.models import transformer as T
 from repro_torch.obs import trace as otrace
 from repro_torch.obs.registry import Histogram
+from repro_torch.serve.draft import make_drafter
+from repro_torch.serve.graph import FusedDecodeGraph
 from repro_torch.serve.sampler import GREEDY, Sampler, SamplingParams
-from repro_torch.serve.step import (build_decode, build_decode_paged,
-                                    build_prefill_bucketed,
+from repro_torch.serve.scheduler import SCHEDULERS, ChunkedScheduler
+from repro_torch.serve.step import (build_decode, build_decode_fused,
+                                    build_decode_paged, build_decode_spec,
+                                    build_mixed_step, build_prefill_bucketed,
                                     build_prefill_paged, bucket_len,
                                     prefill_into_cache)
 
@@ -90,13 +114,6 @@ class Request:
         return self._sampler.sample(logits)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md Queue 1, "
-        f"'{item}'); the port serves single-token decode with the phased "
-        "scheduler only")
-
-
 class ServeEngine:
     def __init__(self, params, cfg, *, batch_slots: int = 4,
                  cache_len: int = 256, window=None,
@@ -116,9 +133,11 @@ class ServeEngine:
         slots' worth of pages + the null block, so retired prefixes stay
         cached). decode_kernel is the paged read, "cuda" (the default
         there) or "reference"; the dense layout takes "reference" (its
-        default) only, as the reference does. `drafter` and
-        `chunk_budget` belong to the unported speculative and chunked
-        paths and are accepted for signature parity."""
+        default) only, as the reference does. fused_tokens (> 1),
+        spec_tokens (>= 1, with `drafter`: an instance or a "ngram[:n]" /
+        "model:<arch_id>" spec) and scheduler="chunked" (with
+        `chunk_budget`) are the paged layout's decode variants (see the
+        module docstring)."""
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be dense|paged, got {kv_layout}")
         if decode_kernel is None:
@@ -131,9 +150,9 @@ class ServeEngine:
                              f"got {prefill_mode!r}")
         if spec_tokens < 0:
             raise ValueError(f"spec_tokens must be >= 0, got {spec_tokens}")
-        if scheduler not in ("phased", "chunked"):
-            raise ValueError(f"scheduler must be phased|chunked, got "
-                             f"{scheduler!r}")
+        if scheduler not in SCHEDULERS:
+            raise ValueError(f"scheduler must be one of {SCHEDULERS}, "
+                             f"got {scheduler!r}")
         if kv_layout != "paged":
             if decode_kernel != "reference":
                 raise ValueError(f"decode_kernel={decode_kernel!r} targets "
@@ -150,13 +169,6 @@ class ServeEngine:
                 raise ValueError("chunked prefill scatters bounded chunks "
                                  "into paged block tables; use "
                                  "kv_layout='paged'")
-        if fused_tokens > 1:
-            raise _not_ported("fused_tokens > 1",
-                              "Fused multi-token decode")
-        if spec_tokens > 0:
-            raise _not_ported("spec_tokens > 0", "Speculative decode")
-        if scheduler == "chunked":
-            raise _not_ported("scheduler='chunked'", "Chunked prefill")
         if kv_layout == "paged":
             if (window if window is not None else cfg.window) is not None:
                 raise ValueError("paged KV cache does not support sliding-"
@@ -180,9 +192,25 @@ class ServeEngine:
         self.kv_layout = kv_layout
         self.decode_kernel = decode_kernel
         self.prefill_mode = prefill_mode
+        self.fused_tokens = int(fused_tokens)
+        self.spec_tokens = int(spec_tokens)
+        # brownout lever (set_degraded): parks the spec and fused lanes and
+        # caps chunked-prefill chunks without touching any shape
         self.degraded = False
+        self.drafter = make_drafter(drafter, device=self.device) \
+            if spec_tokens > 0 else None
+        self._decode_fused: Optional[FusedDecodeGraph] = None
+        self._decode_spec = None
+        # speculative-decode telemetry
+        self.spec_dispatches = 0
+        self.spec_tokens_drafted = 0
+        self.spec_tokens_accepted = 0
+        self.spec_tokens_emitted = 0
+        self.spec_tokens_rolled_back = 0
         self.block_size = block_size
         self.manager: Optional[KVCacheManager] = None
+        # chunked-prefill scheduler (None on the phased path)
+        self.scheduler: Optional[ChunkedScheduler] = None
         self._slot_blocks: List[List[int]] = [[] for _ in range(batch_slots)]
         # two decode variants: the greedy one argmaxes on the device and
         # moves one int per slot to the host; the logits one feeds host-
@@ -205,6 +233,20 @@ class ServeEngine:
             self._prefill_tok = build_prefill_paged(cfg, window=window)
             self._prefill_lg = build_prefill_paged(cfg, window=window,
                                                    return_logits=True)
+            if self.fused_tokens > 1:
+                self._decode_fused = FusedDecodeGraph(build_decode_fused(
+                    cfg, self.fused_tokens, window=window,
+                    kernel=decode_kernel))
+            if self.spec_tokens > 0:
+                self._decode_spec = build_decode_spec(cfg, self.spec_tokens,
+                                                      window=window)
+            if scheduler == "chunked":
+                self.scheduler = ChunkedScheduler(chunk_budget)
+                self._mixed_tok = build_mixed_step(cfg, window=window,
+                                                   kernel=decode_kernel)
+                self._mixed_lg = build_mixed_step(cfg, window=window,
+                                                  kernel=decode_kernel,
+                                                  return_logits=True)
         else:
             self.cache = T.init_cache(cfg, batch_slots, cache_len,
                                       self.device)
@@ -312,24 +354,19 @@ class ServeEngine:
         layout."""
         return self.manager.metrics if self.manager is not None else None
 
-    @property
-    def spec_metrics(self) -> Optional[dict]:
-        """Speculative-decode counters; None, as speculation is off."""
-        return None
-
-    @property
-    def scheduler_metrics(self) -> Optional[dict]:
-        """Chunked-scheduler counters; None on the phased path."""
-        return None
-
     # ---------------------------------------------------------- lifecycle
     def reset(self):
         """Warm rebuild for replica reintegration after a crash: device
         cache re-initialized (with a fresh radix index and empty block
-        tables on the paged layout), every slot empty. The step closures
-        are kept."""
+        tables on the paged layout), every slot empty, the chunked
+        scheduler re-created and the model drafter's streams dropped. The
+        step closures are kept; the fused graph, which writes the old
+        pools, is released and captured again at the next fused
+        dispatch."""
         if self.kv_layout == "paged":
             pool_blocks = self.manager.pool.n_blocks
+            if self._decode_fused is not None:
+                self._decode_fused.release()
             self.cache = T.init_paged_cache(self.cfg, pool_blocks,
                                             self.block_size, self.device)
             self.manager = KVCacheManager(pool_blocks, self.block_size)
@@ -344,13 +381,24 @@ class ServeEngine:
         self._pending = []
         self._finished = []
         self.prefill_tokens_computed = 0
+        if self.scheduler is not None:
+            fresh = ChunkedScheduler(self.scheduler.chunk_budget)
+            fresh._cap = self.scheduler._cap     # keep brownout throttle
+            self.scheduler = fresh
+        if self.drafter is not None and hasattr(self.drafter, "_streams"):
+            # the draft model's streams are keyed by context; stale ones
+            # from the crashed run must not seed retries
+            self.drafter._streams.clear()
 
     def set_degraded(self, on: bool, *, chunk_cap: int = 8):
-        """Brownout level-2 lever. The reference parks its fused and
-        speculative lanes and caps chunked-prefill chunks; the port has
-        none of those yet, so only the flag is kept (`chunk_cap` is
-        accepted for signature parity)."""
+        """Brownout level-2 lever: park the speculative and fused lanes
+        (their long bursts hold the lockstep batch under pressure) and cap
+        chunked-prefill chunks at `chunk_cap` tokens. Lanes are skipped,
+        not rebuilt, and the cap shortens the real run inside the fixed-
+        width chunk operand: no shape changes."""
         self.degraded = bool(on)
+        if self.scheduler is not None:
+            self.scheduler.throttle(chunk_cap if on else None)
 
     # ------------------------------------------------------------- internals
     def _observe_step(self, kind: str, t0: float, shares=None):
@@ -415,7 +463,10 @@ class ServeEngine:
                         break       # retry after a running request retires
                 req = self._pending.pop(0)
                 self.active[slot] = req
-                self._prefill_slot(slot, req, adm)
+                if self.scheduler is not None:
+                    self._begin_chunked_prefill(slot, req, adm)
+                else:
+                    self._prefill_slot(slot, req, adm)
 
     def _emit(self, req: Request, tok: int):
         req.output.append(tok)
@@ -485,6 +536,23 @@ class ServeEngine:
             src, dst = adm.cow
             T.copy_pool_blocks(self.cache, [src], [dst])
             self.manager.cow_done(src)
+
+    def _begin_chunked_prefill(self, slot: int, req: Request, adm):
+        """Chunked-scheduler admission: wire the slot's block table from
+        the Admission (as the phased paged path does, copy-on-write
+        included) but run no forward: `_step_mixed` slices the uncached
+        prompt into bounded chunks that ride along decode dispatches. The
+        first generated token is deferred to the chunk that completes the
+        prompt."""
+        self._wire_slot_table(slot, adm)
+        if not req.prompt:
+            # degenerate empty prompt: nothing to chunk; argmax of a zero
+            # logits row (token 0), matching the phased path
+            first = 0 if req.sampling.is_greedy else self._sample_safe(
+                req, np.zeros((self.cfg.vocab_size,), np.float32))
+            self._finish_prefill(slot, req, first)
+            return
+        self.scheduler.admit(slot, adm.n_reused)
 
     def _write_slot(self, slot: int, one):
         """Copy a one-row dense cache (`T.init_cache(cfg, 1, ...)` layout)
@@ -594,6 +662,8 @@ class ServeEngine:
         with otrace.span("engine.retire", tid=self.trace_tid, slot=slot,
                          request=req.request_id):
             req.done = True
+            if self.scheduler is not None:
+                self.scheduler.drop(slot)    # no-op unless mid-prefill
             self._release_slot_blocks(slot, req)
             self.active[slot] = None
             self.pos[slot] = -1
@@ -604,9 +674,15 @@ class ServeEngine:
 
     # ------------------------------------------------------------- run
     def step(self) -> int:
-        """Admit + one lockstep single-token decode over active slots.
-        Returns the number of slots that decoded."""
+        """Admit + one lockstep decode over active slots. Returns the number
+        of slots that took part. On a chunked engine a step with a prompt in
+        flight is one mixed decode + chunk dispatch; otherwise an all-
+        greedy batch takes the speculative lane (spec_tokens > 0) or the
+        fused lane (fused_tokens > 1), and anything else one single-token
+        step, in the reference's order."""
         self._admit()
+        if self.scheduler is not None and self.scheduler.has_prefill_work():
+            return self._step_mixed()
         live = [s for s in range(self.slots) if self.active[s] is not None]
         if not live:
             return 0
@@ -615,6 +691,17 @@ class ServeEngine:
             toks[s, 0] = self.active[s].output[-1]
         pos = np.maximum(self.pos + 1, 0).astype(np.int32)
         greedy_batch = all(self.active[s].sampling.is_greedy for s in live)
+        if self._decode_spec is not None and greedy_batch \
+                and not self.degraded:
+            return self._step_spec(live, toks, pos)
+        if self._decode_fused is not None and greedy_batch and \
+                not self.degraded and \
+                2 * max(self.budget[s] for s in live) > self.fused_tokens:
+            # request endgame guard: the fused dispatch always runs
+            # fused_tokens full forwards, so once every live slot would go
+            # dead within the first half of the burst, the wasted null-page
+            # forwards cost more than the host round trips saved
+            return self._step_fused(live, toks, pos)
         t0 = time.perf_counter()
         # one token per live slot this dispatch; read blocks before the
         # reconcile loop can retire slots and release them
@@ -658,6 +745,256 @@ class ServeEngine:
         self._observe_step("decode", t0, shares)
         return len(live)
 
+    def _step_mixed(self) -> int:
+        """One chunked-scheduler iteration: lockstep single-token decode over
+        every decoding slot plus one bounded prefill chunk of the
+        scheduler's head prefilling slot, in one `build_mixed_step`
+        dispatch. Decoding slots advance as in `step()`; the chunk moves
+        its slot's cursor, radix-commits the prompt's newly completed
+        pages, and when it completes the prompt samples the deferred first
+        token from the chunk's last-position logits."""
+        t0 = time.perf_counter()
+        with otrace.span("engine.step", tid=self.trace_tid, step="mixed"):
+            n, shares = self._step_mixed_impl()
+        self._observe_step("mixed", t0, shares)
+        return n
+
+    def _step_mixed_impl(self):
+        sched = self.scheduler
+        plan = sched.plan_chunk(
+            {s: self.active[s].prompt for s in range(self.slots)
+             if self.active[s] is not None and sched.prefilling(s)})
+        decode_live = [s for s in range(self.slots)
+                       if self.active[s] is not None
+                       and not sched.prefilling(s)]
+        creq = self.active[plan.slot]
+        # ledger shares: each decoding slot gets one token, the chunk slot
+        # its chunk length; blocks read before the reconcile loop retires
+        shares = [(self.active[s].request_id, 1, self._blocks_held(s))
+                  for s in decode_live]
+        shares.append((creq.request_id, len(plan.tokens),
+                       self._blocks_held(plan.slot)))
+        toks = np.zeros((self.slots, 1), np.int32)
+        for s in decode_live:
+            toks[s, 0] = self.active[s].output[-1]
+        pos = np.maximum(self.pos + 1, 0).astype(np.int32)
+        # prefilling (and empty) slots' table rows are masked to the null
+        # block: their lockstep decode writes must never touch live pages
+        tbl = np.zeros_like(self.table)
+        for s in decode_live:
+            tbl[s] = self.table[s]
+        ctoks = np.zeros((1, sched.chunk_budget), np.int32)
+        ctoks[0, :len(plan.tokens)] = plan.tokens
+        # the chunk attends only pages up to its own end: a truncated
+        # table, its page count rounded up to a power of two as in the
+        # reference, so both gather the same span
+        nbp = -(-(plan.start + len(plan.tokens)) // self.block_size)
+        nbp = min(bucket_len(nbp, 0), self.table.shape[1])
+        greedy_batch = all(self.active[s].sampling.is_greedy
+                           for s in decode_live)
+        need_logits = (bool(decode_live) and not greedy_batch) or \
+            (plan.completes and not creq.sampling.is_greedy)
+        mixed = self._mixed_lg if need_logits else self._mixed_tok
+        with otrace.span("device.mixed", tid=self.trace_tid,
+                         decoding=len(decode_live), chunk=len(plan.tokens)):
+            out_d, out_c, _ = mixed(
+                self.params, self._ints(toks), self._ints(pos), self.cache,
+                self._ints(tbl), self._ints(ctoks), plan.start,
+                len(plan.tokens), self._ints(self.table[plan.slot, :nbp]))
+            otrace.fence((out_d, out_c, self.cache))
+        sched.mixed_dispatches += 1
+        if need_logits:
+            out_d, out_c = out_d.float().cpu().numpy(), \
+                out_c.float().cpu().numpy()
+        else:
+            out_d, out_c = out_d.cpu().numpy(), int(out_c)
+        for s in decode_live:
+            req = self.active[s]
+            self.pos[s] += 1
+            self.budget[s] -= 1
+            tok = self._sample_safe(req, out_d[s]) if need_logits \
+                else int(out_d[s])
+            if isinstance(tok, Exception):
+                self.budget[s] = 0
+                self._retire(s)
+                continue
+            hit_eos = req.eos_id is not None and tok == req.eos_id
+            if not hit_eos:
+                self._emit(req, tok)
+            if hit_eos or self.budget[s] <= 0:
+                self._retire(s)
+        # chunk reconciliation: cursor forward, commit at the boundary
+        sched.advance(plan)
+        self.prefill_tokens_computed += len(plan.tokens)
+        cur = plan.start + len(plan.tokens)
+        self.manager.commit(creq.prompt[:cur], self._slot_blocks[plan.slot])
+        if plan.completes:
+            first = self._sample_safe(creq, out_c) if need_logits \
+                else out_c
+            self._finish_prefill(plan.slot, creq, first)
+        return len(decode_live) + 1, shares
+
+    def _step_fused(self, live, toks, pos) -> int:
+        """One fused dispatch: up to fused_tokens greedy decode steps (one
+        CUDA graph replay on the card). EOS and per-slot budgets are
+        masked on the device (a dead slot's writes go to the null page);
+        this method reconciles the device's view back into host
+        bookkeeping: tokens emitted per slot, pos/budget advanced by the
+        steps taken, finished slots retired."""
+        t0 = time.perf_counter()
+        with otrace.span("engine.step", tid=self.trace_tid, step="fused",
+                         live=len(live), fused_tokens=self.fused_tokens):
+            n, shares = self._step_fused_impl(live, toks, pos)
+        self._observe_step("fused", t0, shares)
+        return n
+
+    def _step_fused_impl(self, live, toks, pos):
+        eos = np.full((self.slots,), -1, np.int32)
+        steps = np.zeros((self.slots,), np.int32)
+        alive = np.zeros((self.slots,), bool)
+        for s in live:
+            req = self.active[s]
+            if req.eos_id is not None:
+                eos[s] = req.eos_id
+            steps[s] = self.budget[s]
+            alive[s] = True
+        with otrace.span("device.fused", tid=self.trace_tid, live=len(live)):
+            emitted, live_out, steps_out, _ = self._decode_fused(
+                self.params, self._ints(toks), self._ints(pos), self.cache,
+                self._ints(self.table), self._ints(eos),
+                torch.as_tensor(alive, device=self.device),
+                self._ints(steps))
+            otrace.fence((emitted, self.cache))
+        emitted = emitted.cpu().numpy()
+        live_out = live_out.cpu().numpy()
+        steps_out = steps_out.cpu().numpy()
+        shares = []
+        for s in live:
+            req = self.active[s]
+            used = int(steps[s] - steps_out[s])
+            # ledger share = steps this slot actually advanced in the
+            # burst; blocks read before a possible retire releases them
+            shares.append((req.request_id, used, self._blocks_held(s)))
+            self.pos[s] += used
+            self.budget[s] -= used
+            for t in range(emitted.shape[0]):
+                tok = int(emitted[t, s])
+                if tok < 0:
+                    break
+                self._emit(req, tok)
+            if not live_out[s]:
+                self._retire(s)
+        return len(live), shares
+
+    def _step_spec(self, live, toks, pos) -> int:
+        """One speculative dispatch: draft K tokens per live slot (host,
+        `self.drafter`), verify them all in one batched forward, emit the
+        accepted prefix + bonus token, rewind the frontier past the
+        rejects. Reconciliation mirrors `_step_fused`, plus the rollback:
+        positions beyond pos+adv hold rejected drafts' K/V, and
+        `KVCacheManager.rollback` audits the trimmed page range (never
+        radix-shared, never freed) and counts it; on the device the rewind
+        alone suffices because every read masks beyond the frontier."""
+        t0 = time.perf_counter()
+        with otrace.span("engine.step", tid=self.trace_tid, step="spec",
+                         live=len(live), spec_tokens=self.spec_tokens):
+            n, shares = self._step_spec_impl(live, toks, pos)
+        self._observe_step("spec", t0, shares)
+        return n
+
+    def _step_spec_impl(self, live, toks, pos):
+        K = self.spec_tokens
+        # packed per-slot operands: draft | eos | steps | live (see builder)
+        inp = np.zeros((self.slots, K + 3), np.int32)
+        inp[:, K] = -1
+        steps = np.zeros((self.slots,), np.int32)
+        with otrace.span("draft", tid=self.trace_tid, live=len(live), k=K):
+            for s in live:
+                req = self.active[s]
+                inp[s, :K] = self.drafter.propose(req.prompt + req.output, K)
+                if req.eos_id is not None:
+                    inp[s, K] = req.eos_id
+                inp[s, K + 1] = steps[s] = self.budget[s]
+                inp[s, K + 2] = 1
+        with otrace.span("device.verify", tid=self.trace_tid,
+                         live=len(live)):
+            out, _ = self._decode_spec(
+                self.params, self._ints(toks), self._ints(pos), self.cache,
+                self._ints(self.table), self._ints(inp))
+            otrace.fence((out, self.cache))
+        out = out.cpu().numpy()         # one packed transfer (see builder)
+        emitted, adv, n_acc, live_out, steps_out = \
+            out[:K + 1], out[K + 1], out[K + 2], out[K + 3], out[K + 4]
+        self.spec_dispatches += 1
+        # one O(tree) walk per dispatch, not per rolling-back slot: safe
+        # to share across the loop because a retire's commit only indexes
+        # the retiring slot's own pages, which can never sit in another
+        # slot's (private) rollback range
+        shared_blocks = None
+        shares = []
+        for s in live:
+            req = self.active[s]
+            p0 = int(pos[s])
+            used = int(steps[s] - steps_out[s])
+            # ledger share = tokens this slot got out of the verify (the
+            # accepted prefix + bonus); blocks read before retire
+            shares.append((req.request_id, used, self._blocks_held(s)))
+            a = int(adv[s])
+            self.spec_tokens_drafted += K
+            self.spec_tokens_accepted += min(int(n_acc[s]), K)
+            self.spec_tokens_emitted += used
+            # the verify forward wrote positions p0..p0+K (span-clamped to
+            # the null page); only p0..p0+a survive acceptance
+            n_written = min(p0 + K, self.cache_len - 1) + 1
+            n_valid = p0 + a + 1
+            if n_written > n_valid:
+                if shared_blocks is None:
+                    shared_blocks = set(self.manager.radix.all_blocks())
+                self.manager.rollback(self._slot_blocks[s], n_valid,
+                                      n_written, shared=shared_blocks)
+                self.spec_tokens_rolled_back += n_written - n_valid
+            self.pos[s] = p0 + a
+            self.budget[s] -= used
+            for t in range(emitted.shape[0]):
+                tok = int(emitted[t, s])
+                if tok < 0:
+                    break
+                self._emit(req, tok)
+            if not live_out[s]:
+                self._retire(s)
+        return len(live), shares
+
+    @property
+    def spec_metrics(self) -> Optional[dict]:
+        """Speculative-decode counters (None when spec is off): drafted vs
+        accepted sets the acceptance rate; emitted counts the bonus tokens
+        too, so emitted/dispatches is the realized tokens-per-dispatch."""
+        if self.spec_tokens <= 0:
+            return None
+        drafted = self.spec_tokens_drafted
+        return {
+            "spec_tokens": self.spec_tokens,
+            "drafter": getattr(self.drafter, "name", "custom"),
+            "dispatches": self.spec_dispatches,
+            "tokens_drafted": drafted,
+            "tokens_accepted": self.spec_tokens_accepted,
+            "tokens_emitted": self.spec_tokens_emitted,
+            "tokens_rolled_back": self.spec_tokens_rolled_back,
+            "acceptance_rate": (self.spec_tokens_accepted / drafted
+                                if drafted else 0.0),
+            "tokens_per_dispatch": (self.spec_tokens_emitted
+                                    / self.spec_dispatches
+                                    if self.spec_dispatches else 0.0),
+        }
+
+    @property
+    def scheduler_metrics(self) -> Optional[dict]:
+        """Chunked-prefill scheduler counters (None on the phased path):
+        chunks and tokens dispatched, prefills started / completed / in
+        flight, realized tokens per chunk."""
+        return self.scheduler.metrics() if self.scheduler is not None \
+            else None
+
     def run(self) -> List[Request]:
         """Drive to completion and return finished requests. Works even on
         an engine whose frontend disabled retain_finished (requests that
@@ -683,6 +1020,9 @@ class ServeEngine:
             return True
         for slot in range(self.slots):
             if self.active[slot] is req:
+                if self.scheduler is not None:
+                    # half-prefilled: forget its cursor/queue position too
+                    self.scheduler.drop(slot)
                 # replica is being failed out: don't index its pages
                 # (state is suspect), just return the references
                 self._release_slot_blocks(slot, req, commit=False)

@@ -150,13 +150,16 @@ def test_prefill_and_decode_logits_match(model):
 
 
 def test_unported_paths_refuse_loudly(model):
+    """The fused, speculative and chunked paths, once refused here, now
+    construct on the paged layout (tests/test_torch_decode_variants.py
+    serves them); what the engine still refuses, it refuses loudly."""
     _, tcfg, _, tp = model
     base = dict(batch_slots=2, cache_len=32, block_size=BS, device="cpu")
-    for kw in (dict(kv_layout="paged", fused_tokens=4),
-               dict(kv_layout="paged", spec_tokens=2),
-               dict(kv_layout="paged", scheduler="chunked")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServeEngine(tp, tcfg, **base, **kw)
+    for kw, lane in ((dict(fused_tokens=4), "_decode_fused"),
+                     (dict(spec_tokens=2), "_decode_spec"),
+                     (dict(scheduler="chunked"), "scheduler")):
+        eng = ServeEngine(tp, tcfg, kv_layout="paged", **base, **kw)
+        assert getattr(eng, lane) is not None
     with pytest.raises(ValueError, match="decode_kernel"):
         ServeEngine(tp, tcfg, kv_layout="paged", decode_kernel="pallas",
                     **base)

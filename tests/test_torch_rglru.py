@@ -111,3 +111,41 @@ def test_short_sequence_conv_history_is_zero_filled(model):
         cache["conv"][:, 0]))
     np.testing.assert_array_equal(cache["conv"][:, 1:].numpy(),
                                   (x @ tp["w_x"]).numpy())
+
+
+_JAX_DECODE_ENGINE = {}
+
+
+@pytest.mark.parametrize("prompt", [[7], [7, 8], [7, 8, 9]])
+def test_short_prompt_engine_matches_decode_mode(model, prompt):
+    """ROADMAP.md Queue 3 item 4 at the engine level: prompts shorter than
+    or equal to the conv window (d_conv - 1 = 3 tokens) on reduced
+    recurrentgemma-9b, one slot, 3 greedy new tokens. The port's bulk
+    prefill (both `attention_impl` routes) gives its decode-mode tokens,
+    and its decode mode gives the JAX dense engine's decode mode. The
+    reference's own bulk prefill is not the yardstick: it raises on 2
+    tokens and diverges on 1."""
+    from repro.serve.engine import ServeEngine as JaxEngine
+    from repro_torch.serve.engine import ServeEngine
+    jcfg, tcfg, jp, tp = model
+
+    def serve(eng):
+        req = eng.submit(prompt, max_new_tokens=3)
+        eng.run()
+        assert req.done and req.error is None
+        return req.output
+
+    jeng = _JAX_DECODE_ENGINE.get("decode")
+    if jeng is None:
+        jeng = _JAX_DECODE_ENGINE["decode"] = JaxEngine(
+            jp, jcfg, batch_slots=1, cache_len=64, prefill_mode="decode")
+    else:
+        jeng.reset()            # a fresh cache: the reused-slot fault aside
+    want = serve(jeng)
+    outs = {}
+    for impl in ("xla", "pallas"):
+        for mode in ("decode", "bulk"):
+            outs[impl, mode] = serve(ServeEngine(
+                tp, tcfg.replace(attention_impl=impl), batch_slots=1,
+                cache_len=64, prefill_mode=mode, device="cpu"))
+    assert all(o == want for o in outs.values()), (want, outs)
