@@ -125,6 +125,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
    arriving among 7 decoding requests, the longest gap between two tokens
    of a decoding request, chunked and phased. Then the f32 tokens on phase
    4's model against its single-step run under the top-2 rule.
+18. The gateway, synchronous: `Gateway.build(replicas=2, batch_slots=8,
+   kv_layout="paged", policy="prefix-affinity", device="cuda")` (phase 3's
+   engine settings on each replica, the paged read each engine's default:
+   the kernel) on phase 3's bf16 weights and requests, submitted through
+   `gw.submit` and driven by `gw.run()`. Every request must finish, the
+   two prefix-sharing requests must land on one replica whose radix cache
+   reports a hit, and the paged kernel must launch exactly 28 x the decode
+   dispatches of both replicas. Logs tokens/s and the time to first token
+   and between tokens (p50, p95) from the gateway's metrics. Then the
+   launcher as a user starts it: `python -m repro_torch.launch.serve
+   --arch qwen3-1.7b --kv-layout paged --decode-kernel pallas --replicas 2
+   --requests 8 --workload synth` (reduced qwen3-1.7b, as the reference's
+   launcher serves it) must exit 0 with its `[serve] N requests` line. In
+   f32 on phase 4's model, each request's tokens through the gateway must
+   equal a lone engine's under the top-2 rule.
+19. The gateway with async replica workers (one thread per replica),
+   `fused_tokens=8` and a chaos plan that crashes replica 0 at its 3rd
+   dispatch, with a probation window short enough that it rejoins within
+   the phase (0.05 s; the crashed requests wait 0.1 s before they are
+   placed again, so some come back to it): its reset releases its fused
+   graph, and it captures again while replica 1 replays its own (the
+   capture is thread-local, on a stream of its own; the kernel's launch
+   counts are per thread; each engine steps on a stream of its own).
+   Greedy requests, bf16 as in phase 18, after a warm-up round in which
+   each replica captures its graph: every request must finish, the crash
+   must fire once, replica 0 must rejoin and capture again (replica 1
+   not at all), replica 1 must run a fused dispatch while replica 0 captures
+   (its first request decodes 320 tokens, to keep it replaying), and the
+   paged kernel's launches must be exactly 28 x (8 x (replays + warm-up
+   runs) + single dispatches) over both replicas. Logs captures, replays,
+   the faults fired and the reintegration. In f32 (phase 3's request
+   shapes, 32 new tokens each), its tokens must equal phase 18's
+   synchronous run's under the top-2 rule.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; above it
 stand the card's name and power limit and one JSON line with each
@@ -176,9 +209,14 @@ SSD_CASES = [
 ]
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 LOGIT_TOL = 1e-3
-FUSED_TOKENS = 8                   # phase 15's fused dispatch
+FUSED_TOKENS = 8                   # phase 15's fused dispatch (and 19's)
 CHUNK_BUDGET = 64                  # phase 17's chunks
 SPEC_F32_LAYERS = 4                # phase 16's f32 check: depth cut to this
+CRASH_PLAN = "crash@d2:r0"         # phase 19: replica 0's 3rd dispatch raises
+PROBATION_S = 0.05                 # phase 19: then it rejoins after this,
+RETRY_BACKOFF_S = 0.1              # before its requests are placed again;
+LONG_TOKENS = 320                  # replica 1's long request meanwhile
+LAUNCHER_TIMEOUT_S = 300
 # the reference's kernel test shapes (tests/test_paged_attention_kernel.py)
 # and the main path's: B, nb, bs, nkv, rep, hd, tokens resident per slot
 KERNEL_CASES = [
@@ -1298,6 +1336,185 @@ def stall_gap(engine, requests, long_prompt) -> dict:
             "first_token_ms": (stamps[longr.request_id][0] - t0) * 1e3}
 
 
+# ----------------------------------------------------------------- gateway
+
+def make_gateway(params, cfg, device, **kw):
+    """Phases 18-19's fleet: two replicas with phase 3's engine settings
+    (8 slots, 512-token chains of 16-token pages, bulk prefill), sharing
+    the weights; the paged read is each engine's default, the kernel."""
+    from repro_torch.gateway.gateway import Gateway
+    return Gateway.build(params, cfg, replicas=2, batch_slots=8,
+                         cache_len=512, kv_layout="paged", block_size=16,
+                         prefill_mode="bulk", device=device, **kw)
+
+
+def watch_fused(gw) -> dict:
+    """Host-clock windows of each replica's fused-graph captures and fused
+    dispatches, for phase 19's overlap count: {replica: {"captures":
+    [(t0, t1)], "dispatches": [(t0, t1)]}}."""
+    seen = {}
+    for r in gw.replicas:
+        eng, graph = r.engine, r.engine._decode_fused
+        windows = seen[r.replica_id] = {"captures": [], "dispatches": []}
+
+        def timed(fn, into):
+            def wrapper(*args):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args)
+                finally:
+                    into.append((t0, time.perf_counter()))
+            return wrapper
+        graph._capture = timed(graph._capture, windows["captures"])
+        eng._step_fused = timed(eng._step_fused, windows["dispatches"])
+    return seen
+
+
+def serve_gateway(gw, requests, chaos=None) -> dict:
+    """Phases 18-19's counted run: every launch count set to 0 just before
+    the requests are submitted and read after `gw.run()`. Summed over the
+    replicas, the paged kernel must have launched n_layers x (fused_tokens
+    x (graph replays + eager warm-up runs) + single-token dispatches)
+    times, exactly, and no other kernel at all. Every request must finish
+    with its tokens in the vocabulary. `chaos` is a fault plan armed for
+    the run. The gateway is shut down when it returns."""
+    from repro_torch.chaos import FaultInjector, parse_plan
+    from repro_torch.gateway.metrics import percentile
+    engines = [r.engine for r in gw.replicas]
+    graphs = [e._decode_fused for e in engines]
+    stats = ("captures", "replays", "warmup_runs")
+    before = [{k: getattr(g, k) for k in stats} if g is not None else None
+              for g in graphs]
+    for e in engines:
+        e.step_times.clear()
+    inj = FaultInjector(parse_plan(chaos)).arm(gw) if chaos else None
+    fns = counters()
+    sync(engines[0])
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    handles = [gw.submit(p, max_new_tokens=n, sampling=s)
+               for p, s, n in requests]
+    try:
+        gw.run()
+    finally:
+        # async workers may still be closing the books of their last step
+        # (step times, replay counts): stop and join them before reading
+        gw.shutdown()
+        if inj is not None:
+            inj.disarm()
+    sync(engines[0])
+    wall = time.perf_counter() - t0
+    cfg = engines[0].cfg
+    for h, (_, _, n) in zip(handles, requests):
+        if h.status != "done" or len(h.output) != n:
+            raise AssertionError(f"request {h.gid}: status {h.status} "
+                                 f"error={h.error!r} tokens "
+                                 f"{len(h.output)} of {n}")
+        if not all(0 <= t < cfg.vocab_size for t in h.output):
+            raise AssertionError(f"request {h.gid}: token out of the "
+                                 "vocabulary")
+    per_replica, want = [], 0
+    for e, g, b in zip(engines, graphs, before):
+        kinds = {k: h.n for k, h in e.step_times.items()}
+        run = {k: getattr(g, k) - b[k] for k in stats} if g is not None \
+            else dict.fromkeys(stats, 0)
+        if run["replays"] != kinds.get("fused", 0):
+            raise AssertionError(f"{kinds.get('fused', 0)} fused dispatches,"
+                                 f" {run['replays']} graph replays")
+        want += cfg.n_layers * (e.fused_tokens * (run["replays"]
+                                                  + run["warmup_runs"])
+                                + kinds.get("decode", 0))
+        per_replica.append({"dispatches": kinds, **run,
+                            "cache": e.cache_metrics.as_dict()})
+    launches = {k: fn.launches for k, fn in fns.items()}
+    if launches["paged_attention"] != want or any(
+            n for k, n in launches.items() if k != "paged_attention"):
+        raise AssertionError(f"launches {launches}, expected paged_attention "
+                             f"{want} = {cfg.n_layers} x (fused_tokens x "
+                             "(replays + warm-up runs) + single dispatches) "
+                             f"over the replicas {per_replica}")
+    summ = gw.summary()
+    ttfts = [h.metrics.ttft for h in handles if h.metrics.ttft is not None]
+    ttft_p95 = percentile(ttfts, 95)
+    return {"requests": len(handles), "launches": launches["paged_attention"],
+            "replicas": per_replica, "wall_s": wall,
+            "tokens_per_s": sum(len(h.output) for h in handles) / wall,
+            "ttft_p50_ms": summ["ttft_p50_ms"],
+            "ttft_p95_ms": None if ttft_p95 is None else ttft_p95 * 1e3,
+            "itl_p50_ms": summ["itl_p50_ms"], "itl_p95_ms": summ["itl_p95_ms"],
+            "retried": summ["retried"],
+            "replica_ids": [h.replica_id for h in handles],
+            "outputs": [h.output for h in handles],
+            "fired": list(inj.fired) if inj is not None else []}
+
+
+def log_gateway(s: dict):
+    log(f"  {s['requests']} requests, {s['tokens_per_s']:.1f} tokens/s end "
+        f"to end over {s['wall_s']:.3f} s; time to first token p50 "
+        f"{s['ttft_p50_ms']:.3f} ms, p95 {s['ttft_p95_ms']:.3f} ms; between "
+        f"tokens p50 {s['itl_p50_ms']:.3f} ms, p95 {s['itl_p95_ms']:.3f} ms; "
+        f"{s['retried']} retried; paged kernel launches {s['launches']}")
+    for i, r in enumerate(s["replicas"]):
+        log(f"  replica {i}: dispatches by kind {r['dispatches']}, graph "
+            f"captures {r['captures']}, replays {r['replays']}, warm-up runs "
+            f"{r['warmup_runs']}; cache hits {r['cache']['hits']}, tokens "
+            f"reused {r['cache']['tokens_reused']}")
+
+
+def warm_gateway(gw, cfg):
+    """Phase 19's warm-up round, outside the counted run: two greedy
+    requests, one on each replica (round-robin), so that each captures its
+    fused graph; then the workers are stopped and joined (the counted run
+    starts them again), so no late bookkeeping lands in its counts."""
+    for p, _, _ in make_requests(cfg, n=2, seed=SEED + 1):
+        gw.submit(p, max_new_tokens=24)
+    try:
+        gw.run()
+    finally:
+        gw.shutdown()
+
+
+def check_reintegration(gw, s: dict, seen: dict, captures: list) -> int:
+    """Phase 19: the crash fired once on replica 0, which rejoined and
+    captured its graph again while replica 1 kept serving; `captures` is
+    each replica's captures in the counted run. Returns how many of
+    replica 1's fused dispatches overlapped replica 0's last capture on
+    the host clock."""
+    crashes = [e for e in s["fired"] if e["fault"] == "crash"]
+    r0 = gw.replicas[0]
+    if len(crashes) != 1 or r0.failures != 1 or r0.reintegrations != 1:
+        raise AssertionError(f"faults fired {s['fired']}, replica 0 "
+                             f"failures {r0.failures}, reintegrations "
+                             f"{r0.reintegrations}")
+    caps = [r["captures"] for r in s["replicas"]]
+    if caps != captures:
+        raise AssertionError(f"graph captures per replica {caps}, not "
+                             f"{captures}")
+    t0, t1 = seen[0]["captures"][-1]
+    return sum(1 for a, b in seen[1]["dispatches"] if a < t1 and b > t0)
+
+
+def run_launcher() -> list:
+    """Phase 18: the serve launcher in a process of its own, as a user
+    starts it. Returns its `[serve]` lines."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [x for x in [env.get("PYTHONPATH")] if x])
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "qwen3-1.7b", "--kv-layout", "paged", "--decode-kernel", "pallas",
+           "--replicas", "2", "--requests", "8", "--workload", "synth"]
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=LAUNCHER_TIMEOUT_S)
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("[serve]")]
+    if out.returncode != 0 or not any(
+            re.match(r"\[serve\] \d+ requests, ", ln) for ln in lines):
+        raise AssertionError(f"launcher exit {out.returncode}:\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    return lines
+
+
 # ----------------------------------------------------------------- main
 
 def main(device: str = "cuda") -> int:
@@ -1429,6 +1646,58 @@ def main(device: str = "cuda") -> int:
     del eng
     torch.cuda.empty_cache()
 
+    t_gateway = time.perf_counter()
+    log("[18] the synchronous gateway: 2 replicas x 8 slots, prefix-affinity "
+        "(bf16, phase 3's weights and requests)")
+    gw = make_gateway(params, cfg, device, policy="prefix-affinity")
+    gw_sync = serve_gateway(gw, requests)
+    log_gateway(gw_sync)
+    shared = set(gw_sync["replica_ids"][:2])
+    if len(shared) != 1 or \
+            gw_sync["replicas"][shared.pop()]["cache"]["hits"] < 1:
+        raise AssertionError(f"the prefix-sharing requests went to replicas "
+                             f"{gw_sync['replica_ids'][:2]} "
+                             f"({gw_sync['replicas']})")
+    log(f"  placements {gw_sync['replica_ids']}")
+    del gw
+    log("[18] the launcher: python -m repro_torch.launch.serve --arch "
+        "qwen3-1.7b --kv-layout paged --decode-kernel pallas --replicas 2 "
+        "--requests 8 --workload synth")
+    t0 = time.perf_counter()
+    for line in run_launcher():
+        log(f"  {line}")
+    log(f"  exit 0 after {time.perf_counter() - t0:.1f} s")
+
+    log(f"[19] async replica workers, fused_tokens={FUSED_TOKENS}, chaos "
+        f"{CRASH_PLAN!r}, probation {PROBATION_S} s (bf16, phase 3's weights "
+        "and requests, greedy)")
+    gw = make_gateway(params, cfg, device, fused_tokens=FUSED_TOKENS,
+                      async_workers=True, probation_seconds=PROBATION_S,
+                      retry_backoff_s=RETRY_BACKOFF_S)
+    seen = watch_fused(gw)
+    warm_gateway(gw, cfg)
+    # request 1 (replica 1's first, by round-robin) decodes LONG_TOKENS, so
+    # replica 1 is still replaying its graph when replica 0 captures again
+    async_requests = greedy(requests)
+    async_requests[1] = (async_requests[1][0], None, LONG_TOKENS)
+    gw_async = serve_gateway(gw, async_requests, chaos=CRASH_PLAN)
+    log_gateway(gw_async)
+    overlap = check_reintegration(gw, gw_async, seen, [1, 0])
+    if gw_async["replica_ids"][1] != 1 or overlap < 1:
+        raise AssertionError(f"replica 1 (long request on replica "
+                             f"{gw_async['replica_ids'][1]}) ran {overlap} "
+                             "fused dispatches while replica 0 captured "
+                             "again")
+    recapture = seen[0]["captures"][-1]
+    log(f"  faults fired {gw_async['fired']}; replica 0 failures "
+        f"{gw.replicas[0].failures}, reintegrations "
+        f"{gw.replicas[0].reintegrations}; its capture after rejoining took "
+        f"{(recapture[1] - recapture[0]) * 1e3:.1f} ms, during which "
+        f"replica 1 ran {overlap} fused dispatch(es)")
+    log(f"  phases 18-19 in bf16 took {time.perf_counter() - t_gateway:.1f} s")
+    del gw, seen
+    torch.cuda.empty_cache()
+
     log("[9] serving qwen3-1.7b on the dense layout, bf16, "
         "attention_impl='pallas' (bulk prefill through the flash kernel)")
     cfg_d = cfg.replace(attention_impl="pallas")
@@ -1497,6 +1766,35 @@ def main(device: str = "cuda") -> int:
         raise AssertionError(f"self-drafting acceptance "
                              f"{spec32['spec']['acceptance_rate']} < 0.9")
     del eng, p_cut, ref
+
+    t_gateway = time.perf_counter()
+    gw_requests = greedy(make_requests(cfg32, n=8, new_tokens=32))
+    log("[18] f32 (TF32 off, phase 4's model): the synchronous gateway's "
+        "tokens against a lone single-step engine's")
+    lone = single_step_reference(params32, cfg32, device, gw_requests)
+    gw = make_gateway(params32, cfg32, device, policy="prefix-affinity")
+    recs = [record_logits(r.engine) for r in gw.replicas]
+    gw_sync32 = serve_gateway(gw, gw_requests)
+    log_gateway(gw_sync32)
+    gw_sync_match = match_tokens(gw_sync32["outputs"], lone["outs"],
+                                 lone["rec"])
+    log(f"  tokens: {gw_sync_match}")
+    del gw, lone
+    log(f"[19] f32: async workers, fused_tokens={FUSED_TOKENS}, chaos "
+        f"{CRASH_PLAN!r}: tokens against phase 18's synchronous run")
+    gw = make_gateway(params32, cfg32, device, fused_tokens=FUSED_TOKENS,
+                      async_workers=True, probation_seconds=PROBATION_S,
+                      retry_backoff_s=RETRY_BACKOFF_S)
+    seen = watch_fused(gw)
+    gw_async32 = serve_gateway(gw, gw_requests, chaos=CRASH_PLAN)
+    log_gateway(gw_async32)
+    check_reintegration(gw, gw_async32, seen, [2, 1])
+    gw_async_match = match_tokens(gw_async32["outputs"], gw_sync32["outputs"],
+                                  recs[0] + recs[1])
+    log(f"  tokens: {gw_async_match}")
+    log(f"  phases 18-19 in f32 took {time.perf_counter() - t_gateway:.1f} s")
+    del gw, seen, recs
+    torch.cuda.empty_cache()
 
     log("[9] dense qwen3-1.7b at full width, f32: 'pallas' against 'xla'")
     dense_q32 = lockstep(
@@ -1641,7 +1939,9 @@ def main(device: str = "cuda") -> int:
         "launches_by_path": {"single": served["launches"],
                              "fused": fused["launches"],
                              "speculative": spec["launches"],
-                             "chunked": chunked["launches"]},
+                             "chunked": chunked["launches"],
+                             "gateway": gw_sync["launches"],
+                             "gateway_async": gw_async["launches"]},
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
@@ -1693,7 +1993,9 @@ def main(device: str = "cuda") -> int:
         f"({spec['dispatches'].get('decode', 0)} single dispatches; the "
         f"verify has none), the chunked {chunked['launches']} "
         f"({chunked['dispatches'].get('mixed', 0)} mixed + "
-        f"{chunked['dispatches'].get('decode', 0)} single dispatches)")
+        f"{chunked['dispatches'].get('decode', 0)} single dispatches); "
+        f"through the gateway {gw_sync['launches']} (2 replicas, single "
+        f"steps), with async workers {gw_async['launches']} (fused, a crash)")
     log(f"kernels: flash_attention launches="
         f"{kernels[1]['launches']} (qwen3 {dense_q['prefills']} prefills x "
         f"{cfg.n_layers} layers + recurrentgemma {dense_r['prefills']} "

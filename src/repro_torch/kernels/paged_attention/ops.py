@@ -21,14 +21,18 @@ arithmetic in plain torch, for the tests.
 `paged_attention.launches` counts wrapper calls that launched the kernel
 (CUDA tensors only; one per call, both passes together), so a run can show
 that its main path went through the kernel. A call made while a CUDA graph
-is being captured launches nothing then: it counts in
-`paged_attention.captured` instead, and whoever replays the graph adds its
-captured launches to `.launches` per replay (`serve.graph`).
+is being captured launches nothing then: it counts in `captured_here()`,
+the calling thread's own count of captured calls, and whoever replays the
+graph adds its captured launches with `add_launches` per replay
+(`serve.graph`). Replicas of the gateway step their engines on threads of
+their own, so `.launches` only grows under a lock, and a capture reads
+only its own thread's calls, never another replica's.
 """
 from __future__ import annotations
 
 import functools
 import math
+import threading
 from typing import NamedTuple, Tuple
 
 import torch
@@ -42,6 +46,9 @@ DTYPES = (torch.float32, torch.bfloat16)
 # the main shape's alternatives beside this plan)
 TARGET_BLOCKS = 512
 MIN_SPLIT_TOKENS = 64      # a split spans at least this many positions
+
+_COUNT_LOCK = threading.Lock()
+_CAPTURED = threading.local()       # .n: this thread's calls while capturing
 
 
 class SplitPlan(NamedTuple):
@@ -143,11 +150,22 @@ def paged_attention(q, kpool, vpool, table, pos, *, scale=None, window=None,
                                  n_splits=plan.n_splits,
                                  pages_per_split=plan.pages_per_split)
     if torch.cuda.is_current_stream_capturing():
-        paged_attention.captured += 1
+        _CAPTURED.n = captured_here() + 1
     else:
-        paged_attention.launches += 1
+        add_launches(1)
     return out
 
 
+def captured_here() -> int:
+    """Calls this thread made while it was capturing a CUDA graph."""
+    return getattr(_CAPTURED, "n", 0)
+
+
+def add_launches(n: int):
+    """Add n launches to `paged_attention.launches` (a graph replay adds its
+    captured calls); safe against other threads counting at once."""
+    with _COUNT_LOCK:
+        paged_attention.launches += n
+
+
 paged_attention.launches = 0
-paged_attention.captured = 0

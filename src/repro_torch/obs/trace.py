@@ -1,8 +1,7 @@
 """Span tracer: ring-buffered, disabled by default, Perfetto-exportable.
 
-The port's copy of `repro.obs.trace` (the tracer, `span`, `enable`
-and `disable`), with a `fence` for CUDA tensors in place of the reference's
-`jax.block_until_ready`.
+The port's copy of `repro.obs.trace`, with a `fence` for CUDA tensors in
+place of the reference's `jax.block_until_ready`.
 
 Where does a token's latency actually go — queue wait, chunk planning, jit
 dispatch, pool scatter, retire? The per-silo counters answer "how much"
@@ -26,9 +25,11 @@ Design constraints, in order:
   * **Device time attributed, not hidden.** A CUDA launch returns
     before the device finishes; the next host op then blocks and the
     device time is mis-charged to *it*. ``fence(x)`` calls
-    ``torch.cuda.synchronize()`` when ``x`` holds a CUDA tensor — only
-    while tracing is enabled — inside the dispatch span, so a dispatch
-    span means launch + device compute.
+    for the calling thread's current stream when ``x`` holds a CUDA
+    tensor — only while tracing is enabled — inside the dispatch span, so
+    a dispatch span means launch + device compute. Not the whole device:
+    another replica's thread may be capturing a CUDA graph, and a device
+    synchronize is illegal then.
 
 Track layout in the export: pid 1 ("serving host") holds the host/engine
 spans, one tid per engine replica (the gateway itself shares tid 0 with
@@ -213,11 +214,25 @@ class Tracer:
 
 _TRACER: Optional[Tracer] = None
 
+# track names announced while no tracer was active. ReplicaWorker threads
+# name their track once, at thread start — if tracing is enabled *after*
+# start_workers (the common serve order: build fleet, then arm
+# observability), a fresh Tracer would otherwise have no thread_name
+# metadata for the per-replica tracks and every async-mode span would
+# render on anonymous tracks. Bounded: only long-lived tracks (one per
+# replica worker) announce through the module API.
+_PENDING_TRACKS: Dict[Tuple[int, int], str] = {}
+_PENDING_MU = threading.Lock()
+
 
 def enable(capacity: int = 1 << 16) -> Tracer:
-    """Install (and return) a fresh process-global tracer."""
+    """Install (and return) a fresh process-global tracer, pre-seeded
+    with every track name announced before this call."""
     global _TRACER
-    _TRACER = Tracer(capacity)
+    t = Tracer(capacity)
+    with _PENDING_MU:
+        t._track_names.update(_PENDING_TRACKS)
+    _TRACER = t
     return _TRACER
 
 
@@ -229,6 +244,14 @@ def disable() -> Optional[Tracer]:
     return t
 
 
+def active() -> Optional[Tracer]:
+    return _TRACER
+
+
+def enabled() -> bool:
+    return _TRACER is not None
+
+
 def span(name: str, *, cat: str = "serve", tid: int = 0, **args):
     """Instrumentation-site entry point: a real span while tracing is
     enabled, the shared no-op otherwise."""
@@ -236,6 +259,23 @@ def span(name: str, *, cat: str = "serve", tid: int = 0, **args):
     if t is None:
         return _NULL
     return t.span(name, cat=cat, tid=tid, **args)
+
+
+def add_span(name: str, t0: float, t1: float, **kw):
+    t = _TRACER
+    if t is not None:
+        t.add_span(name, t0, t1, **kw)
+
+
+def set_track_name(pid: int, tid: int, name: str):
+    """Name a track on the active tracer AND remember it for tracers
+    enabled later — a worker thread names its replica track exactly once,
+    at thread start, which may precede `enable()`."""
+    with _PENDING_MU:
+        _PENDING_TRACKS[(pid, tid)] = name
+    t = _TRACER
+    if t is not None:
+        t.set_track_name(pid, tid, name)
 
 
 def _cuda_devices(x, out: set):
@@ -252,12 +292,28 @@ def _cuda_devices(x, out: set):
 
 def fence(x):
     """Wait for the device work behind `x` (tensors, possibly nested in
-    dicts, lists and tuples) — only while tracing, and only for CUDA
-    tensors — so device time lands in the enclosing dispatch span instead
-    of whichever host op touches the result next. Returns `x` either way."""
+    dicts, lists and tuples; launched on this thread's current stream) —
+    only while tracing, and only for CUDA tensors — so device time lands in
+    the enclosing dispatch span instead of whichever host op touches the
+    result next. Returns `x` either way."""
     if _TRACER is not None:
         devices: set = set()
         _cuda_devices(x, devices)
         for dev in devices:
-            torch.cuda.synchronize(dev)
+            torch.cuda.current_stream(dev).synchronize()
     return x
+
+
+def traced(name: Optional[str] = None, *, cat: str = "serve"):
+    """Decorator form of `span` for whole-function spans."""
+    def deco(fn):
+        label = name or fn.__qualname__
+
+        def wrapper(*a, **kw):
+            with span(label, cat=cat):
+                return fn(*a, **kw)
+        wrapper.__name__ = fn.__name__
+        wrapper.__qualname__ = fn.__qualname__
+        wrapper.__doc__ = fn.__doc__
+        return wrapper
+    return deco

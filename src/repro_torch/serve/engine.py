@@ -36,7 +36,11 @@ csrc/paged_attention.cu) on the card and its plain version for CPU
 tensors; "reference" is the dense-gather oracle. The dense layout reads its
 cache with plain torch and takes only "reference", as the reference does.
 Everything runs on `device` ("cuda" unless the caller passes another); the
-engine never moves work to the CPU on its own.
+engine never moves work to the CPU on its own. On a CUDA device the engine
+allocates its caches and runs every step on a CUDA stream of its own, so
+engines stepped by threads of their own (the gateway's async replica
+workers) never wait at a host sync for another engine's queued work; the
+stream first waits for the caller's, which made the weights.
 
 Three decode variants stack on the paged layout, as in the reference:
 
@@ -71,6 +75,7 @@ hidden by their positions.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -185,6 +190,10 @@ class ServeEngine:
                 self.device.index is not None and pdev != self.device):
             raise ValueError(f"params are on {pdev}, engine device is "
                              f"{self.device}")
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        if self._stream is not None:
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
         self.params = params
         self.cfg = cfg
         self.slots = batch_slots
@@ -197,8 +206,9 @@ class ServeEngine:
         # brownout lever (set_degraded): parks the spec and fused lanes and
         # caps chunked-prefill chunks without touching any shape
         self.degraded = False
-        self.drafter = make_drafter(drafter, device=self.device) \
-            if spec_tokens > 0 else None
+        with self._on_stream():
+            self.drafter = make_drafter(drafter, device=self.device) \
+                if spec_tokens > 0 else None
         self._decode_fused: Optional[FusedDecodeGraph] = None
         self._decode_spec = None
         # speculative-decode telemetry
@@ -219,8 +229,9 @@ class ServeEngine:
             nb = cache_len // block_size
             if pool_blocks is None:
                 pool_blocks = 2 * batch_slots * nb + 1
-            self.cache = T.init_paged_cache(cfg, pool_blocks, block_size,
-                                            self.device)
+            with self._on_stream():
+                self.cache = T.init_paged_cache(cfg, pool_blocks, block_size,
+                                                self.device)
             self.manager = KVCacheManager(pool_blocks, block_size)
             # per-slot block tables; row of ids into the pool tensors.
             # Retired/empty slots are all-zero -> the reserved null block
@@ -248,8 +259,9 @@ class ServeEngine:
                                                   kernel=decode_kernel,
                                                   return_logits=True)
         else:
-            self.cache = T.init_cache(cfg, batch_slots, cache_len,
-                                      self.device)
+            with self._on_stream():
+                self.cache = T.init_cache(cfg, batch_slots, cache_len,
+                                          self.device)
             self._decode_tok = build_decode(cfg, window=window)
             self._decode_lg = build_decode(cfg, window=window,
                                            return_logits=True)
@@ -362,18 +374,23 @@ class ServeEngine:
         scheduler re-created and the model drafter's streams dropped. The
         step closures are kept; the fused graph, which writes the old
         pools, is released and captured again at the next fused
-        dispatch."""
+        dispatch. Work still queued on the engine's stream (a step that
+        raised midway) finishes before the old caches are dropped."""
+        if self._stream is not None:
+            self._stream.synchronize()
         if self.kv_layout == "paged":
             pool_blocks = self.manager.pool.n_blocks
             if self._decode_fused is not None:
                 self._decode_fused.release()
-            self.cache = T.init_paged_cache(self.cfg, pool_blocks,
-                                            self.block_size, self.device)
+            with self._on_stream():
+                self.cache = T.init_paged_cache(self.cfg, pool_blocks,
+                                                self.block_size, self.device)
             self.manager = KVCacheManager(pool_blocks, self.block_size)
             self.table = np.zeros_like(self.table)
         else:
-            self.cache = T.init_cache(self.cfg, self.slots, self.cache_len,
-                                      self.device)
+            with self._on_stream():
+                self.cache = T.init_cache(self.cfg, self.slots,
+                                          self.cache_len, self.device)
         self._slot_blocks = [[] for _ in range(self.slots)]
         self.pos = np.full((self.slots,), -1, np.int64)
         self.budget = np.zeros((self.slots,), np.int64)
@@ -401,6 +418,13 @@ class ServeEngine:
             self.scheduler.throttle(chunk_cap if on else None)
 
     # ------------------------------------------------------------- internals
+    def _on_stream(self):
+        """The context that makes the engine's CUDA stream current (no-op
+        on the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
     def _observe_step(self, kind: str, t0: float, shares=None):
         """Record one step's wall ms under its step kind and, when the
         utilization ledger is armed, attribute the same measured seconds
@@ -679,7 +703,11 @@ class ServeEngine:
         flight is one mixed decode + chunk dispatch; otherwise an all-
         greedy batch takes the speculative lane (spec_tokens > 0) or the
         fused lane (fused_tokens > 1), and anything else one single-token
-        step, in the reference's order."""
+        step, in the reference's order. Runs on the engine's stream."""
+        with self._on_stream():
+            return self._step()
+
+    def _step(self) -> int:
         self._admit()
         if self.scheduler is not None and self.scheduler.has_prefill_work():
             return self._step_mixed()

@@ -20,12 +20,23 @@ weights and of the KV pools it was captured against: after the pools are
 reallocated (`ServeEngine.reset`), call `release()` and the next call
 captures anew; a call with other pools raises.
 
+Other threads: the gateway's async replica workers step their engines on
+threads of their own, so one replica may capture while another launches,
+allocates, copies to the host or captures its own graph. The warm-up and
+the capture run on a stream of this graph's own, the capture in CUDA's
+thread-local mode (only the capturing thread is barred from calls that are
+unsafe during a capture), and it is begun and ended directly: the
+`torch.cuda.graph` context would synchronize the device and empty the
+allocator's cache on entry, neither of which is legal while another
+thread's capture is under way.
+
 Launch counting: the paged-attention wrapper counts a call made during a
-capture in `paged_attention.captured`, not in `.launches` (nothing runs
-then). Each replay adds the launches recorded in its capture to
+capture in its thread's own `captured_here()`, not in `.launches` (nothing
+runs then). Each replay adds the launches recorded in its capture to
 `paged_attention.launches`, so that counter keeps counting the kernel's
-real launches. `replays` and `warmup_runs` count this object's replays and
-its eager warm-up runs of the body.
+real launches, whichever threads capture and replay. `captures`,
+`replays` and `warmup_runs` count this object's captures, replays and
+eager warm-up runs of the body.
 """
 from __future__ import annotations
 
@@ -46,6 +57,7 @@ class FusedDecodeGraph:
 
     def __init__(self, body):
         self.body = body
+        self.captures = 0
         self.replays = 0
         self.warmup_runs = 0
         self.release()
@@ -83,7 +95,7 @@ class FusedDecodeGraph:
             dst.copy_(src)
         self._graph.replay()
         self.replays += 1
-        pa_ops.paged_attention.launches += self._launches
+        pa_ops.add_launches(self._launches)
         return (*self._out, cache)
 
     def _capture(self, params, cache, args):
@@ -99,11 +111,17 @@ class FusedDecodeGraph:
                 self.warmup_runs += 1
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        before = pa_ops.paged_attention.captured
-        with torch.cuda.graph(graph):
-            emitted, lv, st, _ = self.body(params, tokens, pos, cache, table,
-                                           eos, live, steps)
-        self._launches = pa_ops.paged_attention.captured - before
+        before = pa_ops.captured_here()
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                emitted, lv, st, _ = self.body(params, tokens, pos, cache,
+                                               table, eos, live, steps)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self._launches = pa_ops.captured_here() - before
+        self.captures += 1
         self._graph, self._static = graph, static
         self._out = (emitted, lv, st)
         self._bound = self._addresses(params, cache)

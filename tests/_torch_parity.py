@@ -11,25 +11,13 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.configs import registry as jreg
 from repro.models import transformer as JT
 from repro_torch.configs import registry as treg
 from repro_torch.params import params_from_jax
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The parity tests' tensors are tiny, and the suite runs in several
-    worker processes at once: torch's default of one intra-op thread per
-    core only oversubscribes the machine. Import this fixture into a test
-    module to run its torch ops on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_host import one_torch_thread  # noqa: F401  (re-exported)
 
 
 def configs(arch="qwen3-1.7b"):

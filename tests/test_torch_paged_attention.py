@@ -8,6 +8,9 @@ bf16. Inputs are numpy draws from a seed; bf16 inputs are rounded from the
 same f32 values on both sides. The kernel itself is tested on the card
 (test_torch_paged_attention_cuda.py).
 """
+import sys
+import threading
+
 import numpy as np
 import pytest
 
@@ -127,3 +130,34 @@ def test_cpu_tensors_never_count_as_launches():
     before = paged_attention.launches
     paged_attention(*_torch(_case(*CASES[0]), torch.float32), kernel="cuda")
     assert paged_attention.launches == before
+
+
+def test_launch_count_is_exact_under_threads():
+    """The gateway's replica workers count launches from threads of their
+    own: `add_launches` from 16 threads at a 1 us switch interval loses
+    no update, and no thread sees captured calls it did not make."""
+    from repro_torch.kernels.paged_attention import ops
+    threads, per_thread = 16, 2000
+    interval = sys.getswitchinterval()
+    seen = []
+
+    def work():
+        for _ in range(per_thread):
+            ops.add_launches(1)
+        seen.append(ops.captured_here())
+
+    before = paged_attention.launches
+    pool = [threading.Thread(target=work) for _ in range(threads)]
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(60)
+        total = paged_attention.launches - before
+    finally:
+        sys.setswitchinterval(interval)
+        paged_attention.launches = before
+    assert not any(t.is_alive() for t in pool)
+    assert total == threads * per_thread
+    assert seen == [0] * threads

@@ -6,9 +6,10 @@ The model is the reference test's tiny config (2 layers, d 32, 2/2 heads,
 vocab 41) with the port's seeded `init_lm` weights; the oracle is the
 port's own phased engine on the dense layout, as the reference's is its
 own. Parity with the JAX engine is tests/test_torch_decode_variants.py's
-job. The reference's last case drives the gateway, which is not ported
-yet: its engine-level half (outputs, scheduler counters, per-kind step
-times and ledger shares) is kept.
+job. The reference's last case drives the gateway: it is here as it is
+there (`test_gateway_chunked_end_to_end`), beside an engine-level case of
+the port's own (outputs, scheduler counters, per-kind step times and
+ledger shares).
 """
 import numpy as np
 import pytest
@@ -266,3 +267,42 @@ def test_chunked_engine_end_to_end(model):
     assert chunked == sched["prefill_tokens_chunked"]
     assert all(t == 1 for s in mixed for _, t, _ in s[2][:-1])
     assert all(s[3] > 0 for s in mixed)
+
+
+def test_gateway_chunked_end_to_end(model):
+    from repro_torch.core import reporting
+    from repro_torch.gateway.gateway import Gateway
+    params, cfg = model
+    prompts = [[(5 * i + j) % V for j in range(3 + 4 * i)] for i in range(4)]
+
+    def drive(**kw):
+        gw = Gateway.build(params, cfg, replicas=2, batch_slots=2,
+                           cache_len=64, kv_layout="paged", block_size=BS,
+                           policy="round-robin", device="cpu", **kw)
+        reqs = [gw.submit(p, max_new_tokens=5) for p in prompts]
+        gw.run()
+        return [r.output for r in reqs], gw
+
+    want, gw_p = drive()
+    got, gw_c = drive(scheduler="chunked", chunk_budget=3)
+    assert got == want
+    assert gw_p.scheduler_summary() is None
+    sched = gw_c.scheduler_summary()
+    assert sched["scheduler"] == "chunked" and sched["chunk_budget"] == 3
+    assert sched["prefills_completed"] == len(prompts)
+    assert sched["prefill_tokens_chunked"] == sum(len(p) for p in prompts)
+    s = gw_c.summary()
+    for key in ("itl_p95_ms", "itl_max_ms", "stall_p50_ms", "stall_p95_ms",
+                "stall_max_ms"):
+        assert np.isfinite(s[key]) and s[key] >= 0
+    assert s["stall_max_ms"] >= s["stall_p50_ms"]
+    # per-request ITL distribution on the caller-facing metrics record
+    with_itls = [g for g in gw_c.requests() if g.metrics.n_tokens > 1]
+    assert with_itls
+    for gwreq in with_itls:
+        m = gwreq.metrics
+        assert m.itl_p50 <= m.itl_p95 <= m.itl_max
+    dash = reporting.gateway_dashboard(s, gw_c.metrics.gauges,
+                                       scheduler=sched)
+    assert "chunked-prefill scheduler" in dash
+    assert "prefill_tokens_chunked" in dash
