@@ -158,6 +158,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the faults fired and the reintegration. In f32 (phase 3's request
    shapes, 32 new tokens each), its tokens must equal phase 18's
    synchronous run's under the top-2 rule.
+20. Training, after phase 14: full-width, full-depth qwen3-1.7b in f32
+   (TF32 off, attention_impl="xla", as the reference trains; seeded
+   random weights) takes 8 AdamW steps under the launcher's warmup-cosine
+   schedule on the synthetic token stream, 8 x 256 tokens a step: every
+   loss finite, the last below the first. Logs each step's loss, grad norm
+   and ms, the median step of steps 2-8, tokens/s, TFLOP/s as 6 N tokens
+   per step, the peak device memory and a profiled step (device busy share,
+   leading ops), beside the card's name and power limit. Then the first
+   batch again from the same weights with microbatches=2 (loss within
+   1e-3, params within the reference's own atol 5e-4 / rtol 5e-3) and with
+   remat=True (loss and grad norm within 1e-5 relative, a lower peak).
+21. Full-width qwen3-1.7b cut to 2 layers: three f32 steps on the card and
+   on the CPU from the same weights and batches, loss and grad norm within
+   1e-4 relative each step. Full-width, full-depth mamba2-130m trains 8
+   steps (the SSD "xla" route's backward), loss falling; full-width
+   recurrentgemma-9b at one pattern block (3 layers: 9.4 B parameters with
+   AdamW's moments do not fit at full depth) trains 3 steps.
+22. The kernels on the training path: forward_train with
+   attention_impl="pallas" under no_grad on phase 21's trained models,
+   logits within 1e-3 of "xla", each kernel launched exactly once per
+   layer of its type; the same call with grad enabled refused
+   (NotImplementedError: no kernel has a backward, as none of the
+   reference's has), and each of the four wrappers refusing a gradient on
+   CUDA tensors before it launches. Then `python -m
+   repro_torch.launch.train --arch qwen3-1.7b --reduced --steps 20 --device
+   cuda --ckpt-dir build/chip_smoke_train_ckpt` must exit 0 with its loss
+   falling; its checkpoint (the reference's layout) is restored into the
+   port's params and serves a request through the paged kernel.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; above it
 stand the card's name and power limit and one JSON line with each
@@ -217,6 +245,13 @@ PROBATION_S = 0.05                 # phase 19: then it rejoins after this,
 RETRY_BACKOFF_S = 0.1              # before its requests are placed again;
 LONG_TOKENS = 320                  # replica 1's long request meanwhile
 LAUNCHER_TIMEOUT_S = 300
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 256    # phase 20
+TRAIN_LR = 3e-4                    # the train launcher's default peak rate
+CPU_LAYERS, CPU_BATCH, CPU_SEQ = 2, 2, 64          # phase 21, card vs CPU
+CARD_CPU_REL = 1e-4                # its loss and grad-norm tolerance
+RGEMMA_TRAIN_LAYERS = 3            # phase 21: one pattern block
+EVAL_SEQ = 256                     # phase 22's "pallas" forward
+LAUNCH_STEPS = 20                  # phase 22's train launcher run
 # the reference's kernel test shapes (tests/test_paged_attention_kernel.py)
 # and the main path's: B, nb, bs, nkv, rep, hd, tokens resident per slot
 KERNEL_CASES = [
@@ -1515,6 +1550,391 @@ def run_launcher() -> list:
     return lines
 
 
+# ----------------------------------------------------------------- training
+
+def token_batches(cfg, n, batch, seq, device, seed=SEED) -> list:
+    """n batches of the synthetic LM stream, made on the host before any
+    timing and moved to the card."""
+    from repro_torch.data.tokens import TokenStream
+    stream = TokenStream(cfg.vocab_size, seq, batch, seed=seed)
+    return [{k: torch.as_tensor(v, device=device)
+             for k, v in stream.next_batch().items()} for _ in range(n)]
+
+
+def lm_trainer(cfg, steps, microbatches=1):
+    """(opt_init, step) with AdamW under the launcher's warmup-cosine
+    schedule over `steps` steps."""
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import linear_warmup_cosine
+    from repro_torch.train.step import build_lm_train_step
+    opt_init, opt_update = adamw(
+        linear_warmup_cosine(TRAIN_LR, steps // 10 + 1, steps))
+    return opt_init, build_lm_train_step(cfg, opt_update,
+                                         microbatches=microbatches)
+
+
+def run_steps(step, params, opt, batches, on_first=None) -> dict:
+    """Each batch one step, timed on the host clock up to the loss read (a
+    sync); `on_first(params)` runs after the first step, untimed. Returns
+    losses, grad norms, ms per step and the peak memory of the first step
+    and of the run."""
+    losses, norms, ms = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(m["grad_norm"]))
+        if i == 0:
+            first_peak = torch.cuda.max_memory_allocated()
+            if on_first is not None:
+                on_first(params)
+    return {"losses": losses, "grad_norms": norms, "ms": ms,
+            "first_peak": first_peak,
+            "peak": torch.cuda.max_memory_allocated(), "params": params,
+            "opt": opt}
+
+
+def check_falling(what: str, losses: list, require_fall=True):
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: a loss is not finite: {losses}")
+    if require_fall and not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: the loss did not fall: {losses}")
+
+
+def rel_close(what: str, a: float, b: float, rel: float):
+    if not abs(a - b) <= rel * abs(b):
+        raise AssertionError(f"{what}: {a!r} against {b!r}, beyond {rel} "
+                             "relative")
+
+
+def train_full(device, card: str) -> dict:
+    """Phase 20: full-width, full-depth qwen3-1.7b trains in f32, then the
+    same first batch with microbatches=2 and with remat=True."""
+    from torch.utils._pytree import tree_leaves, tree_map
+    cfg = full_config("float32")
+    resident = torch.cuda.memory_allocated()       # earlier phases' leftovers
+    params = make_model(cfg, device)
+    n = numel(params)
+    batches = token_batches(cfg, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                            device)
+    opt_init, step = lm_trainer(cfg, TRAIN_STEPS)
+    first = {}
+
+    def keep(p):
+        first["params"] = tree_map(torch.clone, p)
+    run = run_steps(step, params, opt_init(params), batches, keep)
+    check_falling("phase 20", run["losses"])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_ms = float(np.median(run["ms"][1:]))
+    out = {"params": n, "tokens": tokens, "losses": run["losses"],
+           "grad_norms": run["grad_norms"], "ms": run["ms"],
+           "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+           "tflops": 6 * n * tokens / step_ms / 1e9,
+           "peak_gib": run["peak"] / 2**30,
+           "first_peak_gib": run["first_peak"] / 2**30,
+           "resident_gib": resident / 2**30, "card": card}
+    state = {"params": run["params"], "opt": run["opt"]}
+
+    def one_step():
+        state["params"], state["opt"], _ = step(state["params"],
+                                                state["opt"], batches[1])
+    out["profile"] = profile_steps(one_step, 1)
+    del run, state
+    torch.cuda.empty_cache()
+
+    params = make_model(cfg, device)
+    opt_init2, step2 = lm_trainer(cfg, TRAIN_STEPS, microbatches=2)
+    out["mb2_loss"] = float(step2(params, opt_init2(params),
+                                  batches[0])[2]["loss"])
+    if not abs(out["mb2_loss"] - out["losses"][0]) < 1e-3:
+        raise AssertionError(f"microbatches=2 loss {out['mb2_loss']} against "
+                             f"{out['losses'][0]}")
+    worst = 0.0
+    for a, b in zip(tree_leaves(params), tree_leaves(first["params"])):
+        # the reference's own tolerance (tests/test_train_integration.py)
+        if not torch.allclose(a, b, atol=5e-4, rtol=5e-3):
+            raise AssertionError("microbatches=2 params beyond atol 5e-4, "
+                                 "rtol 5e-3 of microbatches=1's")
+        worst = max(worst, float((a - b).abs().max()))
+    out["mb2_max_param_diff"] = worst
+    del params, first, a, b
+    torch.cuda.empty_cache()
+
+    cfg_r = cfg.replace(remat=True)
+    params = make_model(cfg_r, device)
+    opt_init3, step3 = lm_trainer(cfg_r, TRAIN_STEPS)
+    remat = run_steps(step3, params, opt_init3(params), batches[:1])
+    out["remat_loss"], out["remat_grad_norm"] = remat["losses"][0], \
+        remat["grad_norms"][0]
+    out["remat_peak_gib"] = remat["first_peak"] / 2**30
+    rel_close("remat loss", out["remat_loss"], out["losses"][0], 1e-5)
+    rel_close("remat grad norm", out["remat_grad_norm"],
+              out["grad_norms"][0], 1e-5)
+    if not out["remat_peak_gib"] < out["first_peak_gib"]:
+        raise AssertionError(f"remat peak {out['remat_peak_gib']:.2f} GiB not "
+                             f"below {out['first_peak_gib']:.2f} GiB")
+    del params, remat
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_against_cpu(device) -> dict:
+    """Phase 21, first part: full-width qwen3-1.7b cut to 2 layers, three
+    f32 steps on the card and on the CPU from the same weights and
+    batches."""
+    from torch.utils._pytree import tree_map
+    cfg = full_config("float32").replace(n_layers=CPU_LAYERS)
+    params = make_model(cfg, device)
+    cpu_params = tree_map(lambda p: p.to("cpu", copy=True), params)
+    batches = token_batches(cfg, 3, CPU_BATCH, CPU_SEQ, device,
+                            seed=SEED + 3)
+    opt_init, step = lm_trainer(cfg, 3)
+    card = run_steps(step, params, opt_init(params), batches)
+    t0 = time.perf_counter()
+    cpu_opt = opt_init(cpu_params)
+    cpu = {"losses": [], "grad_norms": []}
+    for b in batches:
+        cpu_params, cpu_opt, m = step(cpu_params, cpu_opt,
+                                      {k: v.cpu() for k, v in b.items()})
+        cpu["losses"].append(float(m["loss"]))
+        cpu["grad_norms"].append(float(m["grad_norm"]))
+    cpu_s = time.perf_counter() - t0
+    for i in range(3):
+        rel_close(f"step {i + 1} loss, card against CPU",
+                  card["losses"][i], cpu["losses"][i], CARD_CPU_REL)
+        rel_close(f"step {i + 1} grad norm, card against CPU",
+                  card["grad_norms"][i], cpu["grad_norms"][i], CARD_CPU_REL)
+    return {"cfg": cfg, "params": card["params"], "card": card, "cpu": cpu,
+            "cpu_s": cpu_s}
+
+
+def train_family(cfg, device, steps, batch, seq, require_fall) -> dict:
+    """Phase 21: a recurrent family trains on the card (f32, "xla")."""
+    params = make_model(cfg, device)
+    opt_init, step = lm_trainer(cfg, steps)
+    run = run_steps(step, params, opt_init(params),
+                    token_batches(cfg, steps, batch, seq, device,
+                                  seed=SEED + 4))
+    check_falling(f"phase 21 {cfg.arch_id}", run["losses"], require_fall)
+    return {"cfg": cfg, "params": run["params"], "n": numel(params),
+            "losses": run["losses"], "ms": run["ms"],
+            "peak_gib": run["peak"] / 2**30}
+
+
+def eval_pallas(model, device) -> dict:
+    """Phase 22: forward_train under "pallas" (the kernels' forward) and
+    no_grad against "xla" on a phase-21 model, every launch counted; then
+    the same call with grad enabled must be refused."""
+    from torch.utils._pytree import tree_map
+    from repro_torch.models import transformer as T
+    cfg, params = model["cfg"], model["params"]
+    tokens = token_batches(cfg, 1, 2, EVAL_SEQ, device, seed=SEED + 5)[0]
+    types = cfg.layer_types()
+    want = {"flash_attention": types.count("attn"),
+            "rglru_scan": types.count("rglru"), "ssd_scan": types.count("ssm"),
+            "paged_attention": 0}
+    fns = counters()
+    with torch.no_grad():
+        ref, _ = T.forward_train(params, cfg, tokens)
+        for fn in fns.values():
+            fn.launches = 0
+        out, _ = T.forward_train(params, cfg.replace(attention_impl="pallas"),
+                                 tokens)
+        torch.cuda.synchronize()
+    got = {k: fn.launches for k, fn in fns.items()}
+    if got != want:
+        raise AssertionError(f"{cfg.arch_id}: launches {got}, expected {want}")
+    err = float((out - ref).abs().max())
+    if not err <= LOGIT_TOL:
+        raise AssertionError(f"{cfg.arch_id}: 'pallas' logits {err} from "
+                             f"'xla', beyond {LOGIT_TOL}")
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    first = {"attn": "flash_attention", "rglru": "rglru_scan",
+             "ssm": "ssd_scan"}[types[0]]
+    try:
+        T.forward_train(live, cfg.replace(attention_impl="pallas"), tokens)
+    except NotImplementedError as e:
+        if first not in str(e):
+            raise
+        refused = str(e).split(" has no backward")[0]
+    else:
+        raise AssertionError(f"{cfg.arch_id}: a forward under grad ran "
+                             "through the kernels")
+    return {"arch": cfg.arch_id, "launches": got, "max_abs_logit_diff": err,
+            "refused": refused}
+
+
+def refuse_all(device) -> list:
+    """Phase 22: each of the four wrappers, called on CUDA tensors that
+    require a gradient with grad enabled, raises NotImplementedError and
+    launches nothing."""
+    fns = counters()
+    g = torch.Generator(device).manual_seed(SEED)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=device) \
+            .requires_grad_()
+    table = torch.tensor([[1, 2]], dtype=torch.int32, device=device)
+    pos = torch.tensor([20], dtype=torch.int32, device=device)
+    calls = {
+        "flash_attention": lambda f: f(r(1, 64, 4, 64), r(1, 64, 2, 64),
+                                       r(1, 64, 2, 64)),
+        "rglru_scan": lambda f: f(torch.rand(1, 64, 128, device=device)
+                                  .requires_grad_(), r(1, 64, 128)),
+        "ssd_scan": lambda f: f(r(1, 64, 2, 32),
+                                torch.rand(1, 64, 2, device=device)
+                                .requires_grad_(),
+                                -torch.rand(2, device=device),
+                                r(1, 64, 1, 32), r(1, 64, 1, 32)),
+        "paged_attention": lambda f: f(r(1, 4, 64), r(3, 16, 2, 64),
+                                       r(3, 16, 2, 64), table, pos),
+    }
+    refused = []
+    for name, call in calls.items():
+        before = fns[name].launches
+        try:
+            call(fns[name])
+        except NotImplementedError:
+            refused.append(name)
+        else:
+            raise AssertionError(f"{name} ran a call that needs a gradient")
+        if fns[name].launches != before:
+            raise AssertionError(f"{name} launched before refusing")
+    return refused
+
+
+def run_train_launcher(device) -> dict:
+    """Phase 22: the train launcher in a process of its own, as a user
+    starts it; its last checkpoint restored into the port's params and
+    served on the card."""
+    import os
+    import shutil
+    from repro_torch.configs import get
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import restore_train_state
+    ckpt = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [x for x in [env.get("PYTHONPATH")] if x])
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "qwen3-1.7b", "--reduced", "--steps", str(LAUNCH_STEPS),
+           "--device", "cuda", "--ckpt-dir", str(ckpt)]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=LAUNCHER_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("[train]")]
+    found = re.match(r"\[train\] loss ([\d.]+) -> ([\d.]+) over", lines[-1]) \
+        if lines else None
+    if out.returncode != 0 or not found:
+        raise AssertionError(f"train launcher exit {out.returncode}:\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    first, last = float(found.group(1)), float(found.group(2))
+    check_falling("phase 22 launcher", [first, last])
+    cfg = get("qwen3-1.7b", reduced=True)
+    template = make_model(cfg, device)
+    opt_init, _ = adamw(TRAIN_LR)
+    params, opt = restore_train_state(str(ckpt), LAUNCH_STEPS, template,
+                                      opt_init(template), cfg, device=device)
+    if int(opt.step) != LAUNCH_STEPS:
+        raise AssertionError(f"restored step {int(opt.step)}")
+    shutil.rmtree(ckpt)
+    fns = counters()
+    fns["paged_attention"].launches = 0
+    eng = make_engine(params, cfg, device, "cuda", batch_slots=2)
+    prompt = np.random.default_rng(SEED + 6).integers(
+        0, cfg.vocab_size, 24).tolist()
+    eng.submit(prompt, max_new_tokens=8)
+    (req,) = eng.run()
+    if len(req.output) != 8 or fns["paged_attention"].launches < 1:
+        raise AssertionError(f"served {req.output}, paged kernel launches "
+                             f"{fns['paged_attention'].launches}")
+    return {"lines": lines, "wall_s": wall, "first": first, "last": last,
+            "served": req.output,
+            "launches": fns["paged_attention"].launches}
+
+
+def train_phases(device, card: str):
+    """Phases 20-22, logged as they run; each raises on a failed check."""
+    t_train = time.perf_counter()
+    log(f"[20] training full-width, full-depth qwen3-1.7b in f32 (TF32 off, "
+        f"attention_impl='xla'): AdamW, {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens; card: {card}")
+    tr = train_full(device, card)
+    log(f"  {tr['params'] / 1e9:.3f} B parameters; loss "
+        f"{' '.join(f'{x:.4f}' for x in tr['losses'])}")
+    log(f"  grad norm {' '.join(f'{x:.4f}' for x in tr['grad_norms'])}")
+    log(f"  step ms {' '.join(f'{x:.3f}' for x in tr['ms'])}")
+    log(f"  step {tr['step_ms']:.3f} ms (median of steps 2-{TRAIN_STEPS}), "
+        f"{tr['tokens_per_s']:.1f} tokens/s, {tr['tflops']:.2f} TFLOP/s "
+        f"(6 N tokens per step), peak memory {tr['first_peak_gib']:.2f} GiB "
+        f"in a step (max_memory_allocated over step 1, of which "
+        f"{tr['resident_gib']:.2f} GiB were allocated by earlier phases; over "
+        f"the run {tr['peak_gib']:.2f} GiB, with a copy of step 1's params "
+        f"kept for the microbatch check); card: {card}")
+    log("[20] where a train step's time goes (f32)")
+    log_profile(tr["profile"], "train step")
+    log(f"  microbatches=2 on the first batch: loss {tr['mb2_loss']:.6f} "
+        f"against {tr['losses'][0]:.6f}, params within {tr['mb2_max_param_diff']:.3g} "
+        f"(atol 5e-4, rtol 5e-3)")
+    log(f"  remat=True on the first batch: loss {tr['remat_loss']:.6f}, grad "
+        f"norm {tr['remat_grad_norm']:.6f}, first-step peak "
+        f"{tr['remat_peak_gib']:.2f} GiB against {tr['first_peak_gib']:.2f}")
+
+    log(f"[21] full-width qwen3-1.7b cut to {CPU_LAYERS} layers, f32: 3 steps "
+        f"of {CPU_BATCH} x {CPU_SEQ} tokens on the card and on the CPU")
+    q2 = train_against_cpu(device)
+    for i in range(3):
+        log(f"  step {i + 1}: loss {q2['card']['losses'][i]:.6f} card, "
+            f"{q2['cpu']['losses'][i]:.6f} CPU; grad norm "
+            f"{q2['card']['grad_norms'][i]:.6f} card, "
+            f"{q2['cpu']['grad_norms'][i]:.6f} CPU (tol {CARD_CPU_REL} "
+            "relative)")
+    log(f"  card {' '.join(f'{x:.3f}' for x in q2['card']['ms'])} ms a step; "
+        f"CPU {q2['cpu_s']:.1f} s for 3")
+    log("[21] full-width, full-depth mamba2-130m, f32: 8 steps of 8 x 256 "
+        "tokens (the SSD 'xla' route's backward)")
+    m2 = train_family(mamba_config("float32"), device, 8, 8, 256, True)
+    log(f"  {m2['n'] / 1e6:.1f} M parameters; loss "
+        f"{' '.join(f'{x:.4f}' for x in m2['losses'])}; step ms "
+        f"{' '.join(f'{x:.1f}' for x in m2['ms'])}; peak "
+        f"{m2['peak_gib']:.2f} GiB")
+    rg_cfg = rgemma_config("float32", n_layers=RGEMMA_TRAIN_LAYERS,
+                           tail_pattern=())
+    log(f"[21] full-width recurrentgemma-9b, one pattern block "
+        f"{rg_cfg.layer_types()}, f32: 3 steps of 4 x 256 tokens")
+    rg = train_family(rg_cfg, device, 3, 4, 256, False)
+    log(f"  {rg['n'] / 1e9:.3f} B parameters; loss "
+        f"{' '.join(f'{x:.4f}' for x in rg['losses'])}; step ms "
+        f"{' '.join(f'{x:.1f}' for x in rg['ms'])}; peak "
+        f"{rg['peak_gib']:.2f} GiB")
+
+    log("[22] the kernels on the training path: forward_train under "
+        "'pallas' and no_grad against 'xla' (f32), phase 21's models")
+    evals = [eval_pallas(mdl, device) for mdl in (q2, m2, rg)]
+    for e in evals:
+        log(f"  {e['arch']}: launches {e['launches']}, max |logit diff| "
+            f"{e['max_abs_logit_diff']:.3g} (tol {LOGIT_TOL}); with grad "
+            f"enabled {e['refused']} refused the backward")
+    del q2, m2, rg
+    torch.cuda.empty_cache()
+    log(f"  refused a gradient, launching nothing: {refuse_all(device)}")
+    log(f"[22] the train launcher: python -m repro_torch.launch.train --arch "
+        f"qwen3-1.7b --reduced --steps {LAUNCH_STEPS} --device cuda "
+        "--ckpt-dir build/chip_smoke_train_ckpt")
+    tl = run_train_launcher(device)
+    for line in tl["lines"]:
+        log(f"  {line}")
+    log(f"  exit 0 after {tl['wall_s']:.1f} s; its checkpoint restored and "
+        f"served {tl['served']} through the paged kernel "
+        f"({tl['launches']} launches)")
+    log(f"  phases 20-22 took {time.perf_counter() - t_train:.1f} s")
+
+
 # ----------------------------------------------------------------- main
 
 def main(device: str = "cuda") -> int:
@@ -1929,6 +2349,8 @@ def main(device: str = "cuda") -> int:
                     PREVIOUS_SCAN_MS["ssd_scan"])
     log(f"  ({ssd_t['flops']} flops at {BF16_TENSOR_FLOPS / 1e12:.0f} "
         f"TFLOP/s; the {ssd_t['route']} route)")
+
+    train_phases(device, card)
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",

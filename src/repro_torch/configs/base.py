@@ -211,3 +211,21 @@ class ModelConfig:
         inactive = (self.moe.n_experts - self.moe.top_k) * per_expert * self.n_layers
         return full - inactive
 
+
+
+@dataclass(frozen=True)
+class MLPConfig:
+    """The paper's own subject: a tabular MLP classifier (models/dnn.py)."""
+    n_features: int
+    n_classes: int
+    hidden_sizes: Tuple[int, ...] = (64, 64)
+    activations: Tuple[str, ...] = ("relu",)   # cycled across layers (paper F3)
+    dropout: float = 0.0
+    param_dtype: str = "float32"
+
+    @property
+    def parameter_dtype(self) -> torch.dtype:
+        return _torch_dtype(self.param_dtype)
+
+    def replace(self, **kw) -> "MLPConfig":
+        return dataclasses.replace(self, **kw)

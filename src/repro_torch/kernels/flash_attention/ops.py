@@ -17,6 +17,10 @@ multiple of 8 elements. Like the reference
 wrapper (`ops.py:37-39`), it takes causal attention only: padded or ragged
 keys are safe because no query may see past itself.
 
+There is no backward (`kernels.refuse_grad`): with grad enabled and an
+input that requires one, the wrapper raises on every device, CPU tensors
+too, as the reference's kernel refuses `jax.grad`.
+
 `flash_attention.launches` counts kernel launches (CUDA tensors only), so
 a run can show that its main path went through the kernel.
 """
@@ -26,6 +30,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -74,7 +79,9 @@ def _check_cuda_args(q, k, v, window):
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     """q: (B, Sq, nh, hd); k, v: (B, Sk, nkv, hd). Query head h attends KV
     head h // (nh // nkv), keys j <= i and, with a window, j > i - window.
-    Returns (B, Sq, nh, hd) in q's dtype."""
+    Returns (B, Sq, nh, hd) in q's dtype. Forward only, on every device
+    (`refuse_grad`)."""
+    refuse_grad("flash_attention", q, k, v)
     if not causal:
         raise ValueError("flash_attention takes causal attention only, as "
                          "the reference kernel's wrapper does (padded keys "

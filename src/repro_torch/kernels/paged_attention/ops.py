@@ -18,6 +18,9 @@ combines the splits in a second pass. `split_plan` decides the splits here,
 from the shapes alone; `ref.paged_attention_split_ref` is the same two-pass
 arithmetic in plain torch, for the tests.
 
+kernel="cuda" has no backward (`kernels.refuse_grad`): with grad enabled
+and an input that requires one, it raises on every device.
+
 `paged_attention.launches` counts wrapper calls that launched the kernel
 (CUDA tensors only; one per call, both passes together), so a run can show
 that its main path went through the kernel. A call made while a CUDA graph
@@ -37,6 +40,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 KERNELS = ("cuda", "reference")
@@ -124,9 +128,13 @@ def paged_attention(q, kpool, vpool, table, pos, *, scale=None, window=None,
                     kernel="cuda"):
     """q: (B, nh, hd) single query token per slot; kpool/vpool:
     (P, bs, nkv, hd); table: (B, nb) int32; pos: (B,) int32. Returns
-    (B, nh, hd) in q's dtype."""
+    (B, nh, hd) in q's dtype. kernel="cuda" is forward only, on every
+    device (`refuse_grad`); "reference" differentiates, as the reference's
+    dense-gather oracle does."""
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
+    if kernel == "cuda":
+        refuse_grad("paged_attention", q, kpool, vpool)
     if kernel == "cuda" and window is not None:
         raise ValueError("paged-attention cuda kernel supports window=None "
                          "only (paged chains are position-addressed, not a "

@@ -11,6 +11,9 @@ tiles of CHUNK time steps by 128 channels in one pass over memory, each
 tile's carry folded from the aggregates of the earlier ones in chunk order
 (ref.py's `rglru_chunked_ref` is the same arithmetic in plain PyTorch).
 
+There is no backward (`kernels.refuse_grad`): with grad enabled and an
+input that requires one, the wrapper raises on every device.
+
 `rglru_scan.launches` counts kernel launches (CUDA tensors only), so a run
 can show that its main path went through the kernel.
 """
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.rglru_scan.ref import rglru_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -40,7 +44,9 @@ def _check_cuda_args(a, b):
 
 def rglru_scan(a, b):
     """a, b: (B, S, C), S >= 1. Returns (y (B, S, C) f32, h_final (B, C)
-    f32) with y_t = a_t * y_{t-1} + b_t from h = 0 and h_final = y[:, -1]."""
+    f32) with y_t = a_t * y_{t-1} + b_t from h = 0 and h_final = y[:, -1].
+    Forward only, on every device (`refuse_grad`)."""
+    refuse_grad("rglru_scan", a, b)
     if a.shape[1] < 1:
         raise ValueError("rglru_scan needs at least one time step")
     if a.device.type == "cpu":

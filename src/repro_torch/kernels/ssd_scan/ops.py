@@ -24,6 +24,9 @@ aligned bases and every stride a multiple of 8 elements) run "mma", three
 launches; everything else, f32 included, runs "simt", one launch on the
 CUDA cores (TF32 would break the f32 tolerance).
 
+There is no backward (`kernels.refuse_grad`): with grad enabled and an
+input that requires one, the wrapper raises on every device.
+
 `ssd_scan.launches` counts wrapper calls that launched a route (CUDA
 tensors only), so a run can show that its main path went through the
 kernel; `ssd_scan.route_launches` counts them by route.
@@ -32,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -86,7 +90,9 @@ def route(x, B, C) -> str:
 
 def ssd_scan(x, dt, A, B, C):
     """x: (b,s,h,p); dt: (b,s,h); A: (h,); B, C: (b,s,g,n). Returns (y
-    (b,s,h,p) in x's dtype, final state (b,h,p,n) f32)."""
+    (b,s,h,p) in x's dtype, final state (b,h,p,n) f32). Forward only, on
+    every device (`refuse_grad`)."""
+    refuse_grad("ssd_scan", x, dt, A, B, C)
     if x.device.type == "cpu":
         y, state = ssd_ref(x, dt, A, B, C)
         return y.to(x.dtype), state

@@ -10,6 +10,7 @@ reference's tree into this layout.
 
 Entry points:
     init_lm(gen, cfg)                                     -> params
+    forward_train(params, cfg, batch, window=None)        -> (logits, aux)
     forward_prefill(params, cfg, batch, window=None)      -> (logits, caches)
     init_cache(cfg, batch_size, cache_len, device)        -> cache
     decode_step(params, cfg, tokens, pos, cache, window=None, rows=None)
@@ -41,6 +42,7 @@ hd, d_state) f32, "conv": (B, d_conv-1, conv_dim)} for Mamba2. Paged:
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
@@ -191,6 +193,52 @@ def forward_prefill(params, cfg, batch, window=None):
         caches.append(c)
     x = L.apply_rms_norm(params["final_norm"], x, cfg.norm_eps)
     return _logits(params, cfg, x), caches
+
+
+def _zero_aux(device):
+    """The reference's MoE aux values (`_zero_aux`); every ported FFN is
+    dense, so they are zeros."""
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in ("load_balance", "router_z", "dropped_frac")}
+
+
+def _run_layers(x, layers, types, cfg, positions, window):
+    for lp, t in zip(layers, types):
+        x, _ = _layer_full(lp, cfg, t, x, positions, window)
+    return x
+
+
+def forward_train(params, cfg, batch, window=None):
+    """The training forward over batch["tokens"] (B, S): forward_prefill's
+    stack without caches. Returns (logits (B, S, V), aux), aux the
+    reference's MoE aux keys over the FFN layer count (zeros here).
+
+    With cfg.remat each pattern block of layers (`len(cfg.block_pattern)`
+    layers, the tail excluded) is recomputed in the backward
+    (`torch.utils.checkpoint`, non-reentrant), as the reference wraps its
+    block function in `jax.checkpoint`. `scan_layers` and `seq_parallel`
+    change nothing here. Under attention_impl="pallas" the kernels run the
+    forward, and a backward through them raises (`kernels.refuse_grad`), as
+    the reference's does."""
+    _check_ported(cfg)
+    window = cfg.window if window is None else window
+    x = L.embed(params["embed"], batch["tokens"]).to(cfg.activation_dtype)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    layers, types = params["layers"], cfg.layer_types()
+    n_pat = len(cfg.block_pattern)
+    n_scan = cfg.n_blocks * n_pat
+    for b in range(0, n_scan, n_pat):
+        args = (layers[b:b + n_pat], types[b:b + n_pat], cfg, positions,
+                window)
+        x = (checkpoint(_run_layers, x, *args, use_reentrant=False)
+             if cfg.remat else _run_layers(x, *args))
+    x = _run_layers(x, layers[n_scan:], types[n_scan:], cfg, positions,
+                    window)
+    x = L.apply_rms_norm(params["final_norm"], x, cfg.norm_eps)
+    n_ffn_layers = sum(1 for t in types if t != "ssm")
+    aux = {k: v / max(n_ffn_layers, 1)
+           for k, v in _zero_aux(x.device).items()}
+    return _logits(params, cfg, x), aux
 
 
 # ============================================================== dense cache

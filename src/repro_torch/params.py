@@ -1,4 +1,5 @@
-"""Weight bridge: the reference's `init_lm` pytree -> the port's params.
+"""Weight bridge between the reference's `init_lm` pytree and the port's
+params, both ways.
 
 The reference (`repro.models.transformer.init_lm`) returns a nested tree
 in which `blocks` is a tuple over `cfg.block_pattern` whose leaves are
@@ -16,7 +17,13 @@ dt_bias (`mamba2.F32_LEAVES`, from `init_mamba2`). The rule is the init's,
 not the numpy leaf's dtype.
 
 The caller hands the tree over as numpy arrays (e.g.
-``jax.tree.map(np.asarray, params)``); this module imports no JAX.
+``jax.tree.map(np.asarray, params)``) or as tensors (a checkpoint restored
+with `checkpoint.restore_checkpoint`); this module imports no JAX.
+
+The other way, `jax_layout` restacks the port's per-layer dicts (params,
+or any tree of their shape: gradients, optimizer moments) into the
+reference's layout, and `params_to_jax` gives that tree as numpy arrays.
+The trainer writes its checkpoints in that layout.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import rglru as RG
@@ -45,7 +53,8 @@ def _flatten(tree, prefix: Path = ()) -> Dict[Path, np.ndarray]:
         for i, v in enumerate(tree):
             out.update(_flatten(v, prefix + (i,)))
         return out
-    return {prefix: np.asarray(tree)}
+    return {prefix: tree if isinstance(tree, torch.Tensor)
+            else np.asarray(tree)}
 
 
 def _leaves(shapes, prefix: Path = ()):
@@ -84,11 +93,13 @@ def params_from_jax(tree, cfg, device="cuda") -> dict:
         if tuple(a.shape) != tuple(shape):
             raise ValueError(f"{'/'.join(map(str, path))}: shape "
                              f"{tuple(a.shape)}, expected {tuple(shape)}")
-        if a.dtype.name == "bfloat16":        # ml_dtypes; torch can't wrap it
-            a = a.astype(np.float32)
         f32 = len(path) >= 2 \
             and path[-1] in F32_LEAVES.get(path[-2], ())
         dtype = torch.float32 if f32 else cfg.parameter_dtype
+        if isinstance(a, torch.Tensor):
+            return a.to(device=device, dtype=dtype, copy=True)
+        if a.dtype.name == "bfloat16":        # ml_dtypes; torch can't wrap it
+            a = a.astype(np.float32)
         return torch.tensor(a, device=device, dtype=dtype)
 
     shapes = T.param_shapes(cfg)
@@ -112,3 +123,58 @@ def params_from_jax(tree, cfg, device="cuda") -> dict:
     if unused:
         raise ValueError(f"reference leaves left unused: {unused}")
     return out
+
+
+def jax_layout(params, cfg) -> dict:
+    """The port's params, or any tree of their shape (gradients, AdamW's
+    moments), in the reference's layout, leaves still tensors: "layers"
+    becomes `blocks`, a tuple over `cfg.block_pattern` of layer dicts
+    stacked on a leading n_blocks axis (absent when there are no blocks),
+    and `tail`, a tuple of the remaining layers; the other entries stay as
+    they are, in their order (`port_layout` restores it)."""
+    n_pat = len(cfg.block_pattern)
+    n_scan = cfg.n_blocks * n_pat
+    out = {}
+    for k, v in params.items():
+        if k != "layers":
+            out[k] = v
+            continue
+        if cfg.n_blocks > 0:
+            out["blocks"] = tuple(
+                tree_map(lambda *xs: torch.stack(xs),
+                         *(v[b + i] for b in range(0, n_scan, n_pat)))
+                for i in range(n_pat))
+        out["tail"] = tuple(v[n_scan:])
+    return out
+
+
+def port_layout(tree, cfg) -> dict:
+    """The inverse of `jax_layout`: the blocks unstacked per layer into
+    "layers", every leaf in its own dtype and on its own device (unlike
+    `params_from_jax`, which casts to the parameter dtype: optimizer
+    moments stay float32)."""
+    n_pat = len(cfg.block_pattern)
+    out = {}
+    for k, v in tree.items():
+        if k == "blocks":
+            out["layers"] = [tree_map(lambda a: a[b], v[i])
+                             for b in range(cfg.n_blocks)
+                             for i in range(n_pat)]
+        elif k == "tail":
+            out.setdefault("layers", []).extend(v)
+        else:
+            out[k] = v
+    return out
+
+
+def params_to_jax(params, cfg) -> dict:
+    """The inverse of `params_from_jax`: the reference's parameter tree as
+    CPU numpy arrays (bfloat16 leaves as `ml_dtypes.bfloat16`, imported
+    only then)."""
+    def to_numpy(t):
+        t = t.detach().cpu()
+        if t.dtype != torch.bfloat16:
+            return t.numpy()
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return tree_map(to_numpy, jax_layout(params, cfg))

@@ -1,0 +1,91 @@
+"""Train-step builders: forward, backward and update, with optional
+microbatch gradient accumulation (the reference's `repro.train.step`).
+
+Params stay plain tensors that require no gradient between steps, so
+trained params serve as they are. A step differentiates with respect to
+detached aliases of the leaves (`requires_grad_()` on `p.detach()`, which
+shares p's storage), calls `torch.autograd.grad`, and hands the gradients
+to the optimizer, which updates the params in place.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from repro_torch.models import transformer as T
+from repro_torch.train.losses import lm_loss
+
+METRIC_KEYS = ("xent", "loss", "load_balance", "router_z", "dropped_frac")
+
+
+def value_and_grad(loss_fn: Callable, params, *args):
+    """(loss, aux, grads) of `loss_fn(params, *args) -> (loss, aux)`: aux
+    detached, grads a list in the order of the params' leaves (zeros for a
+    leaf the loss does not reach, as jax.grad gives)."""
+    leaves, spec = tree_flatten(params)
+    live = [p.detach().requires_grad_() for p in leaves]
+    with torch.enable_grad():
+        loss, aux = loss_fn(tree_unflatten(live, spec), *args)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    aux = {k: v.detach() for k, v in aux.items()}
+    return loss.detach(), aux, grads
+
+
+def build_lm_train_step(cfg, opt_update: Callable, *, microbatches: int = 1,
+                        window=None, forward_fn=None):
+    """Returns step(params, opt_state, batch) -> (params, opt_state,
+    metrics).
+
+    ``batch`` leaves are tensors on the params' device with a leading
+    (per-process) batch dim; with microbatches = k the batch is split along
+    it into k slices of b/k rows, the gradients are summed in float32 and
+    divided by k, and the metrics are the slices' means: the activation-
+    memory lever, as in the reference.
+    """
+    fwd = forward_fn or T.forward_train
+
+    def loss_fn(params, mb):
+        return lm_loss(params, cfg, mb, fwd, window=window)
+
+    def step(params, opt_state, batch):
+        _, spec = tree_flatten(params)
+        if microbatches == 1:
+            _, metrics, grads = value_and_grad(loss_fn, params, batch)
+        else:
+            b = next(iter(batch.values())).shape[0]
+            rows = b // microbatches
+            grads, metrics = None, {k: 0.0 for k in METRIC_KEYS}
+            for i in range(microbatches):
+                mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+                _, m, g = value_and_grad(loss_fn, params, mb)
+                if grads is None:
+                    grads = [x.to(torch.float32, copy=True) for x in g]
+                else:
+                    torch._foreach_add_(grads, g)
+                metrics = {k: metrics[k] + m[k] for k in METRIC_KEYS}
+            torch._foreach_div_(grads, float(microbatches))
+            metrics = {k: v / microbatches for k, v in metrics.items()}
+        params, opt_state, opt_metrics = opt_update(
+            tree_unflatten(grads, spec), opt_state, params)
+        metrics.update(opt_metrics)
+        return params, opt_state, metrics
+
+    return step
+
+
+def build_dnn_train_step(cfg, opt_update: Callable, loss_fn: Callable):
+    """Train step for the paper's tabular MLPs (core sweep workload).
+    `loss_fn(params, cfg, batch, key) -> (loss, aux)`; key is a
+    torch.Generator for dropout, or None."""
+    def step(params, opt_state, batch, key=None):
+        _, spec = tree_flatten(params)
+        loss, aux, grads = value_and_grad(loss_fn, params, cfg, batch, key)
+        params, opt_state, om = opt_update(tree_unflatten(grads, spec),
+                                           opt_state, params)
+        return params, opt_state, {"loss": loss, **aux, **om}
+
+    return step
