@@ -186,6 +186,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    cuda --ckpt-dir build/chip_smoke_train_ckpt` must exit 0 with its loss
    falling; its checkpoint (the reference's layout) is restored into the
    port's params and serves a request through the paged kernel.
+23. The paper's layer-design sweep, after phase 22, on the sweep
+   launcher's dataset (2,000 rows, 12 features, 4 classes), f32 with TF32
+   off. A population block of 256 members (the scheduler's max_block) of
+   the launcher's widest depth and width, 4 x 128 (relu: with
+   ("relu", "tanh") the tanh before the output layer bounds the logits,
+   and SGD at 1e12 stays finite, in the reference too), SGD with momentum
+   0.9, learning rates drawn from the launcher's (1e-3, 3e-3), the last
+   member at 1e12, 2 epochs (after a first block of 4 of them, which
+   takes the first calls' set-up): every member but the last "ok", the
+   last "failed" and frozen in-graph. Logs ms a step, tasks/s and a
+   profiled step (device busy share). Eight of its members are each held
+   against `dnn_train` on their payloads on the card: loss within 1e-5
+   relative, accuracy within one test row, params within 1e-4 of each
+   leaf's max.
+   So is an 8-member AdamW block of ("relu", "tanh"), in loss and
+   accuracy; its params' distance is logged, not bounded (Adam carries
+   the batched and single GEMMs' one-ulp differences across a relu's
+   boundary into whole updates: up to 7.1e-3 of a leaf's max). Then
+   `python -m
+   repro_torch.launch.sweep --n-tasks 256 --workers 2 --epochs 2` must
+   exit 0 with "0 failed" and its four artifacts (both planes: blocks and
+   queued tasks), and `lm_train` on reduced qwen3-1.7b through a `Worker`
+   on the card must give a finite loss and report the "cuda" backend.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; above it
 stand the card's name and power limit and one JSON line with each
@@ -252,6 +275,16 @@ CARD_CPU_REL = 1e-4                # its loss and grad-norm tolerance
 RGEMMA_TRAIN_LAYERS = 3            # phase 21: one pattern block
 EVAL_SEQ = 256                     # phase 22's "pallas" forward
 LAUNCH_STEPS = 20                  # phase 22's train launcher run
+# phase 23, the sweep: the launcher's dataset, widest design (4 x 128) and
+# learning rates; a population block of the scheduler's max_block members
+SWEEP_K = 256
+SWEEP_HIDDEN = [128] * 4
+SWEEP_LRS = (1e-3, 3e-3)
+SWEEP_EPOCHS, SWEEP_BATCH = 2, 128
+DIVERGENT_LR = 1e12                # the block's last member: frozen, failed
+SWEEP_CHECKED = 8                  # members held against dnn_train
+PLANES_REL, PARAM_TOL = 1e-5, 1e-4  # the CPU tests' member-vs-dnn_train
+SWEEP_TASKS, SWEEP_WORKERS = 256, 2  # the launcher's run
 # the reference's kernel test shapes (tests/test_paged_attention_kernel.py)
 # and the main path's: B, nb, bs, nkv, rep, hd, tokens resident per slot
 KERNEL_CASES = [
@@ -1935,6 +1968,244 @@ def train_phases(device, card: str):
     log(f"  phases 20-22 took {time.perf_counter() - t_train:.1f} s")
 
 
+# -------------------------------------------------------------------- sweep
+
+class recording:
+    """Within the block, `module.name` (a params draw) keeps every tree it
+    returns: training updates those tensors in place, so afterwards they
+    hold the trained params."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.trees = module, name, []
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def draw(*args):
+            self.trees.append(self.fn(*args))
+            return self.trees[-1]
+        setattr(self.module, self.name, draw)
+        return self.trees
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def sweep_dataset():
+    """The sweep launcher's dataset: 2,000 rows, 12 features, 4 classes."""
+    from repro_torch.data import pipeline, synthetic
+    return pipeline.prepare(synthetic.classification_csv(2000, 12, 4,
+                                                         seed=SEED),
+                            "label", seed=SEED)
+
+
+def sweep_block(optimizer, lrs, activations) -> list:
+    from repro_torch.core.tasks import TaskSpec
+    return [TaskSpec.make("chip_smoke", "dnn_train", {
+        "hidden_sizes": SWEEP_HIDDEN, "activations": list(activations),
+        "lr": lr, "optimizer": optimizer, "epochs": SWEEP_EPOCHS,
+        "batch_size": SWEEP_BATCH, "dataset": "default", "seed": i})
+        for i, lr in enumerate(lrs)]
+
+
+def members_against_dnn_train(block, docs, stacked, ctx, picks,
+                              param_tol=PARAM_TOL) -> dict:
+    """Each picked member of a trained population against `dnn_train` on
+    its payload on the card: loss within PLANES_REL relative, accuracy
+    within one test row, params within `param_tol` of each leaf's max
+    (measured, not bounded, where it is None)."""
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.core import executors
+    n_test = ctx["datasets"]["default"].x_test.shape[0]
+    worst = {"loss_rel": 0.0, "param": 0.0, "acc": 0.0}
+    for i in picks:
+        with recording(executors, "member_params") as single:
+            m = executors.dnn_train(block[i].payload, ctx)
+        pm = docs[i]["metrics"]
+        rel = abs(pm["final_loss"] - m["final_loss"]) / abs(m["final_loss"])
+        acc = abs(pm["accuracy"] - m["accuracy"])
+        if rel > PLANES_REL or acc > 1 / n_test + 1e-6:
+            raise AssertionError(
+                f"member {i}: loss {pm['final_loss']} against dnn_train's "
+                f"{m['final_loss']}, accuracy {pm['accuracy']} against "
+                f"{m['accuracy']}")
+        for p, q in zip(tree_leaves(stacked), tree_leaves(single[0])):
+            d = float((p[i] - q).abs().max() / q.abs().max())
+            if param_tol is not None and d > param_tol:
+                raise AssertionError(f"member {i}: params {d:.3g} of the "
+                                     f"leaf's max from dnn_train's")
+            worst["param"] = max(worst["param"], d)
+        worst["loss_rel"] = max(worst["loss_rel"], rel)
+        worst["acc"] = max(worst["acc"], acc)
+    return worst
+
+
+def population_phase(device, ds) -> dict:
+    """Phase 23, parts 1 and 2: a full block of SWEEP_K members, its last
+    one divergent, then members against dnn_train; an 8-member AdamW block
+    of the launcher's ("relu", "tanh") design against dnn_train too."""
+    from repro_torch.core import population
+    from repro_torch.core.executors import DeviceData
+    ctx = {"datasets": {"default": ds}, "device": str(device)}
+    rng = np.random.default_rng(SEED + 23)
+    lrs = [float(x) for x in rng.choice(SWEEP_LRS, SWEEP_K - 1)]
+    block = sweep_block("sgd", lrs + [DIVERGENT_LR], ("relu",))
+    t0 = time.perf_counter()         # first calls: cuBLAS's batched GEMMs
+    population.train_population(block[:4], ctx)
+    first_s = time.perf_counter() - t0
+    with recording(population, "population_params") as drawn:
+        t0 = time.perf_counter()
+        docs = population.train_population(block, ctx)
+        wall = time.perf_counter() - t0
+    statuses = [d["status"] for d in docs]
+    if statuses[:-1] != ["ok"] * (SWEEP_K - 1) or statuses[-1] != "failed" \
+            or docs[-1]["error"] != "diverged (frozen in-graph)":
+        raise AssertionError(f"statuses {sorted(set(statuses[:-1]))} and "
+                             f"{statuses[-1]!r} for the divergent member")
+    accs = [d["metrics"]["accuracy"] for d in docs[:-1]]
+    losses = [d["metrics"]["final_loss"] for d in docs[:-1]]
+    if not (all(np.isfinite(accs)) and all(np.isfinite(losses))):
+        raise AssertionError("a healthy member's loss or accuracy is not "
+                             "finite")
+    steps = SWEEP_EPOCHS * (ds.x_train.shape[0] // SWEEP_BATCH)
+    picks = [int(i) for i in np.linspace(0, SWEEP_K - 2, SWEEP_CHECKED)]
+    loop = docs[0]["metrics"]["wall_time_block"]    # data, steps, a sync
+    out = {"first_s": first_s, "wall_s": wall, "loop_s": loop,
+           "steps": steps, "ms_per_step": loop * 1e3 / steps,
+           "tasks_per_s": SWEEP_K / wall, "acc_mean": float(np.mean(accs)),
+           "loss_mean": float(np.mean(losses)),
+           "divergent_loss": docs[-1]["metrics"]["final_loss"],
+           "sgd_vs_dnn_train": members_against_dnn_train(
+               block, docs, drawn[0], ctx, picks)}
+
+    cfg = population._block_config(block, ds)
+    lr_t = torch.tensor(lrs + [DIVERGENT_LR], device=device)
+    params = population.population_params(list(range(SWEEP_K)), cfg, device)
+    opt_init, opt_update = population.population_optimizer("sgd", lr_t)
+    state = {"params": params, "opt": opt_init(params),
+             "alive": torch.ones(SWEEP_K, dtype=torch.bool, device=device)}
+    step = population.build_population_step(cfg, opt_update)
+    batch = next(DeviceData(ds, SWEEP_BATCH, 1, device).batches(0))
+
+    def one_step():
+        state["params"], state["opt"], state["alive"], _ = step(
+            state["params"], state["opt"], state["alive"], batch)
+    one_step()
+    out["profile"] = profile_steps(one_step, 3)
+    del state, params
+
+    adam = sweep_block("adam", [SWEEP_LRS[i % 2] for i in
+                                range(SWEEP_CHECKED)], ("relu", "tanh"))
+    with recording(population, "population_params") as drawn:
+        t0 = time.perf_counter()
+        adocs = population.train_population(adam, ctx)
+        out["adam_wall_s"] = time.perf_counter() - t0
+    if any(d["status"] != "ok" for d in adocs):
+        raise AssertionError("an AdamW member failed")
+    # Adam's update m / (sqrt(v) + eps) carries a one-ulp difference
+    # between the batched and the single GEMM across a relu's boundary into
+    # a whole update of a small-gradient weight: on the card up to 7.1e-3
+    # of a leaf's max (PERF.md, section 6); SGD stays within 3e-7
+    out["adam_vs_dnn_train"] = members_against_dnn_train(
+        adam, adocs, drawn[0], ctx, range(SWEEP_CHECKED), param_tol=None)
+    return out
+
+
+def run_sweep_launcher() -> dict:
+    """Phase 23, part 3: the sweep launcher in a process of its own."""
+    import os
+    import shutil
+    out_dir = ROOT / "build" / "chip_smoke_sweep"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [x for x in [env.get("PYTHONPATH")] if x])
+    cmd = [sys.executable, "-m", "repro_torch.launch.sweep", "--n-tasks",
+           str(SWEEP_TASKS), "--workers", str(SWEEP_WORKERS), "--epochs",
+           str(SWEEP_EPOCHS), "--out", str(out_dir)]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=LAUNCHER_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("[sweep]")]
+    done = [re.match(r"\[sweep\] (\d+)/(\d+) done \((\d+) failed\) in "
+                     r"([\d.]+)s — ([\d.]+) tasks/s", ln) for ln in lines]
+    done = [m for m in done if m]
+    arts = ["fig5_time_vs_layers.txt", "f1_accuracy_vs_capacity.txt",
+            "f3_activations.md", "summary.md"]
+    if out.returncode != 0 or not done or done[0].group(3) != "0" \
+            or done[0].group(1) != str(SWEEP_TASKS) \
+            or not all((out_dir / a).is_file() for a in arts):
+        raise AssertionError(f"sweep launcher exit {out.returncode}:\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    shutil.rmtree(out_dir)
+    return {"lines": lines, "wall_s": wall,
+            "tasks_per_s": float(done[0].group(5))}
+
+
+def lm_train_on_a_worker(device) -> dict:
+    """Phase 23, part 4: the LM executor through a Worker on the card, as
+    the reference's test runs it (reduced qwen3-1.7b)."""
+    from repro_torch.core import ResultStore, TaskQueue, TaskSpec, Worker
+    q, rs = TaskQueue(), ResultStore()
+    q.put(TaskSpec.make("chip_smoke", "lm_train", {
+        "arch": "qwen3-1.7b", "steps": 3, "batch_size": 2, "seq_len": 16}))
+    w = Worker("w0", q, rs, {"device": str(device)})
+    w.run_until_empty()
+    docs = rs.find("chip_smoke")
+    if len(docs) != 1 or docs[0]["status"] != "ok" \
+            or not np.isfinite(docs[0]["metrics"]["final_loss"]) \
+            or w.status()["backend"] != "cuda":
+        raise AssertionError(f"lm_train on a worker: {docs}, {w.status()}")
+    return {"metrics": docs[0]["metrics"], "status": w.status()}
+
+
+def sweep_phase(device, card: str):
+    """Phase 23, logged as it runs; each part raises on a failed check."""
+    t_sweep = time.perf_counter()
+    ds = sweep_dataset()
+    log(f"[23] a population block of {SWEEP_K} members, {len(SWEEP_HIDDEN)} "
+        f"x {SWEEP_HIDDEN[0]} relu, SGD (momentum 0.9), lrs from {SWEEP_LRS} "
+        f"and one at {DIVERGENT_LR:g}, {SWEEP_EPOCHS} epochs of "
+        f"{ds.x_train.shape[0]} rows in batches of {SWEEP_BATCH}; f32, TF32 "
+        f"off; card: {card}")
+    pop = population_phase(device, ds)
+    log(f"  a first block of 4 members (set-up) {pop['first_s']:.4f} s; "
+        f"then train_population of {SWEEP_K} members {pop['wall_s']:.4f} s "
+        f"({pop['tasks_per_s']:.1f} tasks/s), its training loop "
+        f"{pop['loop_s']:.4f} s for {pop['steps']} steps "
+        f"({pop['ms_per_step']:.4f} ms a step, the data's copy to the card "
+        f"included); {SWEEP_K - 1} ok (mean accuracy {pop['acc_mean']:.4f}, "
+        f"loss {pop['loss_mean']:.4f}), the divergent member failed (loss "
+        f"{pop['divergent_loss']}) and was frozen in-graph")
+    log("[23] where a population step's time goes")
+    log_profile(pop["profile"], "step")
+    w = pop["sgd_vs_dnn_train"]
+    log(f"  {SWEEP_CHECKED} members against dnn_train on the card: loss "
+        f"within {w['loss_rel']:.3g} relative (tol {PLANES_REL}), params "
+        f"{w['param']:.3g} of a leaf's max (tol {PARAM_TOL}), accuracy "
+        f"{w['acc']:.4f}")
+    w = pop["adam_vs_dnn_train"]
+    log(f"  AdamW, {SWEEP_CHECKED} members of ('relu', 'tanh') in "
+        f"{pop['adam_wall_s']:.4f} s: against dnn_train loss within "
+        f"{w['loss_rel']:.3g} relative (tol {PLANES_REL}), accuracy "
+        f"{w['acc']:.4f}; params {w['param']:.3g} of a leaf's max "
+        "(measured, not bounded)")
+    log(f"[23] the sweep launcher: python -m repro_torch.launch.sweep "
+        f"--n-tasks {SWEEP_TASKS} --workers {SWEEP_WORKERS} --epochs "
+        f"{SWEEP_EPOCHS} --out build/chip_smoke_sweep")
+    sl = run_sweep_launcher()
+    for line in sl["lines"]:
+        log(f"  {line}")
+    log(f"  exit 0 after {sl['wall_s']:.1f} s; {sl['tasks_per_s']:.2f} "
+        "tasks/s over both planes")
+    log("[23] lm_train through a Worker on the card (reduced qwen3-1.7b)")
+    lm = lm_train_on_a_worker(device)
+    log(f"  loss {lm['metrics']['first_loss']:.4f} -> "
+        f"{lm['metrics']['final_loss']:.4f} in {lm['metrics']['steps']} "
+        f"steps; worker status {lm['status']}")
+    log(f"  phase 23 took {time.perf_counter() - t_sweep:.1f} s")
+
 # ----------------------------------------------------------------- main
 
 def main(device: str = "cuda") -> int:
@@ -2351,6 +2622,7 @@ def main(device: str = "cuda") -> int:
         f"TFLOP/s; the {ssd_t['route']} route)")
 
     train_phases(device, card)
+    sweep_phase(device, card)
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",

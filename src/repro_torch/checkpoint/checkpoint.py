@@ -106,13 +106,20 @@ def load_flat(ckpt_dir: str, step: int) -> dict:
 
 
 def restore_checkpoint(ckpt_dir: str, step: int, like: Any,
-                       device="cpu") -> Any:
+                       device=None) -> Any:
     """Restore into the structure of ``like`` (values ignored): the same
     nesting of dicts, lists, tuples and NamedTuples, with CPU-loaded
-    tensors moved to `device`. Raises KeyError on a key the file lacks;
-    keys ``like`` does not have are left out, as the reference leaves
-    them."""
+    tensors moved to `device`; by default each leaf goes to the device of
+    its template leaf (the CPU for a template leaf that is no tensor), as
+    the reference restores onto its default device. Raises KeyError on a
+    key the file lacks; keys ``like`` does not have are left out, as the
+    reference leaves them."""
     flat = load_flat(ckpt_dir, step)
     _, spec = tree_flatten(like)
-    return tree_unflatten([flat[k].to(device) for k, _ in _items(like, "")],
-                          spec)
+
+    def target(leaf):
+        if device is not None:
+            return device
+        return leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
+    return tree_unflatten([flat[k].to(target(leaf))
+                           for k, leaf in _items(like, "")], spec)

@@ -2,10 +2,12 @@
 
 The port registers the pure-attention decoder archs, the RG-LRU hybrid
 (recurrentgemma-9b) and Mamba2 (mamba2-130m), the families its models
-run; the MoE, enc-dec and modality-prefix families wait for their own
-slices (ROADMAP.md Queue 1). `reduce_config` is the
-reference's, so a reduced config here equals the reduced config there
-field for field (the parity tests rely on it).
+run, and granite-moe-1b-a400m, whose MoE FFN is not ported yet: its
+models raise NotImplementedError (`transformer._check_ported`), so a sweep
+task on it fails forward with that error. The other MoE, enc-dec and
+modality-prefix archs wait for their own slices (ROADMAP.md Queue 1).
+`reduce_config` is the reference's, so a reduced config here equals the
+reduced config there field for field (the parity tests rely on it).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
 
+from repro_torch.configs.granite_moe_1b_a400m import CONFIG as _granite1b
 from repro_torch.configs.mamba2_130m import CONFIG as _mamba2
 from repro_torch.configs.mistral_nemo_12b import CONFIG as _nemo
 from repro_torch.configs.qwen3_1_7b import CONFIG as _qwen17b
@@ -22,7 +25,7 @@ from repro_torch.configs.recurrentgemma_9b import CONFIG as _rgemma
 from repro_torch.configs.starcoder2_7b import CONFIG as _starcoder2
 
 REGISTRY: Dict[str, ModelConfig] = {c.arch_id: c for c in [
-    _mamba2, _nemo, _qwen17b, _qwen4b, _rgemma, _starcoder2,
+    _granite1b, _mamba2, _nemo, _qwen17b, _qwen4b, _rgemma, _starcoder2,
 ]}
 
 ARCH_IDS = sorted(REGISTRY)

@@ -1,2 +1,3 @@
 """Command-line entry points of the port: `python -m
-repro_torch.launch.serve` and `python -m repro_torch.launch.train`."""
+repro_torch.launch.serve`, `python -m repro_torch.launch.train` and
+`python -m repro_torch.launch.sweep`."""

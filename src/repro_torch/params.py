@@ -1,5 +1,6 @@
 """Weight bridge between the reference's `init_lm` pytree and the port's
-params, both ways.
+params, both ways, and from the reference's `init_dnn` MLPs (one, or a
+population stacked on a leading axis) to the port's.
 
 The reference (`repro.models.transformer.init_lm`) returns a nested tree
 in which `blocks` is a tuple over `cfg.block_pattern` whose leaves are
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_map
 
+from repro_torch.configs.base import MLPConfig
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import rglru as RG
 from repro_torch.models import transformer as T
@@ -72,17 +74,45 @@ def _set(tree: dict, path: Path, value):
     tree[path[-1]] = value
 
 
+def _tensor(a, dtype, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype, copy=True)
+    if a.dtype.name == "bfloat16":        # ml_dtypes; torch can't wrap it
+        a = a.astype(np.float32)
+    return torch.tensor(a, device=device, dtype=dtype)
+
+
+def _check_shape(a, path: Path, shape):
+    if tuple(a.shape) != tuple(shape):
+        raise ValueError(f"{'/'.join(map(str, path))}: shape "
+                         f"{tuple(a.shape)}, expected {tuple(shape)}")
+
+
+def _check_all_used(flat, used):
+    unused = sorted("/".join(map(str, p)) for p in set(flat) - used)
+    if unused:
+        raise ValueError(f"reference leaves left unused: {unused}")
+
+
+def _missing(path: Path):
+    return ValueError(f"reference tree has no leaf {'/'.join(map(str, path))}")
+
+
 def params_from_jax(tree, cfg, device="cuda") -> dict:
     """Convert the reference's parameter tree (numpy leaves) into the
     port's params on `device`, in `cfg.parameter_dtype` (the RG-LRU's and
-    Mamba2's float32 leaves stay float32). Raises ValueError on a missing
-    leaf, a shape mismatch, or any leaf left unused."""
+    Mamba2's float32 leaves stay float32). `cfg` is a `ModelConfig` or the
+    paper's `MLPConfig` (`_mlp_params_from_jax`: one MLP or a stacked
+    population). Raises ValueError on a
+    missing leaf, a shape mismatch, or any leaf left unused."""
+    if isinstance(cfg, MLPConfig):
+        return _mlp_params_from_jax(tree, cfg, device)
     flat = _flatten(tree)
     used = set()
 
     def take(path: Path, shape, index=None) -> torch.Tensor:
         if path not in flat:
-            raise ValueError(f"reference tree has no leaf {'/'.join(map(str, path))}")
+            raise _missing(path)
         a = flat[path]
         used.add(path)
         if index is not None:
@@ -90,17 +120,11 @@ def params_from_jax(tree, cfg, device="cuda") -> dict:
                 raise ValueError(f"{'/'.join(map(str, path))}: leading axis "
                                  f"{a.shape[:1]} != n_blocks {cfg.n_blocks}")
             a = a[index]
-        if tuple(a.shape) != tuple(shape):
-            raise ValueError(f"{'/'.join(map(str, path))}: shape "
-                             f"{tuple(a.shape)}, expected {tuple(shape)}")
+        _check_shape(a, path, shape)
         f32 = len(path) >= 2 \
             and path[-1] in F32_LEAVES.get(path[-2], ())
-        dtype = torch.float32 if f32 else cfg.parameter_dtype
-        if isinstance(a, torch.Tensor):
-            return a.to(device=device, dtype=dtype, copy=True)
-        if a.dtype.name == "bfloat16":        # ml_dtypes; torch can't wrap it
-            a = a.astype(np.float32)
-        return torch.tensor(a, device=device, dtype=dtype)
+        return _tensor(a, torch.float32 if f32 else cfg.parameter_dtype,
+                       device)
 
     shapes = T.param_shapes(cfg)
     layer_shapes = shapes.pop("layers")
@@ -119,10 +143,36 @@ def params_from_jax(tree, cfg, device="cuda") -> dict:
                 t = take(("tail", li - n_scan) + sub, shape)
             _set(layer, sub, t)
         out["layers"].append(layer)
-    unused = sorted("/".join(map(str, p)) for p in set(flat) - used)
-    if unused:
-        raise ValueError(f"reference leaves left unused: {unused}")
+    _check_all_used(flat, used)
     return out
+
+
+def _mlp_params_from_jax(tree, cfg: MLPConfig, device="cuda") -> dict:
+    """The reference's `init_dnn` tree ({"layers": ({"w": (d_in, d_out),
+    "b": (d_out,)}, ...)}, the port's layout too) as the port's params on
+    `device` in `cfg.parameter_dtype`; or a population of K such trees
+    stacked on a leading axis of every leaf (`jax.vmap(init_dnn)`'s), told
+    by the first weight's rank, kept stacked for `core.population`."""
+    flat = _flatten(tree)
+    first = ("layers", 0, "w")
+    if first not in flat:
+        raise _missing(first)
+    lead = tuple(flat[first].shape[:1]) if flat[first].ndim == 3 else ()
+    sizes = (cfg.n_features,) + tuple(cfg.hidden_sizes) + (cfg.n_classes,)
+    layers = []
+    for i in range(len(sizes) - 1):
+        layer = {}
+        for name, shape in (("w", (sizes[i], sizes[i + 1])),
+                            ("b", (sizes[i + 1],))):
+            path = ("layers", i, name)
+            if path not in flat:
+                raise _missing(path)
+            _check_shape(flat[path], path, lead + shape)
+            layer[name] = _tensor(flat[path], cfg.parameter_dtype, device)
+        layers.append(layer)
+    _check_all_used(flat, {("layers", i, n) for i in range(len(layers))
+                           for n in ("w", "b")})
+    return {"layers": tuple(layers)}
 
 
 def jax_layout(params, cfg) -> dict:

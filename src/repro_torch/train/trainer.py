@@ -48,10 +48,12 @@ def checkpoint_tree(params, opt_state, cfg=None) -> dict:
 
 
 def restore_train_state(ckpt_dir: str, step: int, params, opt_state,
-                        cfg=None, device="cpu"):
+                        cfg=None, device=None):
     """(params, opt_state) from a checkpoint written by `train_loop` or by
     the reference's, into the structure of the given ones (values ignored),
-    on `device`, each leaf in its stored dtype."""
+    each leaf in its stored dtype, on `device`; by default each leaf on
+    the device of its template leaf (params on the card restore onto the
+    card; AdamW's step counter stays on the CPU where `adamw` keeps it)."""
     tree = restore_checkpoint(ckpt_dir, step,
                               checkpoint_tree(params, opt_state, cfg),
                               device=device)

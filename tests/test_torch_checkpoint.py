@@ -81,6 +81,29 @@ def test_trainer_writes_checkpoints(tmp_path):
     assert len(log.losses) >= 2
 
 
+
+def test_restore_lands_on_the_template_devices(tmp_path):
+    """With no device given, each restored leaf goes where its template
+    leaf lives: params on another device (here `meta`) restore there, and
+    AdamW's step counter stays on the CPU where `adamw` keeps it. An
+    explicit device wins."""
+    from repro_torch.train.trainer import restore_train_state
+    params = {"w": torch.arange(6.0).reshape(2, 3), "b": torch.ones(3)}
+    opt_init, _ = adamw(1e-3)
+    save_checkpoint(str(tmp_path), 1, {"params": params,
+                                       "opt_state": opt_init(params)})
+    meta = tree_map(lambda t: t.to("meta"), params)
+    p, opt = restore_train_state(str(tmp_path), 1, meta, opt_init(meta))
+    assert {t.device.type for t in tree_flatten((p, opt.mu, opt.nu))[0]} \
+        == {"meta"}
+    assert opt.step.device.type == "cpu"
+    tree = restore_checkpoint(str(tmp_path), 1, {"params": meta})
+    assert {t.device.type for t in tree_flatten(tree)[0]} == {"meta"}
+    p, opt = restore_train_state(str(tmp_path), 1, meta, opt_init(meta),
+                                 device="cpu")
+    assert {t.device.type for t in tree_flatten((p, opt))[0]} == {"cpu"}
+    assert torch.equal(p["w"], params["w"])
+
 # ---- across the packages
 
 def _jax_trained_state(jcfg, jp):

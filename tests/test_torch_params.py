@@ -179,3 +179,51 @@ def test_bridge_carries_mamba2_and_keeps_its_f32_leaves(dtype):
     assert own["layers"][0]["mamba"]["A_log"].dtype == torch.float32
     assert own["layers"][0]["mamba"]["dt_bias"].dtype == torch.float32
     assert own["layers"][0]["mamba"]["in_proj"].dtype == pdt
+
+
+# ---- the paper's MLPs: one, or a population stacked on a leading axis
+
+def _mlp_tree(stacked):
+    from repro.configs.base import MLPConfig as JMLPConfig
+    from repro.models.dnn import init_dnn
+    jcfg = JMLPConfig(n_features=6, n_classes=3, hidden_sizes=(16, 8))
+    if stacked:
+        keys = jax.numpy.stack([jax.random.PRNGKey(s) for s in (0, 4, 9)])
+        tree = jax.vmap(lambda k: init_dnn(k, jcfg))(keys)
+    else:
+        tree = init_dnn(jax.random.PRNGKey(0), jcfg)
+    return jax.tree.map(np.asarray, tree)
+
+
+def _mlp_cfg():
+    from repro_torch.configs.base import MLPConfig
+    return MLPConfig(n_features=6, n_classes=3, hidden_sizes=(16, 8))
+
+
+@pytest.mark.parametrize("stacked", [False, True], ids=["one", "population"])
+def test_bridge_carries_an_mlp(stacked):
+    tree = _mlp_tree(stacked)
+    params = params_from_jax(tree, _mlp_cfg(), device="cpu")
+    assert isinstance(params["layers"], tuple) and len(params["layers"]) == 3
+    for lp, lj in zip(params["layers"], tree["layers"]):
+        assert set(lp) == {"w", "b"}
+        for k in ("w", "b"):
+            assert lp[k].dtype == torch.float32
+            np.testing.assert_array_equal(lp[k].numpy(), lj[k])
+
+
+@pytest.mark.parametrize("fault", ["missing", "shape", "extra", "members"])
+def test_bridge_refuses_a_bad_mlp_tree(fault):
+    tree = _mlp_tree(stacked=fault == "members")
+    layers = [dict(lp) for lp in tree["layers"]]
+    if fault == "missing":
+        del layers[1]["b"]
+    elif fault == "shape":
+        layers[2]["w"] = layers[2]["w"][:, :2]
+    elif fault == "extra":
+        layers.append({"w": np.zeros((3, 3), np.float32),
+                       "b": np.zeros(3, np.float32)})
+    else:                                       # member counts disagree
+        layers[1]["b"] = layers[1]["b"][:2]
+    with pytest.raises(ValueError):
+        params_from_jax({"layers": tuple(layers)}, _mlp_cfg(), device="cpu")

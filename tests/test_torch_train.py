@@ -32,7 +32,7 @@ from repro_torch.data.tokens import TokenStream  # noqa: E402
 from repro_torch.models import dnn as TD  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
-from repro_torch.params import jax_layout  # noqa: E402
+from repro_torch.params import jax_layout, params_from_jax  # noqa: E402
 from repro_torch.train.losses import lm_loss  # noqa: E402
 from repro_torch.train.step import (build_dnn_train_step,  # noqa: E402
                                     build_lm_train_step, value_and_grad)
@@ -228,7 +228,8 @@ def _mlp_batches(n=5, bs=16):
 def test_dnn_train_step_matches_reference():
     jcfg, tcfg = JaxMLPConfig(**MLP_KW), MLPConfig(**MLP_KW)
     jp = JD.init_dnn(jax.random.PRNGKey(0), jcfg)
-    params = tree_map(lambda a: torch.tensor(np.asarray(a)), jp)
+    params = params_from_jax(jax.tree.map(np.asarray, jp), tcfg,
+                             device="cpu")
     init, update = adamw(1e-2)
     jinit, jupdate = jax_adamw(1e-2)
     step = build_dnn_train_step(tcfg, update, TD.dnn_loss)

@@ -1,7 +1,8 @@
 """Training on the card: the four kernel wrappers refuse a backward on
 CUDA tensors (none has one, as none of the reference's Pallas kernels
-has), a train step on the card equals the same step on the CPU, and
-trained params serve on the card through the kernels.
+has), a train step on the card equals the same step on the CPU,
+trained params serve on the card through the kernels, and a restore into
+card params lands on the card.
 
 Skips cleanly where torch sees no CUDA device. Imports no JAX: the machine
 with the card has none. Run on the card with
@@ -9,7 +10,7 @@ with the card has none. Run on the card with
 """
 import pytest
 import torch
-from torch.utils._pytree import tree_map
+from torch.utils._pytree import tree_leaves, tree_map
 
 from repro_torch.configs import registry
 from repro_torch.data.tokens import TokenStream
@@ -123,3 +124,21 @@ def test_trained_params_serve_on_the_card(device):
             assert pa.paged_attention.launches > 0
         else:
             assert fa.flash_attention.launches == cfg.n_layers
+
+
+def test_a_restore_into_card_params_lands_on_the_card(device, tmp_path):
+    """With no device given, the restore follows the template's leaves."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.train.trainer import restore_train_state
+    cfg = registry.get("qwen3-1.7b", reduced=True)
+    params = T.init_lm(torch.Generator(device).manual_seed(0), cfg)
+    opt_init, _ = adamw(1e-3)
+    save_checkpoint(str(tmp_path), 1, {"params": params,
+                                       "opt_state": opt_init(params)})
+    template = T.init_lm(torch.Generator(device).manual_seed(1), cfg)
+    p, opt = restore_train_state(str(tmp_path), 1, template,
+                                 opt_init(template))
+    assert {t.device.type for t in tree_leaves((p, opt.mu, opt.nu))} \
+        == {"cuda"}
+    for a, b in zip(tree_leaves(p), tree_leaves(params)):
+        assert torch.equal(a, b)
