@@ -209,6 +209,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
    exit 0 with "0 failed" and its four artifacts (both planes: blocks and
    queued tasks), and `lm_train` on reduced qwen3-1.7b through a `Worker`
    on the card must give a finite loss and report the "cuda" backend.
+24. The MoE family, after phase 23: granite-moe-1b-a400m at full width and
+   depth (24 layers, d_model 1024, 16/8 heads, hd 64, 32 experts top-8,
+   expert d_ff 512, capacity factor 1.25, vocab 49155, tied) in bf16 on
+   phase 3's engine and request set (its own vocabulary): the paged kernel
+   must launch 24 x the decode dispatches; then `fused_tokens=8` (graph
+   replays, launches 24 x (8 x (replays + warm-up runs) + single
+   dispatches)); the dense layout with "pallas", whose flash kernel must
+   launch 24 x the bulk prefills; a profiled greedy batch-8 decode step
+   with the MoE FFNs' time at its shape on the card alone; and in f32 the
+   paged kernel against the dense-gather oracle in lockstep, as in phase
+   4. The MoE's expert products are batched matrix products, as the
+   reference's are einsums outside any Pallas kernel.
+25. granite-moe-3b-a800m at full width and depth (32 layers, d_model 1536,
+   24/8 heads, 40 experts top-8) in bf16: four requests on the paged path
+   (launches 32 x the decode dispatches), then fused (at least one graph
+   replay).
+26. The encoder-decoder: seamless-m4t-large-v2 at full width and depth
+   (24 encoder + 24 decoder layers, d_model 1024, 16/16 heads, d_ff 8192
+   ReLU, vocab 256206, tied) in bf16 with "pallas": `forward_prefill` on
+   two rows of 400 random encoder frames and a 64-token prompt, the caches
+   (cross K/V included) copied into a dense cache, then 16 greedy tokens
+   by `decode_step` over the cross caches. The flash kernel must launch 24
+   x per prefill (the decoder's self-attention: the encoder and the
+   cross-attention read densely, as the reference sends only causal
+   self-attention to its kernel) and nothing in the decode. Then in f32 at
+   full width, depth cut to 2 + 2 layers, "pallas" against "xla", the
+   "pallas" run fed the "xla" run's tokens: logits within 1e-3 at the
+   prefill and every step.
+27. The modality prefix: pixtral-12b at full width and depth (40 layers,
+   d_model 5120, 32/8 heads, hd 128, d_ff 14336, vocab 131072, untied) in
+   bf16 with "pallas": `forward_prefill` on 1,024 random patch embeddings
+   (a 512 x 512 image at 16-pixel patches) and 64 text tokens, then 16
+   greedy tokens from position 1,088; flash launches 40 per prefill. Then
+   the f32 check of phase 26 at depth 2.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; above it
 stand the card's name and power limit and one JSON line with each
@@ -217,6 +251,7 @@ kernel's also by path).
 """
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -2206,6 +2241,328 @@ def sweep_phase(device, card: str):
         f"steps; worker status {lm['status']}")
     log(f"  phase 23 took {time.perf_counter() - t_sweep:.1f} s")
 
+# ------------------------------------------------- the other families
+
+FAMILY_FRAMES = 400                # phase 26: encoder frames per row
+FAMILY_PROMPT = 64                 # phases 26-27: text tokens per row
+FAMILY_NEW = 16                    # phases 26-27: greedy tokens per row
+PIXTRAL_PATCHES = 1024             # phase 27: a 512 x 512 image, 16 px patches
+FAMILY_F32_LAYERS = 2              # phases 26-27's f32 checks: decoder depth
+MOE_PROFILE_BATCH = 8              # phase 24's profiled decode batch
+
+
+def family_config(arch: str, dtype: str, **kw):
+    from repro_torch.configs import get
+    return get(arch).replace(dtype=dtype, param_dtype=dtype, **kw)
+
+
+def moe_decode_ms(params, cfg, device, batch) -> float:
+    """Phase 24: the MoE FFNs of every layer on one decode step's input
+    shape ((batch, 1, d) random activations), on the card alone."""
+    from repro_torch.models import moe as MOE
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn((batch, 1, cfg.d_model), generator=gen, device=device,
+                    dtype=torch.float32).to(cfg.activation_dtype)
+    ffns = [lp["ffn"] for lp in params["layers"]]
+
+    def run():
+        for ffn in ffns:
+            MOE.moe_ffn(ffn, cfg, x)
+    return time_graph(run, iters=5)
+
+
+def family_batch(cfg, device, rows, prefix=0, frames=0, seed=SEED) -> dict:
+    """Phases 26-27's input: FAMILY_PROMPT random tokens a row, after
+    `prefix` random patch embeddings (pixtral's stub vision encoder) or
+    over `frames` random encoder frames (seamless' stub speech
+    frontend), drawn from a seeded CUDA generator."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows, FAMILY_PROMPT),
+                                     generator=gen, device=device,
+                                     dtype=torch.int32)}
+    for key, n in (("embeds", prefix), ("enc_embeds", frames)):
+        if n:
+            batch[key] = torch.randn((rows, n, cfg.d_model), generator=gen,
+                                     device=device).to(cfg.activation_dtype)
+    return batch
+
+
+def prefill_decode(params, cfg, batch, new_tokens, forced=None) -> dict:
+    """Phases 26-27's path: `forward_prefill` over `batch` (the tokens
+    after a prefix of embeds, or beside an encoder's frames), its caches
+    copied into a dense cache with room for `new_tokens` more (the cross
+    K/V with them), then greedy `decode_step`s; with `forced` (B,
+    new_tokens) those tokens are fed instead of the argmax (the f32
+    checks' lockstep). Every launch count is set to 0 just before and
+    read just after."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.step import prefill_into_cache
+    toks = batch["tokens"]
+    B, dev = toks.shape[0], toks.device
+    n = toks.shape[1] + (batch["embeds"].shape[1] if "embeds" in batch
+                         else 0)
+    enc_len = batch["enc_embeds"].shape[1] if "enc_embeds" in batch else 0
+    fns = counters()
+    torch.cuda.synchronize()
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits, nat = T.forward_prefill(params, cfg, batch)
+    cache = prefill_into_cache(cfg, nat, T.init_cache(
+        cfg, B, n + new_tokens, dev, enc_len=enc_len),
+        torch.full((B,), n, device=dev))
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = {k: fn.launches for k, fn in fns.items()}
+    rows = [logits[:, -1].float()]
+    tok = rows[0].argmax(-1) if forced is None else forced[:, 0]
+    out = [tok]
+    t0 = time.perf_counter()
+    for t in range(1, new_tokens):
+        pos = torch.full((B,), n + t - 1, dtype=torch.int32, device=dev)
+        lg, cache = T.decode_step(params, cfg, tok[:, None].to(torch.int32),
+                                  pos, cache)
+        rows.append(lg[:, 0].float())
+        tok = rows[-1].argmax(-1) if forced is None else forced[:, t]
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / max(new_tokens - 1, 1)
+    tokens = torch.stack(out, dim=1)
+    if not (all(bool(torch.isfinite(r).all()) for r in rows)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"{cfg.arch_id}: non-finite logits")
+    if int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.arch_id}: token out of the vocabulary")
+    return {"prefill_logits": logits.float(), "rows": rows, "tokens": tokens,
+            "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+            "prefill_launches": prefill_launches,
+            "launches": {k: fn.launches for k, fn in fns.items()}}
+
+
+def check_prefill_launches(run: dict, cfg):
+    """The flash kernel once per decoder layer in the prefill (the
+    encoder and the cross-attention stay on the dense path, as in the
+    reference), nothing else, and nothing in the decode steps."""
+    want = {k: 0 for k in run["launches"]}
+    want["flash_attention"] = cfg.n_layers
+    if run["prefill_launches"] != want or run["launches"] != want:
+        raise AssertionError(f"{cfg.arch_id}: prefill launches "
+                             f"{run['prefill_launches']}, after the decode "
+                             f"{run['launches']}; expected {want}")
+
+
+def f32_pallas_vs_xla(cfg32, device, batch) -> dict:
+    """Phases 26-27's f32 check (TF32 off): the same inputs through
+    "pallas" (the flash kernel in the prefill) and "xla", the "pallas"
+    run fed the "xla" run's greedy tokens: every logits row within
+    LOGIT_TOL, and a greedy token may differ only where the "xla" run's
+    top-2 gap is below LOGIT_TOL."""
+    params = make_model(cfg32, device)
+    ref = prefill_decode(params, cfg32.replace(attention_impl="xla"), batch,
+                         FAMILY_NEW)
+    got = prefill_decode(params, cfg32.replace(attention_impl="pallas"),
+                         batch, FAMILY_NEW, forced=ref["tokens"])
+    check_prefill_launches(got, cfg32)
+    d_pre = (got["prefill_logits"] - ref["prefill_logits"]).abs().max().item()
+    d_dec = max((a - b).abs().max().item()
+                for a, b in zip(got["rows"], ref["rows"]))
+    if max(d_pre, d_dec) > LOGIT_TOL:
+        raise AssertionError(f"{cfg32.arch_id} f32: |logit diff| prefill "
+                             f"{d_pre}, decode {d_dec} > {LOGIT_TOL}")
+    flips = []
+    for t, (a, b) in enumerate(zip(got["rows"], ref["rows"])):
+        for row in torch.nonzero(a.argmax(-1) != b.argmax(-1)).flatten():
+            top2 = torch.topk(b[row], 2).values
+            gap = (top2[0] - top2[1]).item()
+            if gap >= LOGIT_TOL:
+                raise AssertionError(f"{cfg32.arch_id} f32: step {t} row "
+                                     f"{int(row)}: greedy tokens differ with "
+                                     f"top-2 gap {gap}")
+            flips.append((t, int(row), gap))
+    return {"prefill": d_pre, "decode": d_dec, "flips": flips,
+            "steps": len(got["rows"])}
+
+
+def log_family_run(run: dict, rows: int):
+    log(f"  prefill {run['prefill_ms']:.3f} ms ({rows} rows, the cache copy "
+        f"included), decode step {run['decode_step_ms']:.3f} ms mean over "
+        f"{len(run['rows']) - 1} steps; launches {run['launches']}")
+
+
+def log_f32(c: dict, cfg32):
+    log(f"  {cfg32.arch_id} f32 at depth {cfg32.n_layers}: max |logit diff| "
+        f"prefill {c['prefill']:.3g}, decode {c['decode']:.3g} over "
+        f"{c['steps']} steps (tol {LOGIT_TOL}); greedy flips {c['flips']}")
+
+
+def granite_phase(device) -> dict:
+    """Phase 24: granite-moe-1b-a400m at full width and depth, bf16, on
+    the paged path (single, fused) and the dense "pallas" path, profiled,
+    then the f32 paged kernel against the dense-gather oracle."""
+    cfg = family_config("granite-moe-1b-a400m", "bfloat16")
+    params = make_model(cfg, device)
+    log(f"  {numel(params) / 1e9:.3f} B parameters ({cfg.moe.n_experts} "
+        f"experts top-{cfg.moe.top_k}, expert d_ff {cfg.moe.expert_d_ff}, "
+        f"capacity factor {cfg.moe.capacity_factor})")
+    eng = make_engine(params, cfg, device, "cuda")
+    warm = make_requests(cfg, n=4, new_tokens=4, seed=SEED + 1)
+    for p, s, n in warm:
+        eng.submit(p, max_new_tokens=n, sampling=s)
+    eng.run()
+    eng.reset()
+    eng.step_times.clear()
+    requests = make_requests(cfg)
+    served = serve(eng, requests)
+    log(f"  {served['requests']} requests, {served['decode_dispatches']} "
+        f"decode dispatches, {served['launches']} paged kernel launches "
+        f"(= {cfg.n_layers} x decode dispatches), cache hits "
+        f"{served['cache']['hits']}, CoW copies "
+        f"{served['cache']['cow_copies']}")
+    log(f"  decode step {served['decode_step_ms_mean']:.3f} ms mean, "
+        f"{served['decode_tokens_per_s']:.1f} decode tokens/s, prefill "
+        f"{served['prefill_ms_mean']:.3f} ms mean, "
+        f"{served['tokens_per_s']:.1f} tokens/s end to end over "
+        f"{served['wall_s']:.3f} s")
+    closures = eng._decode_tok, eng._prefill_tok
+    finite_round(eng, requests[:8])
+    eng._decode_tok, eng._prefill_tok = closures
+    log(f"[24] where a greedy batch-{MOE_PROFILE_BATCH} decode step's time "
+        "goes (bf16)")
+    prof = profile_decode(eng, requests)
+    log_profile(prof)
+    log_share(prof, "paged_attention", "step")
+    moe_ms = moe_decode_ms(params, cfg, device, MOE_PROFILE_BATCH)
+    share = (f"{100 * moe_ms / prof['device_ms']:.1f}% of the step's device "
+             "busy time" if prof["busy_share"] is not None
+             else "the step's device time not measured")
+    log(f"  the MoE FFNs of all {cfg.n_layers} layers at the step's shape "
+        f"(batch {MOE_PROFILE_BATCH}, one token a row): {moe_ms:.4f} ms on "
+        f"the card alone, {share}")
+    del eng
+
+    log(f"[24] fused decode, fused_tokens={FUSED_TOKENS} (bf16)")
+    eng = make_variant(params, cfg, device, fused_tokens=FUSED_TOKENS)
+    fused = serve_variant(eng, requests)
+    log_variant(fused)
+    if fused["replays"] < 1:
+        raise AssertionError("granite: no fused dispatch replayed a graph")
+    del eng
+
+    log("[24] the dense layout, attention_impl='pallas' (bulk prefill "
+        "through the flash kernel, bf16)")
+    eng = make_dense_engine(params, cfg.replace(attention_impl="pallas"),
+                            device, 8, 512)
+    for p, s, n in warm:
+        eng.submit(p, max_new_tokens=n, sampling=s)
+    eng.run()
+    eng.reset()
+    eng.step_times.clear()
+    dense = serve_dense(eng, requests, {"flash_attention": cfg.n_layers})
+    log_served(dense)
+    finite_round(eng, requests[:8])
+    del eng, params
+    torch.cuda.empty_cache()
+
+    log("[24] the paged kernel against the dense-gather oracle, f32 (TF32 "
+        "off)")
+    cfg32 = family_config("granite-moe-1b-a400m", "float32")
+    params32 = make_model(cfg32, device)
+    oracle = compare_to_oracle(params32, cfg32, device,
+                               make_requests(cfg32, n=8, new_tokens=16))
+    log_lockstep(oracle)
+    del params32
+    torch.cuda.empty_cache()
+    return {"served": served, "fused": fused, "dense": dense,
+            "profile": prof, "moe_ms": moe_ms, "oracle": oracle}
+
+
+def granite3b_phase(device) -> dict:
+    """Phase 25: granite-moe-3b-a800m at full width and depth, bf16, four
+    requests on the paged path, single steps then fused."""
+    cfg = family_config("granite-moe-3b-a800m", "bfloat16")
+    params = make_model(cfg, device)
+    log(f"  {numel(params) / 1e9:.3f} B parameters ({cfg.moe.n_experts} "
+        f"experts top-{cfg.moe.top_k})")
+    eng = make_engine(params, cfg, device, "cuda")
+    for p, s, n in make_requests(cfg, n=2, new_tokens=4, seed=SEED + 1):
+        eng.submit(p, max_new_tokens=n, sampling=s)
+    eng.run()
+    eng.reset()
+    eng.step_times.clear()
+    requests = make_requests(cfg, n=4)
+    served = serve(eng, requests)
+    log(f"  {served['requests']} requests, {served['decode_dispatches']} "
+        f"decode dispatches, {served['launches']} paged kernel launches "
+        f"(= {cfg.n_layers} x decode dispatches); decode step "
+        f"{served['decode_step_ms_mean']:.3f} ms mean, prefill "
+        f"{served['prefill_ms_mean']:.3f} ms mean")
+    del eng
+    log(f"[25] fused decode, fused_tokens={FUSED_TOKENS} (bf16, greedy)")
+    eng = make_variant(params, cfg, device, fused_tokens=FUSED_TOKENS)
+    fused = serve_variant(eng, greedy(requests))
+    log_variant(fused)
+    if fused["replays"] < 1:
+        raise AssertionError("granite-3b: no fused dispatch replayed a graph")
+    del eng, params
+    torch.cuda.empty_cache()
+    return {"served": served, "fused": fused}
+
+
+def stub_input_phase(device, arch: str, rows: int, **stub) -> dict:
+    """Phases 26-27: `arch` at full width and depth, bf16, "pallas", on
+    `rows` rows of FAMILY_PROMPT tokens with its stub input (`frames=`
+    encoder frames or a `prefix=` of patch embeddings), FAMILY_NEW greedy
+    tokens; then the f32 check with the decoder (and an encoder) cut to
+    FAMILY_F32_LAYERS layers."""
+    cfg = family_config(arch, "bfloat16", attention_impl="pallas")
+    t0 = time.perf_counter()
+    params = make_model(cfg, device)
+    log(f"  {numel(params) / 1e9:.3f} B parameters ({cfg.n_enc_layers} "
+        f"encoder + {cfg.n_layers} decoder layers) made in "
+        f"{time.perf_counter() - t0:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    batch = family_batch(cfg, device, rows, **stub)
+    prefill_decode(params, cfg, batch, 2)            # first calls
+    run = prefill_decode(params, cfg, batch, FAMILY_NEW)
+    check_prefill_launches(run, cfg)
+    log_family_run(run, rows)
+    del params
+    torch.cuda.empty_cache()
+    cut = {"n_layers": FAMILY_F32_LAYERS}
+    if cfg.is_encdec:
+        cut["n_enc_layers"] = FAMILY_F32_LAYERS
+    cfg32 = family_config(arch, "float32", **cut)
+    f32 = f32_pallas_vs_xla(cfg32, device,
+                            family_batch(cfg32, device, rows, **stub))
+    log_f32(f32, cfg32)
+    torch.cuda.empty_cache()
+    return {"run": run, "f32": f32}
+
+
+def family_phases(device, card: str) -> dict:
+    """Phases 24-27, logged as they run; each raises on a failed check."""
+    t_fam = time.perf_counter()
+    log(f"[24] granite-moe-1b-a400m at full width, paged, bf16; card: {card}")
+    granite = granite_phase(device)
+    log("[25] granite-moe-3b-a800m at full width, paged, bf16")
+    granite3b = granite3b_phase(device)
+    log(f"[26] seamless-m4t-large-v2 at full width, bf16, 'pallas': "
+        f"{FAMILY_FRAMES} encoder frames and a {FAMILY_PROMPT}-token prompt "
+        f"a row, {FAMILY_NEW} greedy tokens")
+    encdec = stub_input_phase(device, "seamless-m4t-large-v2", 2,
+                              frames=FAMILY_FRAMES)
+    log(f"[27] pixtral-12b at full width, bf16, 'pallas': {PIXTRAL_PATCHES} "
+        f"patch embeddings and a {FAMILY_PROMPT}-token prompt, {FAMILY_NEW} "
+        f"greedy tokens from position {PIXTRAL_PATCHES + FAMILY_PROMPT}")
+    gc.collect()                   # what earlier phases left in cycles
+    torch.cuda.empty_cache()
+    prefix = stub_input_phase(device, "pixtral-12b", 1,
+                              prefix=PIXTRAL_PATCHES)
+    log(f"  phases 24-27 took {time.perf_counter() - t_fam:.1f} s")
+    return {"granite": granite, "granite3b": granite3b, "encdec": encdec,
+            "prefix": prefix}
+
+
 # ----------------------------------------------------------------- main
 
 def main(device: str = "cuda") -> int:
@@ -2623,6 +2980,13 @@ def main(device: str = "cuda") -> int:
 
     train_phases(device, card)
     sweep_phase(device, card)
+    fam = family_phases(device, card)
+    g1, g3 = fam["granite"], fam["granite3b"]
+    fam_flash = {"granite_dense": g1["dense"]["launches"]["flash_attention"],
+                 "seamless": fam["encdec"]["run"]["launches"][
+                     "flash_attention"],
+                 "pixtral": fam["prefix"]["run"]["launches"][
+                     "flash_attention"]}
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",
@@ -2635,7 +2999,11 @@ def main(device: str = "cuda") -> int:
                              "speculative": spec["launches"],
                              "chunked": chunked["launches"],
                              "gateway": gw_sync["launches"],
-                             "gateway_async": gw_async["launches"]},
+                             "gateway_async": gw_async["launches"],
+                             "granite_1b": g1["served"]["launches"],
+                             "granite_1b_fused": g1["fused"]["launches"],
+                             "granite_3b": g3["served"]["launches"],
+                             "granite_3b_fused": g3["fused"]["launches"]},
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
@@ -2646,7 +3014,12 @@ def main(device: str = "cuda") -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
         "launches": (dense_q["launches"]["flash_attention"]
-                     + dense_r["launches"]["flash_attention"]),
+                     + dense_r["launches"]["flash_attention"]
+                     + sum(fam_flash.values())),
+        "launches_by_path": {
+            "qwen3_dense": dense_q["launches"]["flash_attention"],
+            "recurrentgemma": dense_r["launches"]["flash_attention"],
+            **fam_flash},
         "max_abs_err": flash_errs[torch.bfloat16],
         "ms": flash_main["ms"], "plain_ms": flash_main["plain_ms"],
         "bound_ms": flash_main["bound_ms"],
@@ -2689,11 +3062,15 @@ def main(device: str = "cuda") -> int:
         f"({chunked['dispatches'].get('mixed', 0)} mixed + "
         f"{chunked['dispatches'].get('decode', 0)} single dispatches); "
         f"through the gateway {gw_sync['launches']} (2 replicas, single "
-        f"steps), with async workers {gw_async['launches']} (fused, a crash)")
+        f"steps), with async workers {gw_async['launches']} (fused, a crash)"
+        f"; granite-moe-1b {g1['served']['launches']} (single), "
+        f"{g1['fused']['launches']} (fused), granite-moe-3b "
+        f"{g3['served']['launches']} (single), {g3['fused']['launches']} "
+        "(fused)")
     log(f"kernels: flash_attention launches="
         f"{kernels[1]['launches']} (qwen3 {dense_q['prefills']} prefills x "
         f"{cfg.n_layers} layers + recurrentgemma {dense_r['prefills']} "
-        f"prefills x {n_attn} layers); f32 max abs err "
+        f"prefills x {n_attn} layers + {fam_flash}); f32 max abs err "
         f"{flash_errs[torch.float32]:.3g}, bf16 "
         f"{flash_errs[torch.bfloat16]:.3g}")
     log(f"kernels: rglru_scan launches={kernels[2]['launches']} "

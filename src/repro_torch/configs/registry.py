@@ -1,13 +1,12 @@
 """Config registry: --arch <id> -> ModelConfig, full or reduced.
 
-The port registers the pure-attention decoder archs, the RG-LRU hybrid
-(recurrentgemma-9b) and Mamba2 (mamba2-130m), the families its models
-run, and granite-moe-1b-a400m, whose MoE FFN is not ported yet: its
-models raise NotImplementedError (`transformer._check_ported`), so a sweep
-task on it fails forward with that error. The other MoE, enc-dec and
-modality-prefix archs wait for their own slices (ROADMAP.md Queue 1).
-`reduce_config` is the reference's, so a reduced config here equals the
-reduced config there field for field (the parity tests rely on it).
+The port registers the reference's ten archs: the pure-attention
+decoders, the MoE decoders (granite-moe-*), the RG-LRU hybrid
+(recurrentgemma-9b), Mamba2 (mamba2-130m), the encoder-decoder
+(seamless-m4t-large-v2) and the modality-prefix decoder (pixtral-12b), so
+`ARCH_IDS` equals the reference's. `reduce_config` is the reference's, so
+a reduced config here equals the reduced config there field for field
+(the parity tests rely on it).
 """
 from __future__ import annotations
 
@@ -17,15 +16,19 @@ from typing import Dict
 from repro_torch.configs.base import ModelConfig
 
 from repro_torch.configs.granite_moe_1b_a400m import CONFIG as _granite1b
+from repro_torch.configs.granite_moe_3b_a800m import CONFIG as _granite3b
 from repro_torch.configs.mamba2_130m import CONFIG as _mamba2
 from repro_torch.configs.mistral_nemo_12b import CONFIG as _nemo
+from repro_torch.configs.pixtral_12b import CONFIG as _pixtral
 from repro_torch.configs.qwen3_1_7b import CONFIG as _qwen17b
 from repro_torch.configs.qwen3_4b import CONFIG as _qwen4b
 from repro_torch.configs.recurrentgemma_9b import CONFIG as _rgemma
+from repro_torch.configs.seamless_m4t_large_v2 import CONFIG as _seamless
 from repro_torch.configs.starcoder2_7b import CONFIG as _starcoder2
 
 REGISTRY: Dict[str, ModelConfig] = {c.arch_id: c for c in [
-    _granite1b, _mamba2, _nemo, _qwen17b, _qwen4b, _rgemma, _starcoder2,
+    _granite1b, _granite3b, _mamba2, _nemo, _pixtral, _qwen17b, _qwen4b,
+    _rgemma, _seamless, _starcoder2,
 ]}
 
 ARCH_IDS = sorted(REGISTRY)

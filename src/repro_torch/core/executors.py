@@ -148,6 +148,7 @@ def dnn_train(payload: Dict[str, Any], context: Dict[str, Any]):
 def lm_train(payload: Dict[str, Any], context: Dict[str, Any]):
     """Train a reduced LM-zoo config for a few steps on synthetic tokens."""
     from repro_torch.configs import registry as cfg_registry
+    from repro_torch.launch.train import stub_inputs
     from repro_torch.models import transformer as T
     from repro_torch.train.step import build_lm_train_step
 
@@ -162,26 +163,15 @@ def lm_train(payload: Dict[str, Any], context: Dict[str, Any]):
     opt_state = opt_init(params)
     step = build_lm_train_step(cfg, opt_update)
     stream = tokens.TokenStream(cfg.vocab_size, seq, bs, seed=seed)
+    stubs = stub_inputs(cfg, bs, seq, device)
     t0 = time.perf_counter()
     losses = []
     for i, batch in zip(range(steps), stream):
         b = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-        b = _attach_stub_inputs(cfg, b, bs, seq)
+        b.update(stubs)
         params, opt_state, m = step(params, opt_state, b)
         losses.append(m["loss"])
     losses = [float(x) for x in losses]
     return {"final_loss": losses[-1], "first_loss": losses[0],
             "train_time": time.perf_counter() - t0, "steps": steps}
 
-
-def _attach_stub_inputs(cfg, batch, bs, seq):
-    device = batch["tokens"].device
-    if cfg.is_encdec:
-        batch["enc_embeds"] = torch.zeros(
-            (bs, max(seq // 2, 4), cfg.d_model),
-            dtype=cfg.activation_dtype, device=device)
-    elif cfg.embed_stub:
-        batch["embeds"] = torch.zeros(
-            (bs, max(seq // 4, 2), cfg.d_model),
-            dtype=cfg.activation_dtype, device=device)
-    return batch

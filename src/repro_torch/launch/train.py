@@ -7,8 +7,9 @@ output lines, run as `python -m repro_torch.launch.train`. It trains on
 `torch.Generator` seeded with --seed; the reference draws
 `jax.random.PRNGKey(seed)`), with AdamW under a warmup-cosine schedule on
 the synthetic `TokenStream`. Checkpoints (`--ckpt-dir`) are written in the
-reference's layout. Encoder-decoder and modality-prefix archs, which need
-the reference's stub inputs, are not ported.
+reference's layout. Encoder-decoder and modality-prefix archs train on
+the reference's stub inputs (`stub_inputs`: zero encoder frames or a zero
+prefix).
 """
 from __future__ import annotations
 
@@ -23,6 +24,18 @@ from repro_torch.optim import adamw
 from repro_torch.optim.schedules import linear_warmup_cosine
 from repro_torch.train.step import build_lm_train_step
 from repro_torch.train.trainer import train_loop
+
+
+def stub_inputs(cfg, bs, seq, device):
+    out = {}
+    if cfg.is_encdec:
+        out["enc_embeds"] = torch.zeros((bs, max(seq // 2, 4), cfg.d_model),
+                                        dtype=cfg.activation_dtype,
+                                        device=device)
+    elif cfg.embed_stub:
+        out["embeds"] = torch.zeros((bs, max(seq // 4, 2), cfg.d_model),
+                                    dtype=cfg.activation_dtype, device=device)
+    return out
 
 
 def main(argv=None):
@@ -54,11 +67,12 @@ def main(argv=None):
     step = build_lm_train_step(cfg, opt_update,
                                microbatches=args.microbatches)
     stream = TokenStream(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
+    stubs = stub_inputs(cfg, args.batch, args.seq, device)
 
     def data():
         for b in stream:
-            yield {k: torch.as_tensor(v, device=device)
-                   for k, v in b.items()}
+            yield {**{k: torch.as_tensor(v, device=device)
+                      for k, v in b.items()}, **stubs}
 
     params, opt_state, log = train_loop(
         step, params, opt_state, data(),

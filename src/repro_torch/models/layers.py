@@ -195,7 +195,7 @@ def attention(params, cfg, x, positions, *, kv=None, kv_positions=None,
 
 
 def attention_decode(params, cfg, x, pos, cache_k, cache_v, cache_pos, *,
-                     window=None, rope=True, rows=None):
+                     window=None, rope=True, rows=None, cross=False):
     """Single-token decode over a dense (ring) KV cache.
 
     x: (B, 1, d); pos: (B,) int32 absolute position of the new token;
@@ -209,24 +209,33 @@ def attention_decode(params, cfg, x, pos, cache_k, cache_v, cache_pos, *,
     left out keep their cache untouched, and their output is garbage the
     caller ignores. The read masks empty slots, positions after `pos` and,
     with a window, positions at or before pos - window; masked logits take
-    finfo(f32).min, as in the reference.
+    finfo(f32).min, as in the reference. Cross-attention (`cross`) reads
+    the cache only: nothing is written, and only empty slots are masked.
     """
     B = x.shape[0]
     hd, nh, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     Sc = cache_k.shape[1]
-    q, k_new, v_new = _project_qkv(params, cfg, x, x)
-    if rope:
-        q = apply_rope(q, pos[:, None], cfg.rope_theta)
-        k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
-    if rows is None:
-        rows = torch.arange(B, device=x.device)
-    slot = (pos[rows] % Sc).long()
-    cache_k.index_put_((rows, slot), k_new[rows, 0])
-    cache_v.index_put_((rows, slot), v_new[rows, 0])
-    cache_pos.index_put_((rows, slot), pos[rows].to(cache_pos.dtype))
-    valid = (cache_pos >= 0) & (cache_pos <= pos[:, None])
-    if window is not None:
-        valid &= cache_pos > (pos[:, None] - window)
+    if cross:
+        q = (x @ params["wq"]).reshape(B, 1, nh, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, params["q_norm"]["scale"], cfg.norm_eps)
+        if rope:
+            q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        valid = cache_pos >= 0
+    else:
+        q, k_new, v_new = _project_qkv(params, cfg, x, x)
+        if rope:
+            q = apply_rope(q, pos[:, None], cfg.rope_theta)
+            k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+        if rows is None:
+            rows = torch.arange(B, device=x.device)
+        slot = (pos[rows] % Sc).long()
+        cache_k.index_put_((rows, slot), k_new[rows, 0])
+        cache_v.index_put_((rows, slot), v_new[rows, 0])
+        cache_pos.index_put_((rows, slot), pos[rows].to(cache_pos.dtype))
+        valid = (cache_pos >= 0) & (cache_pos <= pos[:, None])
+        if window is not None:
+            valid &= cache_pos > (pos[:, None] - window)
     rep = nh // nkv
     qr = q.reshape(B, nkv, rep, hd)
     logits = torch.einsum("bkrh,bskh->bkrs", qr.float(),

@@ -1,6 +1,9 @@
-"""Decoder LM over a dense (ring) or paged KV cache: the serving half of
-`repro.models.transformer` for the pure-attention decoders, the RG-LRU
-hybrid (recurrentgemma) and Mamba2 (attention-free SSM stacks).
+"""Decoder and encoder-decoder LM over a dense (ring) or paged KV cache:
+the port of `repro.models.transformer` for every family the reference
+runs: the pure-attention decoders (dense or MoE FFN), the RG-LRU hybrid
+(recurrentgemma), Mamba2 (attention-free SSM stacks), the encoder-decoder
+with cross-attention (seamless-m4t) and the decoder with a modality
+prefix (pixtral).
 
 The reference stacks block parameters on a leading n_blocks axis and runs
 them with `lax.scan`, then the unstacked tail layers. The port keeps one
@@ -12,7 +15,7 @@ Entry points:
     init_lm(gen, cfg)                                     -> params
     forward_train(params, cfg, batch, window=None)        -> (logits, aux)
     forward_prefill(params, cfg, batch, window=None)      -> (logits, caches)
-    init_cache(cfg, batch_size, cache_len, device)        -> cache
+    init_cache(cfg, batch_size, cache_len, device, enc_len=0) -> cache
     decode_step(params, cfg, tokens, pos, cache, window=None, rows=None)
                                                           -> (logits, cache)
     init_paged_cache(cfg, n_pool_blocks, block_size, device) -> cache
@@ -27,14 +30,26 @@ Entry points:
                                                           -> (logits, cache)
     copy_pool_blocks(cache, src_ids, dst_ids)             -> cache
 
+Batch dict keys, as in the reference: "tokens" (B, S) int; optional
+"embeds" (B, P, d), a modality prefix that comes before the tokens
+(positions run 0..P+S-1 over both; the prefix rows are dropped from the
+logits); optional "enc_embeds" (B, Se, d), the encoder's input for
+encoder-decoder models.
+
 Params: {"embed": {"table"}, "layers": [per-layer dict], "final_norm":
-{"scale"}, and "lm_head" when embeddings are untied}. An attention layer
-dict is {"norm1", "attn", "norm2", "ffn"}, an RG-LRU layer dict {"norm1",
-"rglru", "norm2", "ffn"}, a Mamba2 layer dict {"norm1", "mamba"} (no FFN,
-as in the reference), with the reference's leaf names.
+{"scale"}, "lm_head" when embeddings are untied, and "encoder":
+{"layers": [per-layer dict], "final_norm"} for encoder-decoder models}.
+An attention layer dict is {"norm1", "attn", "norm2", "ffn"} plus
+{"norm_cross", "cross_attn"} in an encoder-decoder's decoder, an RG-LRU
+layer dict {"norm1", "rglru", "norm2", "ffn"}, a Mamba2 layer dict
+{"norm1", "mamba"} (no FFN, as in the reference), with the reference's
+leaf names. An MoE FFN is {"router" (d, E), "w_gate", "w_up" (Ep, d, ff),
+"w_down" (Ep, ff, d)} (`models/moe.py`).
 
 Caches are lists with one dict per layer, updated in place. Dense: {"k",
 "v": (B, Sc, nkv, hd), "pos": (B, Sc) int32, -1 = empty} for attention,
+plus {"cross_k", "cross_v": (B, Se, nkv, hd), "cross_pos": (B, Se)} in an
+encoder-decoder (written once by the prefill, read by every decode step),
 {"h": (B, w) f32, "conv": (B, d_conv-1, w)} for RG-LRU, {"ssm": (B, nh,
 hd, d_state) f32, "conv": (B, d_conv-1, conv_dim)} for Mamba2. Paged:
 {"k", "v"} pools of (P, bs, nkv, hd) per attention layer.
@@ -46,6 +61,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
+from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 
 
@@ -55,17 +71,6 @@ def paged_supported(cfg) -> bool:
     capture, and enc-dec adds cross caches the block table doesn't model."""
     return (not cfg.is_encdec
             and all(t == "attn" for t in cfg.layer_types()))
-
-
-def _check_ported(cfg):
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: encoder-decoder cross-attention is not ported "
-            "yet (ROADMAP.md Queue 1, 'The other families')")
-    if cfg.moe is not None or cfg.embed_stub:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: MoE FFNs and modality-prefix embeds are not "
-            "ported yet (ROADMAP.md Queue 1, 'The other families')")
 
 
 def _attn_shapes(cfg) -> dict:
@@ -79,34 +84,44 @@ def _attn_shapes(cfg) -> dict:
     return attn
 
 
-def param_shapes(cfg) -> dict:
-    """The shape of every parameter, in the port's layout (the weight
-    bridge checks the reference's leaves against it)."""
-    _check_ported(cfg)
-    d, ff, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab_size
-    ffn = {"w_up": (d, ff), "w_down": (ff, d)}
-    if cfg.mlp_gated:
-        ffn["w_gate"] = (d, ff)
-    mixer = {"attn": ("attn", _attn_shapes(cfg))}
-    if cfg.rglru is not None:
-        mixer["rglru"] = ("rglru", RG.param_shapes(cfg))
-    layers = []
-    for t in cfg.layer_types():
-        if t == "ssm":
-            layers.append({"norm1": {"scale": (d,)},
-                           "mamba": M2.param_shapes(cfg)})
-            continue
-        name, shapes = mixer[t]
-        layers.append({"norm1": {"scale": (d,)}, name: shapes,
-                       "norm2": {"scale": (d,)}, "ffn": ffn})
-    out = {"embed": {"table": (V, d)}, "layers": layers,
-           "final_norm": {"scale": (d,)}}
-    if not cfg.tie_embeddings:
-        out["lm_head"] = (d, V)
+def _layer_shapes(cfg, ltype: str, with_cross: bool = False) -> dict:
+    d = cfg.d_model
+    if ltype == "ssm":
+        return {"norm1": {"scale": (d,)}, "mamba": M2.param_shapes(cfg)}
+    if cfg.moe:
+        ffn = MOE.param_shapes(cfg)
+    else:
+        ffn = {"w_up": (d, cfg.d_ff), "w_down": (cfg.d_ff, d)}
+        if cfg.mlp_gated:
+            ffn["w_gate"] = (d, cfg.d_ff)
+    mixer = (_attn_shapes(cfg) if ltype == "attn"
+             else RG.param_shapes(cfg))
+    out = {"norm1": {"scale": (d,)}, ltype: mixer,
+           "norm2": {"scale": (d,)}, "ffn": ffn}
+    if ltype == "attn" and with_cross:
+        out["norm_cross"] = {"scale": (d,)}
+        out["cross_attn"] = _attn_shapes(cfg)
     return out
 
 
-def _init_layer(gen, cfg, ltype: str):
+def param_shapes(cfg) -> dict:
+    """The shape of every parameter, in the port's layout (the weight
+    bridge checks the reference's leaves against it)."""
+    d, V = cfg.d_model, cfg.padded_vocab_size
+    out = {"embed": {"table": (V, d)},
+           "layers": [_layer_shapes(cfg, t, cfg.is_encdec)
+                      for t in cfg.layer_types()],
+           "final_norm": {"scale": (d,)}}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (d, V)
+    if cfg.is_encdec:
+        out["encoder"] = {"layers": [_layer_shapes(cfg, "attn")
+                                     for _ in range(cfg.n_enc_layers)],
+                          "final_norm": {"scale": (d,)}}
+    return out
+
+
+def _init_layer(gen, cfg, ltype: str, with_cross: bool = False):
     pdt, d = cfg.parameter_dtype, cfg.d_model
     if ltype == "ssm":
         return {"norm1": L.init_rms_norm(d, pdt, gen.device),
@@ -115,35 +130,48 @@ def _init_layer(gen, cfg, ltype: str):
         name, mixer = "attn", L.init_attention(gen, cfg)
     else:
         name, mixer = "rglru", RG.init_rglru_block(gen, cfg)
-    return {"norm1": L.init_rms_norm(d, pdt, gen.device),
-            name: mixer,
-            "norm2": L.init_rms_norm(d, pdt, gen.device),
-            "ffn": L.init_mlp(gen, d, cfg.d_ff, pdt, cfg.mlp_gated)}
+    p = {"norm1": L.init_rms_norm(d, pdt, gen.device),
+         name: mixer,
+         "norm2": L.init_rms_norm(d, pdt, gen.device),
+         "ffn": (MOE.init_moe(gen, cfg) if cfg.moe
+                 else L.init_mlp(gen, d, cfg.d_ff, pdt, cfg.mlp_gated))}
+    if ltype == "attn" and with_cross:
+        p["norm_cross"] = L.init_rms_norm(d, pdt, gen.device)
+        p["cross_attn"] = L.init_attention(gen, cfg)
+    return p
 
 
 def init_lm(gen: torch.Generator, cfg) -> dict:
     """Random weights with the reference's distributions (uniform
-    +-1/sqrt(d_in) matrices, N(0, 0.02^2) embedding, zero norm scales, the
-    RG-LRU's Lambda from a^c in [0.9, 0.999], Mamba2's A_log = log(1..nh)
-    and dt_bias spanning [dt_min, dt_max]), drawn from `gen` on
-    `gen.device`. The draws differ from the reference's `jax.random` bits;
-    parity tests bridge the reference's weights instead
-    (`params.params_from_jax`)."""
-    _check_ported(cfg)
+    +-1/sqrt(d_in) matrices, the MoE router at +-0.02, N(0, 0.02^2)
+    embedding, zero norm scales, the RG-LRU's Lambda from a^c in [0.9,
+    0.999], Mamba2's A_log = log(1..nh) and dt_bias spanning [dt_min,
+    dt_max]), drawn from `gen` on `gen.device`. The draws differ from the
+    reference's `jax.random` bits; parity tests bridge the reference's
+    weights instead (`params.params_from_jax`)."""
     pdt = cfg.parameter_dtype
     params = {"embed": L.init_embedding(gen, cfg.padded_vocab_size,
                                         cfg.d_model, pdt),
-              "layers": [_init_layer(gen, cfg, t)
+              "layers": [_init_layer(gen, cfg, t, cfg.is_encdec)
                          for t in cfg.layer_types()],
               "final_norm": L.init_rms_norm(cfg.d_model, pdt, gen.device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, cfg.d_model,
                                          cfg.padded_vocab_size, pdt)
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "layers": [_init_layer(gen, cfg, "attn")
+                       for _ in range(cfg.n_enc_layers)],
+            "final_norm": L.init_rms_norm(cfg.d_model, pdt, gen.device)}
     return params
 
 
-def _ffn_apply(lp, cfg, h):
-    return L.mlp(lp["ffn"], h, cfg.act)
+def _ffn_apply(lp, cfg, h, want_aux: bool = False):
+    """The layer's FFN: (out, aux). aux is the MoE's aux dict when
+    `want_aux` and the FFN is an MoE, else None."""
+    if cfg.moe:
+        return MOE.moe_ffn(lp["ffn"], cfg, h, want_aux=want_aux)
+    return L.mlp(lp["ffn"], h, cfg.act), None
 
 
 def _logits(params, cfg, x):
@@ -158,12 +186,15 @@ def _logits(params, cfg, x):
 
 # ============================================================== full sequence
 
-def _layer_full(lp, cfg, ltype, x, positions, window):
-    """One layer, full sequence. Returns (x, cache at natural length)."""
+def _layer_full(lp, cfg, ltype, x, positions, window, enc=None,
+                want_aux=False):
+    """One layer, full sequence. `enc` is (encoder output, its positions)
+    for an encoder-decoder's decoder, else None. Returns (x, cache at
+    natural length, aux or None)."""
     h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
     if ltype == "ssm":
         out, cache = M2.mamba2_forward(lp["mamba"], cfg, h)
-        return x + out, cache
+        return x + out, cache, None
     if ltype == "attn":
         att, (k, v) = L.attention(lp["attn"], cfg, h, positions,
                                   causal=True, window=window)
@@ -173,91 +204,153 @@ def _layer_full(lp, cfg, ltype, x, positions, window):
     else:
         att, cache = RG.rglru_block_forward(lp["rglru"], cfg, h)
     x = x + att
+    if ltype == "attn" and enc is not None:
+        h = L.apply_rms_norm(lp["norm_cross"], x, cfg.norm_eps)
+        catt, (ck, cv) = L.attention(lp["cross_attn"], cfg, h, positions,
+                                     kv=enc[0], kv_positions=enc[1],
+                                     causal=False, rope=False)
+        x = x + catt
+        cache["cross_k"], cache["cross_v"] = ck, cv
     h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
-    return x + _ffn_apply(lp, cfg, h), cache
+    ff, aux = _ffn_apply(lp, cfg, h, want_aux)
+    return x + ff, cache, aux
+
+
+def _encode(params, cfg, enc_embeds):
+    """The encoder stack: non-causal self-attention (with RoPE) over the
+    stub embeddings. Returns (encoder output, its positions (1, Se))."""
+    enc_pos = torch.arange(enc_embeds.shape[1],
+                           device=enc_embeds.device)[None, :]
+    x = enc_embeds.to(cfg.activation_dtype)
+    for lp in params["encoder"]["layers"]:
+        y = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
+        att, _ = L.attention(lp["attn"], cfg, y, enc_pos, causal=False)
+        x = x + att
+        y = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
+        ff, _ = _ffn_apply(lp, cfg, y)
+        x = x + ff
+    x = L.apply_rms_norm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+    return x, enc_pos
+
+
+def _inputs_to_x(params, cfg, batch):
+    """Token embedding after the optional modality prefix. Returns (x,
+    positions (1, P + S), P)."""
+    x = L.embed(params["embed"], batch["tokens"]).to(cfg.activation_dtype)
+    n_prefix = 0
+    if batch.get("embeds") is not None:
+        pre = batch["embeds"].to(cfg.activation_dtype)
+        n_prefix = pre.shape[1]
+        x = torch.cat([pre, x], dim=1)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    return x, positions, n_prefix
+
+
+def _stack_inputs(params, cfg, batch):
+    """(x, positions, n_prefix, enc) for a full-sequence pass."""
+    enc = (_encode(params, cfg, batch["enc_embeds"]) if cfg.is_encdec
+           else None)
+    return _inputs_to_x(params, cfg, batch) + (enc,)
+
+
+def _head(params, cfg, x, n_prefix):
+    x = L.apply_rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return _logits(params, cfg, x[:, n_prefix:])
 
 
 def forward_prefill(params, cfg, batch, window=None):
-    """Full forward over batch["tokens"] (B, S) that also returns each
-    layer's cache at natural length (the serving engine copies them into a
-    fixed-size ring/linear cache with `serve.step.prefill_into_cache`).
-    Returns (logits (B, S, V), caches)."""
-    _check_ported(cfg)
+    """Full forward over batch["tokens"] (B, S), after batch["embeds"]
+    where given and over the encoder's output of batch["enc_embeds"] in an
+    encoder-decoder, that also returns each layer's cache at natural
+    length (prefix positions included; the serving engine copies them into
+    a fixed-size ring/linear cache with `serve.step.prefill_into_cache`).
+    Returns (logits (B, S, V) over the token positions, caches); an
+    encoder-decoder's caches carry the cross K/V."""
     window = cfg.window if window is None else window
-    tokens = batch["tokens"]
-    x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x, positions, n_prefix, enc = _stack_inputs(params, cfg, batch)
     caches = []
     for lp, t in zip(params["layers"], cfg.layer_types()):
-        x, c = _layer_full(lp, cfg, t, x, positions, window)
+        x, c, _ = _layer_full(lp, cfg, t, x, positions, window, enc)
         caches.append(c)
-    x = L.apply_rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, x), caches
+    return _head(params, cfg, x, n_prefix), caches
 
 
 def _zero_aux(device):
-    """The reference's MoE aux values (`_zero_aux`); every ported FFN is
-    dense, so they are zeros."""
     return {k: torch.zeros((), dtype=torch.float32, device=device)
             for k in ("load_balance", "router_z", "dropped_frac")}
 
 
-def _run_layers(x, layers, types, cfg, positions, window):
+def _run_layers(x, aux, layers, types, cfg, positions, window, enc):
+    """Layers over the full sequence, the MoE aux summed into `aux` (a new
+    dict). Returns (x, aux)."""
+    aux = dict(aux)
     for lp, t in zip(layers, types):
-        x, _ = _layer_full(lp, cfg, t, x, positions, window)
-    return x
+        x, _, a = _layer_full(lp, cfg, t, x, positions, window, enc,
+                              want_aux=True)
+        if a is not None:
+            aux = {k: aux[k] + a[k] for k in aux}
+    return x, aux
 
 
 def forward_train(params, cfg, batch, window=None):
-    """The training forward over batch["tokens"] (B, S): forward_prefill's
-    stack without caches. Returns (logits (B, S, V), aux), aux the
-    reference's MoE aux keys over the FFN layer count (zeros here).
+    """The training forward: forward_prefill's stack without caches.
+    Returns (logits (B, S, V) over the token positions, aux), aux the MoE
+    aux values ("load_balance", "router_z", "dropped_frac") summed over
+    the layers and divided by the FFN layer count (zeros without MoE), as
+    in the reference.
 
     With cfg.remat each pattern block of layers (`len(cfg.block_pattern)`
     layers, the tail excluded) is recomputed in the backward
-    (`torch.utils.checkpoint`, non-reentrant), as the reference wraps its
-    block function in `jax.checkpoint`. `scan_layers` and `seq_parallel`
-    change nothing here. Under attention_impl="pallas" the kernels run the
-    forward, and a backward through them raises (`kernels.refuse_grad`), as
-    the reference's does."""
-    _check_ported(cfg)
+    (`torch.utils.checkpoint`, non-reentrant; the aux pass through it), as
+    the reference wraps its block function in `jax.checkpoint`. The
+    encoder is not recomputed (the reference scans it outside the
+    checkpoint too). `scan_layers` and `seq_parallel` change nothing here.
+    Under attention_impl="pallas" the kernels run the forward, and a
+    backward through them raises (`kernels.refuse_grad`), as the
+    reference's does."""
     window = cfg.window if window is None else window
-    x = L.embed(params["embed"], batch["tokens"]).to(cfg.activation_dtype)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x, positions, n_prefix, enc = _stack_inputs(params, cfg, batch)
+    aux = _zero_aux(x.device)
     layers, types = params["layers"], cfg.layer_types()
     n_pat = len(cfg.block_pattern)
     n_scan = cfg.n_blocks * n_pat
     for b in range(0, n_scan, n_pat):
         args = (layers[b:b + n_pat], types[b:b + n_pat], cfg, positions,
-                window)
-        x = (checkpoint(_run_layers, x, *args, use_reentrant=False)
-             if cfg.remat else _run_layers(x, *args))
-    x = _run_layers(x, layers[n_scan:], types[n_scan:], cfg, positions,
-                    window)
-    x = L.apply_rms_norm(params["final_norm"], x, cfg.norm_eps)
+                window, enc)
+        x, aux = (checkpoint(_run_layers, x, aux, *args, use_reentrant=False)
+                  if cfg.remat else _run_layers(x, aux, *args))
+    x, aux = _run_layers(x, aux, layers[n_scan:], types[n_scan:], cfg,
+                         positions, window, enc)
     n_ffn_layers = sum(1 for t in types if t != "ssm")
-    aux = {k: v / max(n_ffn_layers, 1)
-           for k, v in _zero_aux(x.device).items()}
-    return _logits(params, cfg, x), aux
+    aux = {k: v / max(n_ffn_layers, 1) for k, v in aux.items()}
+    return _head(params, cfg, x, n_prefix), aux
 
 
 # ============================================================== dense cache
 
-def init_cache(cfg, batch_size: int, cache_len: int, device="cuda"):
+def init_cache(cfg, batch_size: int, cache_len: int, device="cuda",
+               enc_len: int = 0):
     """Empty dense cache: per attention layer (B, cache_len) K/V slots with
-    pos -1; per RG-LRU or Mamba2 layer a zero f32 state and a zero conv
-    window."""
-    _check_ported(cfg)
+    pos -1, plus zero (B, enc_len) cross K/V with cross_pos 0 in an
+    encoder-decoder when enc_len > 0; per RG-LRU or Mamba2 layer a zero
+    f32 state and a zero conv window."""
     hd, nkv = cfg.resolved_head_dim, cfg.n_kv_heads
     adt = cfg.activation_dtype
 
     def one(ltype):
         if ltype == "attn":
             shape = (batch_size, cache_len, nkv, hd)
-            return {"k": torch.zeros(shape, dtype=adt, device=device),
-                    "v": torch.zeros(shape, dtype=adt, device=device),
-                    "pos": torch.full((batch_size, cache_len), -1,
-                                      dtype=torch.int32, device=device)}
+            c = {"k": torch.zeros(shape, dtype=adt, device=device),
+                 "v": torch.zeros(shape, dtype=adt, device=device),
+                 "pos": torch.full((batch_size, cache_len), -1,
+                                   dtype=torch.int32, device=device)}
+            if cfg.is_encdec and enc_len > 0:
+                cshape = (batch_size, enc_len, nkv, hd)
+                c["cross_k"] = torch.zeros(cshape, dtype=adt, device=device)
+                c["cross_v"] = torch.zeros(cshape, dtype=adt, device=device)
+                c["cross_pos"] = torch.zeros((batch_size, enc_len),
+                                             dtype=torch.int32, device=device)
+            return c
         if ltype == "ssm":
             s = cfg.ssm
             nh = s.n_heads(cfg.d_model)
@@ -294,8 +387,14 @@ def _layer_decode(lp, cfg, ltype, x, pos, cache, window, rows):
         att, new = RG.rglru_block_decode(lp["rglru"], cfg, h, cache)
         _write_rows(cache, new, rows)
     x = x + att
+    if cfg.is_encdec and "cross_k" in cache:
+        h = L.apply_rms_norm(lp["norm_cross"], x, cfg.norm_eps)
+        catt, _, _, _ = L.attention_decode(
+            lp["cross_attn"], cfg, h, pos, cache["cross_k"],
+            cache["cross_v"], cache["cross_pos"], rope=False, cross=True)
+        x = x + catt
     h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
-    return x + _ffn_apply(lp, cfg, h)
+    return x + _ffn_apply(lp, cfg, h)[0]
 
 
 def decode_step(params, cfg, tokens, pos, cache, window=None, rows=None):
@@ -303,8 +402,9 @@ def decode_step(params, cfg, tokens, pos, cache, window=None, rows=None):
     (B,) int32 absolute position of the new token; rows: LongTensor of the
     batch rows whose cache this step writes (None = all). Rows left out
     keep their K/V, positions and recurrent state as they were; their
-    logits are garbage. Returns (logits (B, 1, V), cache), the cache
-    updated in place."""
+    logits are garbage. An encoder-decoder's layers also read their cross
+    caches (no RoPE, every entry with cross_pos >= 0). Returns (logits (B,
+    1, V), cache), the cache updated in place."""
     window = cfg.window if window is None else window
     x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
     if rows is None:
@@ -355,7 +455,7 @@ def _layer_decode_paged(lp, cfg, x, pos, pool, table, window,
         kernel=kernel)
     x = x + att
     h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
-    return x + _ffn_apply(lp, cfg, h)
+    return x + _ffn_apply(lp, cfg, h)[0]
 
 
 def decode_step_paged(params, cfg, tokens, pos, cache, table, window=None,
@@ -380,7 +480,7 @@ def _layer_prefill_paged(lp, cfg, x, q_pos, n_tok, pool, table, window):
         window=window)
     x = x + att
     h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
-    return x + _ffn_apply(lp, cfg, h)
+    return x + _ffn_apply(lp, cfg, h)[0]
 
 
 def forward_prefill_paged(params, cfg, tokens, start, n_tok, cache, table,
@@ -410,7 +510,7 @@ def _layer_verify_paged(lp, cfg, x, pos, pool, table, window):
         lp["attn"], cfg, h, pos, pool["k"], pool["v"], table, window=window)
     x = x + att
     h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
-    return x + _ffn_apply(lp, cfg, h)
+    return x + _ffn_apply(lp, cfg, h)[0]
 
 
 def verify_step_paged(params, cfg, tokens, pos, cache, table, window=None):
@@ -422,7 +522,6 @@ def verify_step_paged(params, cfg, tokens, pos, cache, table, window=None):
     caller decides afterwards which written positions survive and rewinds
     its frontier past the rest: stale rows beyond the frontier are masked
     by every later read."""
-    _check_ported(cfg)
     window = cfg.window if window is None else window
     x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
     for lp, pool in zip(params["layers"], cache):
@@ -439,7 +538,7 @@ def _layer_mixed_paged(lp, cfg, x, pos, n_chunk, pool, table, ctable,
         ctable, window=window, kernel=kernel)
     x = x + att
     h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
-    return x + _ffn_apply(lp, cfg, h)
+    return x + _ffn_apply(lp, cfg, h)[0]
 
 
 def mixed_step_paged(params, cfg, tokens, pos, n_chunk, cache, table, ctable,
@@ -450,7 +549,6 @@ def mixed_step_paged(params, cfg, tokens, pos, n_chunk, cache, table, ctable,
     combined pool write per layer. The decode rows' read is kernel-
     switched like `decode_step_paged`'s. Returns (logits (B + C, V),
     cache)."""
-    _check_ported(cfg)
     window = cfg.window if window is None else window
     x = L.embed(params["embed"], tokens)[None].to(cfg.activation_dtype)
     for lp, pool in zip(params["layers"], cache):
@@ -467,7 +565,7 @@ def _layer_prefill_chunk_paged(lp, cfg, x, start, n_tok, pool, table, window):
         window=window)
     x = x + att
     h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
-    return x + _ffn_apply(lp, cfg, h)
+    return x + _ffn_apply(lp, cfg, h)[0]
 
 
 def prefill_chunk_paged(params, cfg, tokens, start, n_tok, cache, table,
@@ -478,7 +576,6 @@ def prefill_chunk_paged(params, cfg, tokens, start, n_tok, cache, table,
     table: (nb,) the slot's block chain, with positions [0, start) already
     resident. Returns (logits (1, C, V), cache); only logits[:, :n_tok]
     are meaningful."""
-    _check_ported(cfg)
     window = cfg.window if window is None else window
     x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
     for lp, pool in zip(params["layers"], cache):

@@ -6,10 +6,12 @@ The reference (`repro.models.transformer.init_lm`) returns a nested tree
 in which `blocks` is a tuple over `cfg.block_pattern` whose leaves are
 stacked on a leading `n_blocks` axis, `tail` is a tuple of unstacked
 layers, `embed.table` and `final_norm.scale` sit beside them, and
-`lm_head` is present only when embeddings are untied. The port keeps one
-dict per layer (`models/transformer.py`), so this is the one place where a
-layout changes: the blocks are unstacked per layer. Matrices keep the
-reference's `(d_in, d_out)` layout.
+`lm_head` is present only when embeddings are untied; an encoder-decoder
+adds `encoder` = {`blocks`: one layer dict stacked on n_enc_layers,
+`final_norm`}. The port keeps one dict per layer (`models/transformer.py`),
+so this is the one place where a layout changes: the blocks (and the
+encoder's) are unstacked per layer. Matrices keep the reference's `(d_in,
+d_out)` layout, an MoE's experts their stacked `(Ep, d, ff)`.
 
 Every leaf goes to `cfg.parameter_dtype` except those the reference's init
 keeps in float32 whatever the parameter dtype: the RG-LRU's gate biases and
@@ -110,15 +112,16 @@ def params_from_jax(tree, cfg, device="cuda") -> dict:
     flat = _flatten(tree)
     used = set()
 
-    def take(path: Path, shape, index=None) -> torch.Tensor:
+    def take(path: Path, shape, index=None, lead="n_blocks"):
         if path not in flat:
             raise _missing(path)
         a = flat[path]
         used.add(path)
         if index is not None:
-            if a.ndim == 0 or a.shape[0] != cfg.n_blocks:
+            n = getattr(cfg, lead)
+            if a.ndim == 0 or a.shape[0] != n:
                 raise ValueError(f"{'/'.join(map(str, path))}: leading axis "
-                                 f"{a.shape[:1]} != n_blocks {cfg.n_blocks}")
+                                 f"{a.shape[:1]} != {lead} {n}")
             a = a[index]
         _check_shape(a, path, shape)
         f32 = len(path) >= 2 \
@@ -128,6 +131,7 @@ def params_from_jax(tree, cfg, device="cuda") -> dict:
 
     shapes = T.param_shapes(cfg)
     layer_shapes = shapes.pop("layers")
+    enc_shapes = shapes.pop("encoder", None)
     out: dict = {}
     for path, shape in _leaves(shapes):
         _set(out, path, take(path, shape))
@@ -143,6 +147,18 @@ def params_from_jax(tree, cfg, device="cuda") -> dict:
                 t = take(("tail", li - n_scan) + sub, shape)
             _set(layer, sub, t)
         out["layers"].append(layer)
+    if enc_shapes is not None:
+        # the encoder's layers are one dict stacked on n_enc_layers
+        enc_layers = []
+        for li, lshapes in enumerate(enc_shapes["layers"]):
+            layer = {}
+            for sub, shape in _leaves(lshapes):
+                _set(layer, sub, take(("encoder", "blocks") + sub, shape, li,
+                                      lead="n_enc_layers"))
+            enc_layers.append(layer)
+        norm = ("encoder", "final_norm", "scale")
+        out["encoder"] = {"layers": enc_layers, "final_norm": {
+            "scale": take(norm, enc_shapes["final_norm"]["scale"])}}
     _check_all_used(flat, used)
     return out
 
@@ -180,38 +196,53 @@ def jax_layout(params, cfg) -> dict:
     moments), in the reference's layout, leaves still tensors: "layers"
     becomes `blocks`, a tuple over `cfg.block_pattern` of layer dicts
     stacked on a leading n_blocks axis (absent when there are no blocks),
-    and `tail`, a tuple of the remaining layers; the other entries stay as
-    they are, in their order (`port_layout` restores it)."""
+    and `tail`, a tuple of the remaining layers; an encoder's "layers"
+    become its `blocks`, one layer dict stacked on n_enc_layers; the other
+    entries stay as they are, in their order (`port_layout` restores
+    it)."""
     n_pat = len(cfg.block_pattern)
     n_scan = cfg.n_blocks * n_pat
     out = {}
     for k, v in params.items():
-        if k != "layers":
+        if k == "encoder":
+            out[k] = {"blocks": _stack(v["layers"]),
+                      "final_norm": v["final_norm"]}
+        elif k != "layers":
             out[k] = v
-            continue
-        if cfg.n_blocks > 0:
-            out["blocks"] = tuple(
-                tree_map(lambda *xs: torch.stack(xs),
-                         *(v[b + i] for b in range(0, n_scan, n_pat)))
-                for i in range(n_pat))
-        out["tail"] = tuple(v[n_scan:])
+        else:
+            if cfg.n_blocks > 0:
+                out["blocks"] = tuple(
+                    _stack([v[b + i] for b in range(0, n_scan, n_pat)])
+                    for i in range(n_pat))
+            out["tail"] = tuple(v[n_scan:])
     return out
+
+
+def _stack(layers):
+    return tree_map(lambda *xs: torch.stack(xs), *layers)
+
+
+def _unstack(tree, n):
+    return [tree_map(lambda a: a[i], tree) for i in range(n)]
 
 
 def port_layout(tree, cfg) -> dict:
     """The inverse of `jax_layout`: the blocks unstacked per layer into
-    "layers", every leaf in its own dtype and on its own device (unlike
-    `params_from_jax`, which casts to the parameter dtype: optimizer
-    moments stay float32)."""
+    "layers" (an encoder's into its "layers"), every leaf in its own dtype
+    and on its own device (unlike `params_from_jax`, which casts to the
+    parameter dtype: optimizer moments stay float32)."""
     n_pat = len(cfg.block_pattern)
     out = {}
     for k, v in tree.items():
         if k == "blocks":
-            out["layers"] = [tree_map(lambda a: a[b], v[i])
-                             for b in range(cfg.n_blocks)
+            per_pat = [_unstack(v[i], cfg.n_blocks) for i in range(n_pat)]
+            out["layers"] = [per_pat[i][b] for b in range(cfg.n_blocks)
                              for i in range(n_pat)]
         elif k == "tail":
             out.setdefault("layers", []).extend(v)
+        elif k == "encoder":
+            out[k] = {"layers": _unstack(v["blocks"], cfg.n_enc_layers),
+                      "final_norm": v["final_norm"]}
         else:
             out[k] = v
     return out

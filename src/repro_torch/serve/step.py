@@ -78,9 +78,10 @@ def prefill_into_cache(cfg, caches, cache, prompt_lens):
     (B,) real prompt lengths; entries at positions >= prompt_lens[b] are
     padding and get pos = -1 so decode masks them. Attention entries keep
     the last min(Sc, S_p) positions, at slot = pos % Sc, so linear and ring
-    caches follow one rule. Recurrent states (RG-LRU, Mamba2) are final
-    after the prefill and are taken as they are. Returns the updated cache
-    list.
+    caches follow one rule. An encoder-decoder's cross K/V replace the
+    destination's, with cross_pos 0..Se-1. Recurrent states (RG-LRU,
+    Mamba2) are final after the prefill and are taken as they are. Returns
+    the updated cache list.
     """
     out = []
     for dst, src in zip(cache, caches):
@@ -98,6 +99,11 @@ def prefill_into_cache(cfg, caches, cache, prompt_lens):
         dst["k"][bidx, slots] = ksrc.to(dst["k"].dtype)
         dst["v"][bidx, slots] = vsrc.to(dst["v"].dtype)
         dst["pos"][bidx, slots] = pvals.to(dst["pos"].dtype)
+        if "cross_k" in src:            # enc-dec: the cross caches as they are
+            dst["cross_k"], dst["cross_v"] = src["cross_k"], src["cross_v"]
+            dst["cross_pos"] = torch.broadcast_to(
+                torch.arange(src["cross_k"].shape[1], dtype=torch.int32,
+                             device=psrc.device), src["cross_k"].shape[:2])
         out.append(dst)
     return out
 

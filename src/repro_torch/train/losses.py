@@ -27,12 +27,14 @@ def softmax_xent(logits, labels, mask=None, label_smoothing: float = 0.0):
 
 
 def lm_loss(params, cfg, batch, forward_fn, *, window=None):
-    """Cross-entropy, plus the forward's aux values as metrics. Returns
-    (loss, metrics). MoE, whose aux losses join the loss, is not ported
-    (`models/transformer.py` refuses it), so the loss is the
-    cross-entropy."""
+    """Cross-entropy + MoE aux (`load_balance_coef * load_balance +
+    router_z_coef * router_z`). Returns (loss, metrics)."""
     logits, aux = forward_fn(params, cfg, batch, window=window)
     xent = softmax_xent(logits, batch["labels"], batch.get("mask"))
-    metrics = {"xent": xent, "loss": xent}
+    loss = xent
+    if cfg.moe:
+        loss = loss + cfg.moe.load_balance_coef * aux["load_balance"] \
+                    + cfg.moe.router_z_coef * aux["router_z"]
+    metrics = {"xent": xent, "loss": loss}
     metrics.update(aux)
-    return xent, metrics
+    return loss, metrics

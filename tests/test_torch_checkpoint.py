@@ -3,7 +3,9 @@ on the port (round trip of params and optimizer state with dtypes and
 shapes, latest-step discovery, the trainer writing checkpoints), and files
 read across the two packages in both directions: the trainer's {"params",
 "opt_state"} in the reference's layout on reduced qwen3-1.7b,
-recurrentgemma-9b and mamba2-130m, and bfloat16 leaves, which `np.savez`
+recurrentgemma-9b, mamba2-130m, granite-moe-1b-a400m (stacked experts and
+the router), seamless-m4t-large-v2 (the encoder's stacked blocks and the
+cross layers) and pixtral-12b (the untied lm_head), and bfloat16 leaves, which `np.savez`
 stores as raw 2-byte records. Values must be equal, bit for bit."""
 import numpy as np
 import pytest
@@ -28,7 +30,8 @@ from repro_torch.train.trainer import (checkpoint_tree,  # noqa: E402
 from _torch_parity import bridged_model  # noqa: E402
 from _torch_parity import one_torch_thread  # noqa: E402,F401
 
-ARCHS = ["qwen3-1.7b", "recurrentgemma-9b", "mamba2-130m"]
+ARCHS = ["qwen3-1.7b", "recurrentgemma-9b", "mamba2-130m",
+         "granite-moe-1b-a400m", "seamless-m4t-large-v2", "pixtral-12b"]
 
 
 # ---- the reference's cases

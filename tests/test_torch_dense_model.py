@@ -174,20 +174,48 @@ def test_ring_cache_decode_matches_linear():
         _close(lr, jl)
 
 
-def test_unported_families_refuse_loudly():
-    """MoE, enc-dec and modality-prefix models raise, naming their ROADMAP
-    item, rather than running another way. (Mamba2 is ported: its cases
-    run in the tests above.)"""
+@pytest.mark.parametrize("family", ["moe", "encdec", "prefix"])
+def test_other_families_run_and_match_the_reference(family):
+    """MoE, encoder-decoder and modality-prefix models (the configs the
+    port once refused) run: the training forward, with the MoE's aux
+    values, and a decode step over a fresh cache (cross caches of 4
+    encoder frames for the encoder-decoder) match the reference's on its
+    own weights."""
+    from repro.configs.base import MoEConfig as JaxMoE
     from repro_torch.configs.base import MoEConfig
     base = dict(arch_id="x", family="x", n_layers=2, d_model=64, n_heads=4,
                 n_kv_heads=2, d_ff=128, vocab_size=V)
-    for kw in (dict(moe=MoEConfig(4, 2, 32)), dict(n_enc_layers=2),
-               dict(embed_stub=True)):
-        cfg = ModelConfig(**base, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TT.init_cache(cfg, 1, 8, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TT.param_shapes(cfg)
+    kw, jkw = {"moe": (dict(moe=MoEConfig(4, 2, 32)),
+                       dict(moe=JaxMoE(4, 2, 32))),
+               "encdec": (dict(n_enc_layers=2),) * 2,
+               "prefix": (dict(embed_stub=True),) * 2}[family]
+    cfg, jcfg = ModelConfig(**base, **kw), JaxConfig(**base, **jkw)
+    jp = JT.init_lm(jax.random.PRNGKey(6), jcfg)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    rng = np.random.default_rng(6)
+    batch = {"tokens": rng.integers(0, V, (2, 8)).astype(np.int32)}
+    if family == "encdec":
+        batch["enc_embeds"] = rng.standard_normal((2, 4, 64)) \
+            .astype(np.float32)
+    if family == "prefix":
+        batch["embeds"] = rng.standard_normal((2, 3, 64)).astype(np.float32)
+    logits, aux = TT.forward_train(
+        tp, cfg, {k: torch.as_tensor(v) for k, v in batch.items()})
+    jlogits, jaux = JT.forward_train(
+        jp, jcfg, {k: jnp.asarray(v) for k, v in batch.items()})
+    assert logits.shape == (2, 8, V)
+    _close(logits, jlogits)
+    for k in jaux:
+        _close(aux[k], jaux[k])
+    enc_len = 4 if family == "encdec" else 0
+    cache = TT.init_cache(cfg, 2, 8, device="cpu", enc_len=enc_len)
+    jcache = JT.init_cache(jcfg, 2, 8, enc_len=enc_len)
+    tok, pos = batch["tokens"][:, :1], np.array([0, 3], np.int32)
+    lg, _ = TT.decode_step(tp, cfg, torch.as_tensor(tok),
+                           torch.as_tensor(pos), cache)
+    jlg, _ = JT.decode_step(jp, jcfg, jnp.asarray(tok), jnp.asarray(pos),
+                            jcache)
+    _close(lg, jlg)
 
 
 def test_step_builders_read_the_right_position():

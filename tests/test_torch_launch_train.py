@@ -102,3 +102,23 @@ def test_cuda_without_a_card_is_refused():
     with pytest.raises(SystemExit, match="no CUDA"):
         launch_train.main(["--arch", "qwen3-1.7b", "--reduced",
                            "--steps", "1"])
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "seamless-m4t-large-v2", "pixtral-12b"])
+def test_other_families_train_on_stub_inputs(arch, capsys):
+    """The MoE, encoder-decoder and modality-prefix archs train through
+    the launcher, on the reference's stub inputs: seq // 2 zero encoder
+    frames (at least 4) or a zero prefix of seq // 4 rows (at least 2)."""
+    cfg = registry.get(arch, reduced=True)
+    stubs = launch_train.stub_inputs(cfg, 4, 16, torch.device("cpu"))
+    want = ({"enc_embeds": (4, 8, cfg.d_model)} if cfg.is_encdec
+            else {"embeds": (4, 4, cfg.d_model)} if cfg.embed_stub else {})
+    assert {k: tuple(v.shape) for k, v in stubs.items()} == want
+    assert all(not v.any() for v in stubs.values())
+    rc = launch_train.main(["--arch", arch, "--reduced", "--steps", "2",
+                            "--batch", "4", "--seq", "16", "--device", "cpu"])
+    assert rc == 0
+    m = re.search(r"\[train\] loss ([\d.]+) -> ([\d.]+) over 2 steps",
+                  capsys.readouterr().out)
+    assert m and all(np.isfinite(float(x)) for x in m.groups())

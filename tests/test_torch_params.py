@@ -17,11 +17,13 @@ from repro.configs import registry as jreg  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
-from repro_torch.params import params_from_jax  # noqa: E402
+from repro_torch.params import params_from_jax, params_to_jax  # noqa: E402
 from _torch_parity import one_torch_thread  # noqa: E402,F401
 
-# tied + qk-norm, untied lm_head, ungated GELU MLP
-ARCHS = ["qwen3-1.7b", "mistral-nemo-12b", "starcoder2-7b"]
+# tied + qk-norm, untied lm_head, ungated GELU MLP, stacked experts, the
+# encoder and cross layers, untied lm_head beside a prefix
+ARCHS = ["qwen3-1.7b", "mistral-nemo-12b", "starcoder2-7b",
+         "granite-moe-1b-a400m", "seamless-m4t-large-v2", "pixtral-12b"]
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -68,6 +70,11 @@ def test_bridge_carries_every_leaf(arch):
     np.testing.assert_array_equal(params["embed"]["table"].numpy(),
                                   tree["embed"]["table"])
     assert ("lm_head" in params) == (not cfg.tie_embeddings)
+    # and back: the reference's tree, leaf for leaf
+    back = params_to_jax(params, cfg)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        np.testing.assert_array_equal(a, b)
 
 
 def _leaves(tree):

@@ -205,17 +205,36 @@ def test_worker_status_has_the_reference_keys(tmp_path, dataset):
     assert (st["state"], st["processed"], st["failed"]) == ("stopped", 1, 0)
 
 
-def test_unported_family_fails_forward_with_the_models_error(tmp_path):
-    sess = _session(tmp_path, "moe")
-    sess.queue.put(TaskSpec.make(sess.session_id, "lm_train",
-                                 {"arch": "granite-moe-1b-a400m", "steps": 2,
-                                  "batch_size": 2, "seq_len": 16},
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "seamless-m4t-large-v2", "pixtral-12b"])
+def test_other_family_lm_train_gives_the_reference_losses(tmp_path,
+                                                         monkeypatch, arch):
+    """An `lm_train` task on an MoE, encoder-decoder or modality-prefix
+    arch finishes `ok` through a Worker, and with the reference's weights
+    (its `init_lm(PRNGKey(seed))` draw, bridged in place of the port's
+    seeded draw) its first and last losses are the reference executor's
+    within 1e-4 (the MoE aux and the stub inputs included)."""
+    from repro.configs import registry as jreg
+    from repro.core import executors as jax_executors
+    from repro.models import transformer as JT
+    from repro_torch.models import transformer as TT
+    from repro_torch.params import params_from_jax
+
+    payload = {"arch": arch, "steps": 3, "batch_size": 2, "seq_len": 16,
+               "seed": 5}
+    jparams = JT.init_lm(jax.random.PRNGKey(5), jreg.get(arch, reduced=True))
+    monkeypatch.setattr(TT, "init_lm", lambda gen, cfg: params_from_jax(
+        jax.tree.map(np.asarray, jparams), cfg, device=str(gen.device)))
+    sess = _session(tmp_path, "lm")
+    sess.queue.put(TaskSpec.make(sess.session_id, "lm_train", payload,
                                  max_retries=0))
     Worker("w", sess.queue, sess.results, dict(CPU)).run_until_empty()
     (doc,) = sess.results.find(sess.session_id)
-    assert doc["status"] == "failed"
-    assert doc["error"].startswith("NotImplementedError: granite-moe-1b-a400m")
-    assert len(sess.queue.dead_letters()) == 1
+    assert doc["status"] == "ok", doc.get("error")
+    want = jax_executors.lm_train(payload, {})
+    for k in ("first_loss", "final_loss"):
+        assert abs(doc["metrics"][k] - want[k]) <= 1e-4, (k, doc["metrics"],
+                                                          want)
 
 
 def test_cuda_without_a_card_stops_with_a_message(monkeypatch, dataset):

@@ -3,7 +3,9 @@ with the reference's own weights bridged over: `forward_train`, the
 gradients of `lm_loss`, `build_lm_train_step` with AdamW over five steps,
 microbatch accumulation and remat, the MLP's `build_dnn_train_step`, and
 the kernels' refusal of a backward, on reduced qwen3-1.7b,
-recurrentgemma-9b (one r, r, a block) and mamba2-130m (two ssm layers).
+recurrentgemma-9b (one r, r, a block), mamba2-130m (two ssm layers),
+granite-moe-1b-a400m (the MoE's aux losses in the loss), seamless-m4t-
+large-v2 (random encoder frames) and pixtral-12b (a random prefix).
 
 Tolerances: logits 1e-5; each gradient leaf within 1e-4 of that leaf's
 largest absolute gradient (sums taken in another order through a few
@@ -39,12 +41,23 @@ from repro_torch.train.step import (build_dnn_train_step,  # noqa: E402
 from _torch_parity import bridged_model, to_np  # noqa: E402
 from _torch_parity import one_torch_thread  # noqa: E402,F401
 
-ARCHS = ["qwen3-1.7b", "recurrentgemma-9b", "mamba2-130m"]
+ARCHS = ["qwen3-1.7b", "recurrentgemma-9b", "mamba2-130m",
+         "granite-moe-1b-a400m", "seamless-m4t-large-v2", "pixtral-12b"]
 B, S = 4, 32
 
 
 def _batch(cfg, seed=0, b=B, s=S):
-    return JaxTokenStream(cfg.vocab_size, s, b, seed=seed).next_batch()
+    """A TokenStream batch, plus random encoder frames (s // 2 of them)
+    for an encoder-decoder or a random prefix (s // 4 rows)."""
+    out = JaxTokenStream(cfg.vocab_size, s, b, seed=seed).next_batch()
+    rng = np.random.default_rng(seed)
+    if cfg.is_encdec:
+        out["enc_embeds"] = rng.standard_normal((b, s // 2, cfg.d_model)) \
+            .astype(np.float32)
+    elif cfg.embed_stub:
+        out["embeds"] = rng.standard_normal((b, s // 4, cfg.d_model)) \
+            .astype(np.float32)
+    return out
 
 
 def _t(batch):
@@ -102,7 +115,11 @@ def test_forward_train_logits_match_reference(arch):
                                rtol=1e-5)
     assert set(aux) == set(jaux)
     for k in aux:
-        assert float(aux[k]) == float(jaux[k]) == 0.0
+        if tcfg.moe is None:
+            assert float(aux[k]) == float(jaux[k]) == 0.0
+        else:
+            np.testing.assert_allclose(float(aux[k]), float(jaux[k]),
+                                       atol=1e-5)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -135,8 +152,10 @@ def test_five_adamw_steps_match_reference(arch):
     jstep = jax.jit(jax_lm_step(jcfg, jupdate))
     opt, jopt, jparams = init(params), jinit(jp), jp
     stream = JaxTokenStream(tcfg.vocab_size, S, B, seed=3)
+    stubs = {k: v for k, v in _batch(tcfg, seed=3).items()
+             if k in ("enc_embeds", "embeds")}
     for _ in range(5):
-        b = stream.next_batch()
+        b = {**stream.next_batch(), **stubs}
         params, opt, m = step(params, opt, _t(b))
         jparams, jopt, jm = jstep(jparams, jopt, _j(b))
         assert set(m) == set(jm)
