@@ -243,6 +243,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (a 512 x 512 image at 16-pixel patches) and 64 text tokens, then 16
    greedy tokens from position 1,088; flash launches 40 per prefill. Then
    the f32 check of phase 26 at depth 2.
+28. Distribution, after phase 27, on a one-rank NCCL process group
+   (`launch.distributed.initialize`) and a (1, 1, 1) ("pod", "data",
+   "model") DeviceMesh on the card: `train_sharded` on phase 20's model,
+   weights (the same seed) and batches, 8 steps of 8 x 256 tokens, f32 with
+   TF32 off, under the same AdamW warmup-cosine schedule and rate as phase
+   20's unsharded `build_lm_train_step`, whose losses are the oracle
+   (within 1e-5 relative); every param and moment a DTensor on the card.
+   Logs step ms (median of steps 2-8), peak memory and a profiled sharded
+   step's device busy share beside phase 20's. Then phase 23's 256-member
+   block with `mesh=` (population_axes ("data",)) against phase 23's
+   results: the same statuses, losses within 1e-5 relative, accuracies
+   within one test row. Then the dry-run CLI as subprocesses: qwen3-1.7b
+   decode_32k on the (16, 16) production mesh and granite-moe-1b-a400m
+   train_4k on (2, 16, 16) (fake process groups of 256 and 512 ranks on
+   the host, nothing allocated): exit 0 and flops_per_device > 0. The
+   process group is destroyed at the end.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; above it
 stand the card's name and power limit and one JSON line with each
@@ -253,6 +269,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2001,6 +2018,7 @@ def train_phases(device, card: str):
         f"served {tl['served']} through the paged kernel "
         f"({tl['launches']} launches)")
     log(f"  phases 20-22 took {time.perf_counter() - t_train:.1f} s")
+    return tr
 
 
 # -------------------------------------------------------------------- sweep
@@ -2110,6 +2128,7 @@ def population_phase(device, ds) -> dict:
            "tasks_per_s": SWEEP_K / wall, "acc_mean": float(np.mean(accs)),
            "loss_mean": float(np.mean(losses)),
            "divergent_loss": docs[-1]["metrics"]["final_loss"],
+           "block": block, "docs": docs,
            "sgd_vs_dnn_train": members_against_dnn_train(
                block, docs, drawn[0], ctx, picks)}
 
@@ -2240,6 +2259,7 @@ def sweep_phase(device, card: str):
         f"{lm['metrics']['final_loss']:.4f} in {lm['metrics']['steps']} "
         f"steps; worker status {lm['status']}")
     log(f"  phase 23 took {time.perf_counter() - t_sweep:.1f} s")
+    return pop
 
 # ------------------------------------------------- the other families
 
@@ -2564,6 +2584,196 @@ def family_phases(device, card: str) -> dict:
 
 
 # ----------------------------------------------------------------- main
+
+# ------------------------------------------------------- distribution
+
+SHARDED_REL = 1e-5                 # phase 28: sharded vs unsharded losses
+DRYRUN_CASES = [("qwen3-1.7b", "decode_32k", []),
+                ("granite-moe-1b-a400m", "train_4k", ["--multi-pod-only"])]
+DRYRUN_TIMEOUT_S = 300
+
+
+class timed_batches:
+    """An iterator over `batches` that stamps the host clock (after a
+    device sync) at each `next()`: `train_sharded` reads each logged loss
+    before it asks for the next batch, so the stamps bound its steps."""
+
+    def __init__(self, batches):
+        self.batches, self.stamps = iter(batches), []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+        return next(self.batches)
+
+
+def sharded_train(device, card, tr) -> dict:
+    """Phase 28, part 1: train_sharded on a (1, 1, 1) mesh against phase
+    20's unsharded run (the same weights, batches, schedule and rate)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.launch import distributed as D
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import linear_warmup_cosine
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding import spmd
+    cfg = full_config("float32")
+    mesh = init_device_mesh(device.type, (1, 1, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    batches = token_batches(cfg, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                            device)
+    data = timed_batches(batches)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    params, opt, losses = D.train_sharded(
+        cfg, mesh, data, num_steps=TRAIN_STEPS, lr=TRAIN_LR, seed=SEED,
+        log_every=1, verbose=False)
+    torch.cuda.synchronize()
+    ends = data.stamps[1:] + [time.perf_counter()]
+    ms = [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+    peak = torch.cuda.max_memory_allocated()
+    leaves = tree_leaves(params) + tree_leaves(opt.mu) + tree_leaves(opt.nu)
+    bad = [x for x in leaves if not (spmd.is_dtensor(x)
+                                     and x.device.type == device.type)]
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(leaves)} params and "
+                             "moments are not DTensors on the card")
+    for i, (a, b) in enumerate(zip(losses, tr["losses"])):
+        rel_close(f"sharded step {i + 1} loss against the unsharded step",
+                  a, b, SHARDED_REL)
+    _, opt_update = adamw(linear_warmup_cosine(
+        TRAIN_LR, max(TRAIN_STEPS // 10, 1), TRAIN_STEPS))
+    p_specs = R.param_specs(cfg, params, mesh)
+    step, b_specs = D.make_sharded_step(cfg, mesh, opt_update, p_specs, None,
+                                        batches[0])
+    state = {"params": params, "opt": opt}
+
+    def one_step():
+        state["params"], state["opt"], _ = step(
+            state["params"], state["opt"],
+            D.put_batch(mesh, b_specs, batches[1]))
+    prof = profile_steps(one_step, 1)
+    out = {"losses": losses, "ms": ms,
+           "step_ms": float(np.median(ms[1:])) if len(ms) > 1 else ms[0],
+           "peak_gib": peak / 2**30, "resident_gib": resident / 2**30,
+           "n_leaves": len(leaves), "profile": prof}
+    del params, opt, state, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_population(device, pop) -> dict:
+    """Phase 28, part 2: phase 23's block with `mesh=` against phase 23's
+    results."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core import population
+    mesh = init_device_mesh(device.type, (1,), mesh_dim_names=("data",))
+    ctx = {"datasets": {"default": sweep_dataset()}, "device": str(device)}
+    t0 = time.perf_counter()
+    docs = population.train_population(pop["block"], ctx, mesh=mesh,
+                                       population_axes=("data",))
+    wall = time.perf_counter() - t0
+    n_test = ctx["datasets"]["default"].x_test.shape[0]
+    worst = 0.0
+    for a, b in zip(docs, pop["docs"]):
+        if a["status"] != b["status"]:
+            raise AssertionError(f"{a['task_id']}: {a['status']} on the mesh, "
+                                 f"{b['status']} in phase 23")
+        if b["status"] != "ok":
+            continue
+        la, lb = a["metrics"]["final_loss"], b["metrics"]["final_loss"]
+        rel_close(f"{a['task_id']} loss on the mesh", la, lb, SHARDED_REL)
+        worst = max(worst, abs(la - lb) / abs(lb))
+        if abs(a["metrics"]["accuracy"] - b["metrics"]["accuracy"]) \
+                > 1.0 / n_test + 1e-9:
+            raise AssertionError(f"{a['task_id']}: accuracy "
+                                 f"{a['metrics']['accuracy']} against "
+                                 f"{b['metrics']['accuracy']}")
+    return {"wall_s": wall, "worst_rel": worst, "members": len(docs),
+            "ok": sum(d["status"] == "ok" for d in docs)}
+
+
+def run_dryrun_cli() -> list:
+    """Phase 28, part 3: the dry-run CLI in processes of their own."""
+    out = []
+    for arch, shape, extra in DRYRUN_CASES:
+        dest = Path("build") / "chip_smoke_dryrun"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, *extra, "--out", str(dest)]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True,
+                           timeout=DRYRUN_TIMEOUT_S,
+                           env={**os.environ, "PYTHONPATH": str(SRC)})
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"dryrun {arch} {shape} exit "
+                                 f"{r.returncode}: {r.stdout[-2000:]}"
+                                 f"{r.stderr[-2000:]}")
+        tag = "pod2" if "--multi-pod-only" in extra else "pod1"
+        rec = json.loads((dest / f"{arch}__{shape}__{tag}.json").read_text())
+        if not rec["flops_per_device"] > 0:
+            raise AssertionError(f"dryrun {arch} {shape}: flops_per_device "
+                                 f"{rec['flops_per_device']}")
+        out.append({"arch": arch, "shape": shape, "mesh": tag,
+                    "n_devices": rec["n_devices"], "wall_s": wall,
+                    "flops_per_device": rec["flops_per_device"],
+                    "collective_bytes_per_device":
+                        rec["collective_bytes_per_device"],
+                    "peak_bytes": rec["memory"]["peak_bytes"]})
+    return out
+
+
+def distribution_phase(device, card: str, tr: dict, pop: dict):
+    """Phase 28, logged as it runs; each part raises on a failed check."""
+    import torch.distributed as dist
+    from repro_torch.launch import distributed as D
+    t_dist = time.perf_counter()
+    D.initialize(device=device.type)
+    log(f"[28] train_sharded on a one-rank {dist.get_backend()} process "
+        f"group, a (1, 1, 1) ('pod', 'data', 'model') mesh: full-width, "
+        f"full-depth qwen3-1.7b in f32 (TF32 off), phase 20's weights and "
+        f"batches, {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens; card: {card}")
+    sh = sharded_train(device, card, tr)
+    log(f"  loss {' '.join(f'{x:.6f}' for x in sh['losses'])} (phase 20 "
+        f"unsharded: {' '.join(f'{x:.6f}' for x in tr['losses'])}; tol "
+        f"{SHARDED_REL} relative); {sh['n_leaves']} params and moments, "
+        "every one a DTensor on the card")
+    log(f"  step ms {' '.join(f'{x:.3f}' for x in sh['ms'])} (host clock "
+        "between loss reads)")
+    busy = sh["profile"]["busy_share"]
+    busy20 = tr["profile"]["busy_share"]
+    log(f"  step {sh['step_ms']:.3f} ms (median of steps 2-{TRAIN_STEPS}; "
+        f"phase 20: {tr['step_ms']:.3f}), peak memory {sh['peak_gib']:.2f} "
+        f"GiB over the run ({sh['resident_gib']:.2f} GiB resident before it"
+        f"; phase 20: {tr['peak_gib']:.2f} GiB), device busy share "
+        f"{busy if busy is None else round(busy, 4)} of a profiled sharded "
+        f"step ({sh['profile']['step_ms']:.3f} ms; phase 20's "
+        f"{busy20 if busy20 is None else round(busy20, 4)}); card: {card}")
+    log("[28] where a sharded train step's time goes")
+    log_profile(sh["profile"], "sharded train step")
+    log(f"[28] phase 23's block of {SWEEP_K} members with mesh= (a ('data',)"
+        f" mesh of 1), against phase 23's results")
+    ps = sharded_population(device, pop)
+    log(f"  {ps['members']} members ({ps['ok']} ok) in {ps['wall_s']:.4f} s "
+        f"(phase 23: {pop['wall_s']:.4f} s); losses within "
+        f"{ps['worst_rel']:.3g} relative (tol {SHARDED_REL}), the same "
+        "statuses and accuracies")
+    dist.destroy_process_group()
+    log("[28] the dry-run CLI (fake process groups on the host)")
+    for r in run_dryrun_cli():
+        log(f"  {r['arch']} {r['shape']} {r['mesh']} ({r['n_devices']} "
+            f"ranks): exit 0 in {r['wall_s']:.1f} s, flops/device "
+            f"{r['flops_per_device']:.4g}, collective bytes/device "
+            f"{r['collective_bytes_per_device']:.4g}, peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"  phase 28 took {time.perf_counter() - t_dist:.1f} s")
+
 
 def main(device: str = "cuda") -> int:
     if not torch.cuda.is_available():
@@ -2978,9 +3188,10 @@ def main(device: str = "cuda") -> int:
     log(f"  ({ssd_t['flops']} flops at {BF16_TENSOR_FLOPS / 1e12:.0f} "
         f"TFLOP/s; the {ssd_t['route']} route)")
 
-    train_phases(device, card)
-    sweep_phase(device, card)
+    tr = train_phases(device, card)
+    pop = sweep_phase(device, card)
     fam = family_phases(device, card)
+    distribution_phase(device, card, tr, pop)
     g1, g3 = fam["granite"], fam["granite3b"]
     fam_flash = {"granite_dense": g1["dense"]["launches"]["flash_attention"],
                  "seamless": fam["encdec"]["run"]["launches"][

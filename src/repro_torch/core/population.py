@@ -17,9 +17,16 @@ state, step count included, keep their values (`torch.where` on the card),
 and it is reported failed. `alive` and `losses` stay on the device until
 the end of training: the step loop reads nothing back to the host.
 
-The reference shards the population over a mesh (`mesh=`,
-`population_axes=`); the port is not distributed yet (ROADMAP.md Queue 1
-item 16) and accepts `mesh=None` only.
+On a mesh (`mesh=`, a DeviceMesh, and `population_axes=`, the reference's
+arguments) the leading member axis of the lrs, the stacked params and the
+optimizer state is sharded over those axes (DTensor `Shard(0)`, replicated
+over the mesh's other axes): each rank steps its own K / n members on its
+local shards, the batches are the same on every rank, and nothing is
+communicated until the results are gathered at the end. The reference
+shards `lrs` and lets GSPMD propagate that to the members. K must divide
+by the axes' size (the reference would fail to shard). The params tree
+`population_params` returned is updated in place with the trained members,
+as without a mesh.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from repro_torch.core.tasks import TaskSpec
 from repro_torch.core.worker import context_device
 from repro_torch.models.layers import ACTIVATIONS
 from repro_torch.optim.stacked import stacked_adamw, stacked_sgd
+from repro_torch.sharding import rules as R
 from repro_torch.train.step import value_and_grad
 
 
@@ -104,16 +112,38 @@ def population_optimizer(opt_name: str, lrs: torch.Tensor):
     return stacked_sgd(lrs, momentum=0.9)
 
 
+class _MemberShards:
+    """The member axis sharded over `axes` of `mesh`: each rank's local
+    slice of a stacked tensor, and the gather back to all K."""
+
+    def __init__(self, mesh, axes, K: int):
+        axes = tuple(axes)
+        n = 1
+        for a in axes:
+            n *= R.mesh_axis_size(mesh, a)
+        if K % n:
+            raise ValueError(f"population of {K} members does not divide "
+                             f"over population_axes {axes} of size {n}")
+        self.mesh = mesh
+        self.placements = R.to_placements(mesh, (axes,))
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(x, self.mesh, self.placements,
+                                 src_data_rank=None).to_local()
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        from torch.distributed.tensor import DTensor
+        y = x.to(torch.uint8) if x.dtype == torch.bool else x  # gloo: no bool
+        y = DTensor.from_local(y, self.mesh, self.placements).full_tensor()
+        return y.to(x.dtype)
+
+
 def train_population(block: List[TaskSpec], context: Dict[str, Any], *,
                      results: Optional[ResultStore] = None,
                      mesh=None, population_axes=("data",)) -> List[dict]:
     """Train every task in `block` simultaneously. Returns result docs (and
     inserts them into `results` if given)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"sharding a population over a mesh (population_axes="
-            f"{population_axes}) is not ported yet (ROADMAP.md Queue 1 item "
-            "16, distribution)")
     ds = _get_dataset(block[0].payload, context)
     cfg = _block_config(block, ds)
     device = context_device(context)
@@ -126,13 +156,20 @@ def train_population(block: List[TaskSpec], context: Dict[str, Any], *,
     seeds = [int(t.payload.get("seed", i)) for i, t in enumerate(block)]
 
     params = population_params(seeds, cfg, device)
+    full_params = params
+    shards = None if mesh is None else _MemberShards(mesh, population_axes,
+                                                     K)
+    if shards is not None:
+        params = tree_map(shards.local, params)
+        lrs = shards.local(lrs)
     opt_init, opt_update = population_optimizer(
         p0.get("optimizer", "adam"), lrs)
     opt_state = opt_init(params)
     pop_step = build_population_step(cfg, opt_update)
 
-    alive = torch.ones((K,), dtype=torch.bool, device=device)
-    losses = torch.zeros((K,), dtype=torch.float32, device=device)
+    k_here = lrs.shape[0]
+    alive = torch.ones((k_here,), dtype=torch.bool, device=device)
+    losses = torch.zeros((k_here,), dtype=torch.float32, device=device)
     t0 = time.perf_counter()
     data = DeviceData(ds, bs, epochs, device)
     for ep in range(epochs):
@@ -147,6 +184,12 @@ def train_population(block: List[TaskSpec], context: Dict[str, Any], *,
         logits = forward_population(params, cfg, data.x_test)
     acc = torch.mean((logits.argmax(-1)
                       == data.y_test.argmax(-1)[None]).float(), dim=-1)
+    if shards is not None:
+        acc, alive, losses = (shards.gather(t) for t in (acc, alive, losses))
+        with torch.no_grad():
+            for dst, src in zip(tree_leaves(full_params),
+                                tree_leaves(params)):
+                dst.copy_(shards.gather(src))
     acc, alive, losses = (t.cpu().tolist() for t in (acc, alive, losses))
 
     docs = []

@@ -30,6 +30,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.rules import constrain
+
 # ----------------------------------------------------------------------------- init
 
 
@@ -163,7 +165,7 @@ def _project_qkv(params, cfg, x, src):
 
 
 def attention(params, cfg, x, positions, *, kv=None, kv_positions=None,
-              causal=True, window=None, rope=True):
+              causal=True, window=None, rope=True, constrain_kv=False):
     """Full-sequence attention (prefill / encoder / cross).
 
     x: (B, S, d). kv: optional (B, Sk, d) source for cross-attention.
@@ -171,9 +173,11 @@ def attention(params, cfg, x, positions, *, kv=None, kv_positions=None,
     ``cfg.attention_impl == "pallas"`` goes through the flash-attention
     kernel (`kernels/flash_attention`: the CUDA kernel on CUDA tensors, its
     plain version on CPU tensors), which takes positions 0..S-1 as the
-    reference's kernel does; everything else through `_sdpa_xla`. The
-    reference's sharding hint (`constrain_kv`) is dropped: it is a no-op on
-    one device.
+    reference's kernel does; everything else through `_sdpa_xla`. With
+    ``constrain_kv`` the emitted k/v take the prefill-cache layout (batch
+    over data, head_dim over model; `sharding.rules.constrain`): only
+    where they are DTensors under an ambient mesh, else they are returned
+    as they are.
     """
     B, S, d = x.shape
     hd, nh = cfg.resolved_head_dim, cfg.n_heads
@@ -183,6 +187,9 @@ def attention(params, cfg, x, positions, *, kv=None, kv_positions=None,
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, kv_positions, cfg.rope_theta)
+    if constrain_kv:
+        k = constrain(k, ("batch", None, None, "model"))
+        v = constrain(v, ("batch", None, None, "model"))
     if cfg.attention_impl == "pallas" and kv is None and causal:
         from repro_torch.kernels.flash_attention import ops as fa_ops
         out = fa_ops.flash_attention(q, k, v, causal=True, window=window)

@@ -38,6 +38,7 @@ import math
 import torch
 
 from repro_torch.models.layers import ACTIVATIONS, dense_init, uniform_init
+from repro_torch.sharding.rules import constrain
 
 
 def init_moe(gen: torch.Generator, cfg) -> dict:
@@ -102,12 +103,14 @@ def moe_ffn(params, cfg, x, *, want_aux: bool = False):
     index = slot[..., None].expand(B, S * K, d)
     buf = torch.zeros((B, Ep * C, d), dtype=x.dtype, device=x.device) \
         .scatter_add(1, index, src).view(B, Ep, C, d)
+    buf = constrain(buf, ("batch", "model", None, None))         # (B,E,C,d)
 
     # --- experts: (B, Ep, C, d) x (Ep, d, ff) ---
     act = ACTIVATIONS[cfg.act]
     h = act(torch.einsum("becd,edf->becf", buf, params["w_gate"])) \
         * torch.einsum("becd,edf->becf", buf, params["w_up"])
     out_buf = torch.einsum("becf,efd->becd", h, params["w_down"])
+    out_buf = constrain(out_buf, ("batch", "model", None, None))
 
     # --- combine ---
     gathered = torch.gather(out_buf.reshape(B, Ep * C, d), 1, index)

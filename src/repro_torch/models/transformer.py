@@ -63,6 +63,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
+from repro_torch.sharding.rules import constrain
 
 
 def paged_supported(cfg) -> bool:
@@ -181,23 +182,26 @@ def _logits(params, cfg, x):
         # padded vocab entries can never win argmax / contribute to lse
         pad = torch.arange(cfg.padded_vocab_size, device=out.device)
         out = out.masked_fill(pad >= cfg.vocab_size, -1e30)
-    return out
+    # vocab-sharded logits on a mesh (a no-op without one)
+    return constrain(out, ("batch", None, "model"))
 
 
 # ============================================================== full sequence
 
 def _layer_full(lp, cfg, ltype, x, positions, window, enc=None,
-                want_aux=False):
+                want_aux=False, want_cache=False):
     """One layer, full sequence. `enc` is (encoder output, its positions)
     for an encoder-decoder's decoder, else None. Returns (x, cache at
-    natural length, aux or None)."""
+    natural length, aux or None); `want_cache` (the prefill) puts the
+    emitted k/v in the prefill-cache layout on a mesh."""
     h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
     if ltype == "ssm":
         out, cache = M2.mamba2_forward(lp["mamba"], cfg, h)
         return x + out, cache, None
     if ltype == "attn":
         att, (k, v) = L.attention(lp["attn"], cfg, h, positions,
-                                  causal=True, window=window)
+                                  causal=True, window=window,
+                                  constrain_kv=want_cache)
         cache = {"k": k, "v": v,
                  "pos": torch.broadcast_to(positions, x.shape[:2])
                  .to(torch.int32)}
@@ -208,7 +212,8 @@ def _layer_full(lp, cfg, ltype, x, positions, window, enc=None,
         h = L.apply_rms_norm(lp["norm_cross"], x, cfg.norm_eps)
         catt, (ck, cv) = L.attention(lp["cross_attn"], cfg, h, positions,
                                      kv=enc[0], kv_positions=enc[1],
-                                     causal=False, rope=False)
+                                     causal=False, rope=False,
+                                     constrain_kv=want_cache)
         x = x + catt
         cache["cross_k"], cache["cross_v"] = ck, cv
     h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
@@ -243,7 +248,7 @@ def _inputs_to_x(params, cfg, batch):
         n_prefix = pre.shape[1]
         x = torch.cat([pre, x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    return x, positions, n_prefix
+    return constrain(x, ("batch", None, None)), positions, n_prefix
 
 
 def _stack_inputs(params, cfg, batch):
@@ -269,10 +274,21 @@ def forward_prefill(params, cfg, batch, window=None):
     window = cfg.window if window is None else window
     x, positions, n_prefix, enc = _stack_inputs(params, cfg, batch)
     caches = []
-    for lp, t in zip(params["layers"], cfg.layer_types()):
-        x, c, _ = _layer_full(lp, cfg, t, x, positions, window, enc)
+    n_pat = len(cfg.block_pattern)
+    for li, (lp, t) in enumerate(zip(params["layers"], cfg.layer_types())):
+        x, c, _ = _layer_full(lp, cfg, t, x, positions, window, enc,
+                              want_cache=True)
         caches.append(c)
+        if li < cfg.n_blocks * n_pat and li % n_pat == n_pat - 1:
+            x = _seq_parallel(cfg, x)
     return _head(params, cfg, x, n_prefix), caches
+
+
+def _seq_parallel(cfg, x):
+    """After each pattern block, under cfg.seq_parallel: Megatron-SP, the
+    residual stream seq-sharded over "model" on a mesh (the reference
+    constrains its scan carry so); a no-op without one."""
+    return constrain(x, ("batch", "model", None)) if cfg.seq_parallel else x
 
 
 def _zero_aux(device):
@@ -304,7 +320,13 @@ def forward_train(params, cfg, batch, window=None):
     (`torch.utils.checkpoint`, non-reentrant; the aux pass through it), as
     the reference wraps its block function in `jax.checkpoint`. The
     encoder is not recomputed (the reference scans it outside the
-    checkpoint too). `scan_layers` and `seq_parallel` change nothing here.
+    checkpoint too). `scan_layers` changes nothing here: the layer loop is
+    Python and has no scan to unroll. `seq_parallel` and the reference's
+    other sharding hints (`sharding.rules.constrain`: embeddings, logits,
+    MoE buffers) lay out DTensor activations under an ambient mesh and
+    return their input unchanged otherwise; the mesh train step
+    (`sharding.spmd`) runs the layers on local tensors, where they do
+    nothing.
     Under attention_impl="pallas" the kernels run the forward, and a
     backward through them raises (`kernels.refuse_grad`), as the
     reference's does."""
@@ -319,6 +341,7 @@ def forward_train(params, cfg, batch, window=None):
                 window, enc)
         x, aux = (checkpoint(_run_layers, x, aux, *args, use_reentrant=False)
                   if cfg.remat else _run_layers(x, aux, *args))
+        x = _seq_parallel(cfg, x)
     x, aux = _run_layers(x, aux, layers[n_scan:], types[n_scan:], cfg,
                          positions, window, enc)
     n_ffn_layers = sum(1 for t in types if t != "ssm")

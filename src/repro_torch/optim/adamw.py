@@ -9,6 +9,10 @@ under `torch.no_grad()`: the moments and the parameters are overwritten
 state and the same parameter tree are returned. The step counter is a 0-d
 int32 tensor on the CPU, so the schedule and the bias corrections cost the
 card no sync; the gradient norm stays on the parameters' device.
+
+On DTensor leaves (`sharding.spmd`) the moments take each param's layout,
+the gradients are brought to it, the global norm sums every leaf over its
+shards, and the elementwise update runs on the local shards in place.
 """
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map
+
+from repro_torch.sharding import spmd
 
 CHUNK_ELEMENTS = 1 << 27   # leaves updated together: bounds the temporaries
 
@@ -32,8 +38,7 @@ def global_norm(tree) -> torch.Tensor:
     millions of elements drifts on the CPU (1e-2 relative at 2^22 equal
     elements; 2e-4 for a full-width qwen3-1.7b gradient), where the card's
     agrees with a float64 norm within 1e-7."""
-    norms = [torch.linalg.vector_norm(x, dtype=torch.float64)
-             for x in tree_leaves(tree)]
+    norms = spmd.leaf_norms(tree_leaves(tree))
     return torch.linalg.vector_norm(torch.stack(norms)).to(torch.float32)
 
 
@@ -92,22 +97,25 @@ def adamw(lr: Callable | float, *, b1=0.9, b2=0.95, eps=1e-8,
         lr, dtype=torch.float32))
 
     def init(params):
-        def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        def zeros(p):    # a DTensor param gives a DTensor of its layout
+            return torch.zeros_like(p, dtype=torch.float32)
         return AdamWState(step=torch.zeros((), dtype=torch.int32),
                           mu=tree_map(zeros, params),
                           nu=tree_map(zeros, params))
 
     @torch.no_grad()
     def update(grads, state, params):
-        step = state.step + 1
+        with spmd.host_scalars():
+            step = state.step + 1
+            bc1, bc2 = _bias_correction(b1, step), _bias_correction(b2, step)
+            lr_t = lr_fn(step)
+            lr_f = float(lr_t)
         leaves = aligned_leaves(params, grads, state.mu, state.nu)
+        leaves[1] = spmd.match_placements(leaves[1], leaves[0])
         gnorm = global_norm(leaves[1])
         scale = (torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0)
                  if clip_norm is not None else None)
-        bc1, bc2 = _bias_correction(b1, step), _bias_correction(b2, step)
-        lr_t = lr_fn(step)
-        lr_f = float(lr_t)
+        leaves = [[spmd.local(x) for x in ls] for ls in leaves]
         for ps, g, m, v in _chunks(*leaves):
             g = [x.float() for x in g]
             if scale is not None:

@@ -1,0 +1,203 @@
+"""How a step runs on DTensor leaves: the port's counterpart of jit with
+in/out shardings.
+
+Params and optimizer state live as DTensors laid out by the rule engine
+(`rules.param_specs`), the batch as a DTensor sharded over the batch axes
+(`rules.batch_specs`). A step computes on local tensors with the same code
+as on one device:
+
+- each parameter is all-gathered to a full local tensor (`redistribute` to
+  Replicate, then `to_local`) whose gradient is declared Partial(sum) over
+  the mesh dims the batch is sharded on and Replicate elsewhere, so the
+  backward all-reduces it over those dims and slices it back to the
+  parameter's own placements (ZeRO-3 style over "model": the model axis
+  shards storage, and every rank of it runs the same rows);
+- each rank runs the model on its own rows of the batch (`to_local`);
+- the loss a rank differentiates is its mean over its rows divided by the
+  number of batch shards, so the summed gradient is the global mean's;
+- elementwise optimizer updates run on the local shards in place
+  (`local`), and the global norm sums each leaf's squares over the dims it
+  is sharded on.
+
+Without DTensors none of this runs: the one-device arithmetic is unchanged.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, List
+
+import torch
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
+
+from repro_torch.sharding import rules as R
+
+BATCH_AXES = ("pod", "data")
+
+
+def is_dtensor(x) -> bool:
+    # a DTensor is a Tensor subclass: plain tensors never import the module
+    if type(x) is torch.Tensor or not isinstance(x, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def any_dtensor(tree) -> bool:
+    return any(is_dtensor(x) for x in tree_leaves(tree))
+
+
+def local(x):
+    """The local shard of a DTensor (it shares the DTensor's storage, so an
+    in-place update of it updates the DTensor); any other value as is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def batch_placements(tree):
+    """(mesh, placements of a gradient summed over the batch shards):
+    Partial() on every mesh dim that shards some DTensor leaf of `tree`
+    (the batch), Replicate() elsewhere; (None, None) without DTensors."""
+    dts = [x for x in tree_leaves(tree) if is_dtensor(x)]
+    if not dts:
+        return None, None
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = dts[0].device_mesh
+    sharded = [any(isinstance(x.placements[i], Shard) for x in dts)
+               for i in range(mesh.ndim)]
+    return mesh, tuple(Partial() if s else Replicate() for s in sharded)
+
+
+def n_shards(mesh, placements) -> int:
+    """How many batch shards the Partial dims of `placements` hold."""
+    from torch.distributed.tensor import Partial
+    n = 1
+    for i, p in enumerate(placements):
+        if isinstance(p, Partial):
+            n *= mesh.size(i)
+    return n
+
+
+def gather_params(leaves: List, grad_placements) -> List:
+    """Each DTensor leaf as a full local tensor (differentiable: its
+    gradient is read as `grad_placements` and brought back to the leaf's
+    placements in the backward); other leaves as they are."""
+    from torch.distributed.tensor import Replicate
+    out = []
+    for p in leaves:
+        if is_dtensor(p):
+            full = p.redistribute(p.device_mesh,
+                                  [Replicate()] * p.device_mesh.ndim)
+            p = full.to_local(grad_placements=grad_placements)
+        out.append(p)
+    return out
+
+
+def reduce_mean(values: Dict[str, torch.Tensor], mesh, placements):
+    """Each scalar's mean over the batch shards (one all-reduce): the
+    global value of a per-rank mean over equal row counts."""
+    from torch.distributed.tensor import DTensor
+    keys = list(values)
+    vec = torch.stack([values[k].float().reshape(()) for k in keys])
+    vec = vec / n_shards(mesh, placements)
+    full = DTensor.from_local(vec, mesh, placements).full_tensor()
+    return {k: full[i] for i, k in enumerate(keys)}
+
+
+def leaf_norms(leaves: List) -> List[torch.Tensor]:
+    """The float64 2-norm of every leaf (of a DTensor: over all of its
+    shards, the squares of each group of leaves sharded alike summed in one
+    all-reduce)."""
+    norms = [torch.linalg.vector_norm(local(x), dtype=torch.float64)
+             for x in leaves]
+    if not any(is_dtensor(x) for x in leaves):
+        return norms
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    groups: Dict = {}
+    for i, x in enumerate(leaves):
+        if is_dtensor(x) and any(isinstance(p, Shard) for p in x.placements):
+            key = (id(x.device_mesh), tuple(isinstance(p, Shard)
+                                            for p in x.placements))
+            groups.setdefault(key, (x.device_mesh, []))[1].append(i)
+    for (_, shard_dims), (mesh, idx) in groups.items():
+        sq = torch.stack([norms[i] ** 2 for i in idx])
+        pl = [Partial() if s else Replicate() for s in shard_dims]
+        total = DTensor.from_local(sq, mesh, pl).full_tensor()
+        for j, i in enumerate(idx):
+            norms[i] = torch.sqrt(total[j])
+    return norms
+
+
+def match_placements(grads: List, params: List) -> List:
+    """Each DTensor gradient redistributed to its parameter's placements
+    (a Partial gradient is reduced)."""
+    out = []
+    for g, p in zip(grads, params):
+        if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+            g = g.redistribute(p.device_mesh, p.placements)
+        out.append(g)
+    return out
+
+
+def batch_rows(batch: Dict, lo: int, hi: int) -> Dict:
+    """Rows [lo, hi) of the global batch (a microbatch): plain tensors are
+    sliced; a DTensor leaf is gathered, sliced and laid out again by the
+    batch rule for its new row count (`rules.batch_specs`)."""
+    from torch.distributed.tensor import distribute_tensor
+    out = {}
+    for k, v in batch.items():
+        if is_dtensor(v):
+            mesh = v.device_mesh
+            rows = v.full_tensor()[lo:hi]
+            spec = R.batch_specs(None, {k: rows}, mesh)[k]
+            v = distribute_tensor(rows, mesh, R.to_placements(mesh, spec),
+                                  src_data_rank=None)
+        else:
+            v = v[lo:hi]
+        out[k] = v
+    return out
+
+
+def host_scalars():
+    """A context for the optimizer's host-side scalars (the step counter,
+    the schedule, the bias corrections): they stay real CPU values even
+    inside a fake tensor mode (the dry-run), where reading one back with
+    float() would otherwise fail."""
+    try:
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+    except ImportError:     # no fake tensors in this build
+        return contextlib.nullcontext()
+    return unset_fake_temporarily()
+
+
+def call_local(fn, args, out_specs):
+    """Run `fn` (a serving step: prefill or decode) on each rank's rows:
+    every DTensor argument is gathered over its non-batch mesh dims (it
+    keeps Shard(0) on the batch axes "pod"/"data", so a rank reads its own
+    rows of the batch and the caches and all of each parameter), `fn` runs
+    on the local tensors, and each output, batch-first, is laid out by
+    `out_specs` (a tree of specs, `rules`). Plain arguments pass as they
+    are; without DTensor arguments this is `fn(*args)`."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    leaves, tdef = tree_flatten(args)
+    dts = [x for x in leaves if is_dtensor(x)]
+    if not dts:
+        return fn(*args)
+    mesh = dts[0].device_mesh
+    names = mesh.mesh_dim_names
+    rows = [any(x.placements[i] == Shard(0) for x in dts)
+            and names[i] in BATCH_AXES for i in range(mesh.ndim)]
+
+    def to_local(x):
+        if not is_dtensor(x):
+            return x
+        pl = [p if (rows[i] and p == Shard(0)) else Replicate()
+              for i, p in enumerate(x.placements)]
+        return x.redistribute(mesh, pl).to_local()
+    out = fn(*tree_unflatten([to_local(x) for x in leaves], tdef))
+    out_pl = [Shard(0) if r else Replicate() for r in rows]
+    o_leaves, o_def = tree_flatten(out)
+    specs = R.spec_leaves(out_specs)
+    if len(specs) != len(o_leaves):
+        raise ValueError(f"{len(o_leaves)} outputs, {len(specs)} specs")
+    placed = [DTensor.from_local(o, mesh, out_pl).redistribute(
+        mesh, R.to_placements(mesh, s)) for o, s in zip(o_leaves, specs)]
+    return tree_unflatten(placed, o_def)

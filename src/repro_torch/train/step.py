@@ -6,15 +6,21 @@ trained params serve as they are. A step differentiates with respect to
 detached aliases of the leaves (`requires_grad_()` on `p.detach()`, which
 shares p's storage), calls `torch.autograd.grad`, and hands the gradients
 to the optimizer, which updates the params in place.
+
+On a mesh (DTensor params and batch, `launch.distributed`) the same step
+runs on local tensors: `sharding.spmd` gathers the params, feeds each rank
+its rows, and returns gradients laid out as the params are and metrics
+averaged over the batch shards.
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
-from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from repro_torch.models import transformer as T
+from repro_torch.sharding import spmd
 from repro_torch.train.losses import lm_loss
 
 METRIC_KEYS = ("xent", "loss", "load_balance", "router_z", "dropped_frac")
@@ -23,16 +29,37 @@ METRIC_KEYS = ("xent", "loss", "load_balance", "router_z", "dropped_frac")
 def value_and_grad(loss_fn: Callable, params, *args):
     """(loss, aux, grads) of `loss_fn(params, *args) -> (loss, aux)`: aux
     detached, grads a list in the order of the params' leaves (zeros for a
-    leaf the loss does not reach, as jax.grad gives)."""
+    leaf the loss does not reach, as jax.grad gives). With DTensor leaves
+    (`sharding.spmd`) the loss and aux are the global means and each
+    gradient a DTensor laid out as its param."""
     leaves, spec = tree_flatten(params)
     live = [p.detach().requires_grad_() for p in leaves]
+    mesh, grad_pl = spmd.batch_placements(args)
+    if mesh is None and spmd.any_dtensor(leaves):
+        mesh, grad_pl = leaves[0].device_mesh, None
     with torch.enable_grad():
-        loss, aux = loss_fn(tree_unflatten(live, spec), *args)
-        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        if mesh is None:
+            loss, aux = loss_fn(tree_unflatten(live, spec), *args)
+            grads = torch.autograd.grad(loss, live, allow_unused=True)
+        else:
+            if grad_pl is None:    # batch replicated: no batch shards
+                from torch.distributed.tensor import Replicate
+                grad_pl = (Replicate(),) * mesh.ndim
+            full = spmd.gather_params(live, grad_pl)
+            local_args = tree_map(spmd.local, args)
+            loss, aux = loss_fn(tree_unflatten(full, spec), *local_args)
+            grads = torch.autograd.grad(
+                loss / spmd.n_shards(mesh, grad_pl), live, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     aux = {k: v.detach() for k, v in aux.items()}
-    return loss.detach(), aux, grads
+    loss = loss.detach()
+    if mesh is not None:
+        grads = spmd.match_placements(grads, leaves)
+        red = spmd.reduce_mean({"_loss": loss, **aux}, mesh, grad_pl)
+        loss = red.pop("_loss")
+        aux = {k: red[k] for k in aux}
+    return loss, aux, grads
 
 
 def build_lm_train_step(cfg, opt_update: Callable, *, microbatches: int = 1,
@@ -60,14 +87,16 @@ def build_lm_train_step(cfg, opt_update: Callable, *, microbatches: int = 1,
             rows = b // microbatches
             grads, metrics = None, {k: 0.0 for k in METRIC_KEYS}
             for i in range(microbatches):
-                mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+                mb = spmd.batch_rows(batch, i * rows, (i + 1) * rows)
                 _, m, g = value_and_grad(loss_fn, params, mb)
                 if grads is None:
                     grads = [x.to(torch.float32, copy=True) for x in g]
                 else:
-                    torch._foreach_add_(grads, g)
+                    torch._foreach_add_([spmd.local(x) for x in grads],
+                                        [spmd.local(x) for x in g])
                 metrics = {k: metrics[k] + m[k] for k in METRIC_KEYS}
-            torch._foreach_div_(grads, float(microbatches))
+            torch._foreach_div_([spmd.local(x) for x in grads],
+                                float(microbatches))
             metrics = {k: v / microbatches for k, v in metrics.items()}
         params, opt_state, opt_metrics = opt_update(
             tree_unflatten(grads, spec), opt_state, params)

@@ -1,0 +1,177 @@
+"""The port's dry-run (`repro_torch.launch.dryrun`): every step run on
+fake tensors as rank 0 of a fake process group, with torch's flop,
+collective and memory counters, and the CLI on full configs on the debug
+meshes (the reference's tests/test_sharding_rules.py reduced cases and
+tests/test_dryrun_small.py CLI cases). `constrain` on a fake (2, 2) mesh.
+
+Flops: the mesh step is data parallel over "pod" x "data" and every rank
+of the "model" axis runs the same rows (`sharding.spmd`), so a case's
+per-device flops times the ranks equal the one-rank count of the same step
+times the model axis size (the replication factor, 2 on the debug
+meshes), within 1%.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+import torch.distributed as dist
+
+from _torch_host import one_torch_thread  # noqa: F401
+from repro_torch.configs import registry
+from repro_torch.launch import dryrun as DR
+from repro_torch.launch import mesh as M
+from repro_torch.launch import shapes as S
+from repro_torch.sharding import rules as R
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLOPS_REL = 0.01
+ARCHS = ["qwen3-1.7b", "granite-moe-1b-a400m", "mamba2-130m",
+         "recurrentgemma-9b", "seamless-m4t-large-v2"]
+
+
+@pytest.fixture(scope="module")
+def debug_mesh():
+    """The (2, 2) debug mesh on a fake process group of 4 ranks."""
+    DR.fake_group(4)
+    yield M.make_debug_mesh(device_type="cpu")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.fixture
+def small(monkeypatch):
+    for name, c in list(S.SHAPES.items()):
+        monkeypatch.setitem(S.SHAPES, name,
+                            S.ShapeCase(c.name, c.kind, 64, 8))
+
+
+def reduced(arch, shape):
+    return registry.get(arch, reduced=True).replace(
+        window=None if shape == "train_4k" else 16)
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_reduced_case_runs_on_debug_mesh(debug_mesh, small, arch, shape):
+    kind = S.SHAPES[shape].kind
+    case, m = DR.measure_case(reduced(arch, shape), shape, debug_mesh,
+                              microbatches=2 if kind == "train" else None)
+    assert m["flops"] > 0
+    assert m["memory"]["peak_bytes"] > 0
+    colls = m["colls"]
+    assert set(DR.COLLECTIVES) <= set(colls)
+    assert colls["all-gather"]["count"] > 0     # params gathered over model
+    if kind == "train":
+        assert colls["all-reduce"]["count"] >= 1     # the gradients
+        assert colls["all-reduce"]["bytes"] > 0
+
+
+def one_rank_flops(cfg, shape, microbatches):
+    """The same step without a mesh, on fake tensors, the global batch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._pytree import tree_map
+    from torch.utils.flop_counter import FlopCounterMode
+    case = S.make_case(cfg, shape, R.mesh_like((1,), ("data",)),
+                       microbatches=microbatches)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        args = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype)
+                        if isinstance(x, torch.Tensor) and x.is_meta else x,
+                        case["args"])
+        with FlopCounterMode(display=False) as fc:
+            if S.SHAPES[shape].kind == "train":
+                case["fn"](*args)
+            else:
+                with torch.no_grad():
+                    case["fn"](*args)
+    return fc.get_total_flops()
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_flops_per_device_times_ranks_is_one_rank_times_replication(
+        debug_mesh, small, shape):
+    cfg = reduced("qwen3-1.7b", shape)
+    mb = 2 if S.SHAPES[shape].kind == "train" else None
+    _, m = DR.measure_case(cfg, shape, debug_mesh, microbatches=mb)
+    one = one_rank_flops(cfg, shape, mb)
+    replication = R.mesh_axis_size(debug_mesh, "model")
+    assert abs(m["flops"] * debug_mesh.size() - one * replication) \
+        <= FLOPS_REL * one * replication
+
+
+@pytest.mark.parametrize("dims,shape,want", [
+    (("batch", None, "model"), (4, 6, 8), ("data", None, "model")),
+    (("batch", None, "model"), (3, 6, 7), (None, None, None)),
+    (("batch", "model", None), (2, 6, 8), ("data", "model", None)),
+    (("batch", "model", None), (2, 5, 8), ("data", None, None)),
+    (("batch", None, None, "model"), (4, 3, 2, 16),
+     ("data", None, None, "model")),
+    ((None, "model"), (4, 8), (None, "model")),
+])
+def test_constrain_gives_the_reference_spec(debug_mesh, dims, shape, want):
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    x = distribute_tensor(torch.ones(shape), debug_mesh,
+                          [Replicate(), Replicate()])
+    assert R.constrain(x, dims) is x           # no ambient mesh
+    with R.mesh_context(debug_mesh):
+        y = R.constrain(x, dims)
+    assert tuple(y.placements) == R.to_placements(debug_mesh, want)
+    assert torch.equal(y.full_tensor(), x.full_tensor())
+    plain = torch.ones(shape)
+    with R.mesh_context(debug_mesh):
+        assert R.constrain(plain, dims) is plain
+
+
+def test_cli_exits_1_on_a_failed_case(monkeypatch, tmp_path, capsys):
+    def boom(*a, **k):
+        raise RuntimeError("injected")
+    monkeypatch.setattr(DR, "run_case", boom)
+    with pytest.raises(SystemExit) as e:
+        DR.main(["--arch", "qwen3-1.7b", "--shape", "decode_32k",
+                 "--debug-mesh", "--out", str(tmp_path)])
+    assert e.value.code == 1
+    assert "1 failures" in capsys.readouterr().out
+    assert not dist.is_initialized()
+
+
+def run_cli(args, tmp_path, timeout=120):
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                           *args, "--out", str(tmp_path)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+RECORD_KEYS = {"flops_per_device", "bytes_accessed_per_device",
+               "collectives", "collective_bytes_per_device", "memory",
+               "meta", "param_count", "active_param_count",
+               "corrected_per_device", "n_devices", "arch", "shape", "mesh"}
+
+
+@pytest.mark.parametrize("arch,shape", [("qwen3-1.7b", "decode_32k"),
+                                        ("mamba2-130m", "long_500k")])
+def test_dryrun_cli_debug_mesh(tmp_path, arch, shape):
+    r = run_cli(["--arch", arch, "--shape", shape, "--debug-mesh"], tmp_path)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    out = json.load(open(tmp_path / f"{arch}__{shape}__pod1.json"))
+    assert RECORD_KEYS <= set(out)
+    assert out["n_devices"] == 4
+    assert out["flops_per_device"] > 0
+    assert out["corrected_per_device"]["flops"] == out["flops_per_device"]
+    assert out["bytes_accessed_per_device"] is None
+    assert out["memory"]["temp_size_in_bytes"] is not None
+    assert set(out["collectives"]) >= set(DR.COLLECTIVES)
+
+
+def test_dryrun_multipod_debug_mesh(tmp_path):
+    r = run_cli(["--arch", "granite-moe-1b-a400m", "--shape", "train_4k",
+                 "--debug-mesh", "--multi-pod-only"], tmp_path)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    out = json.load(open(tmp_path /
+                         "granite-moe-1b-a400m__train_4k__pod2.json"))
+    assert out["n_devices"] == 8
+    assert out["collective_bytes_per_device"] > 0   # grad all-reduce exists
+    assert out["meta"]["microbatches"] == S.TRAIN_MICROBATCHES[
+        "granite-moe-1b-a400m"]

@@ -56,3 +56,23 @@ def test_no_import_statement_reaches_jax_or_reference(path):
                 and node.level == 0 and _forbidden(node.module):
             bad.append(node.module)
     assert not bad, f"{path.name} imports {bad}"
+
+
+_ALONE = r"""
+import importlib, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_dryrun_alone_loads_no_jax_and_no_reference():
+    """The dry-run's entry point imported first and alone in a fresh
+    interpreter (it pulls in the rest of the distribution slice)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _ALONE,
+                           "repro_torch.launch.dryrun"], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -261,5 +261,10 @@ def test_population_refuses_a_mesh(dataset):
     block = SearchSpace(hidden_layer_counts=(1,), hidden_widths=(8,),
                         activation_sets=(("relu",),), epochs=1,
                         seeds=(0, 1)).tasks("s")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        train_population(block, _ctx(dataset), mesh=object())
+    # a mesh is taken since the port is distributed; one whose population
+    # axes do not divide the block is refused, where the reference would
+    # fail to shard the members
+    from repro_torch.sharding.rules import mesh_like
+    with pytest.raises(ValueError, match="does not divide"):
+        train_population(block, _ctx(dataset),
+                         mesh=mesh_like((4,), ("data",)))
