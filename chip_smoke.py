@@ -259,6 +259,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    train_4k on (2, 16, 16) (fake process groups of 256 and 512 ranks on
    the host, nothing allocated): exit 0 and flops_per_device > 0. The
    process group is destroyed at the end.
+29. Tensor parallelism, after phase 28: two model ranks, each a process
+   of its own on the one card (NCCL refuses two ranks on one device;
+   gloo all-reduces CUDA tensors, first probed), joined by
+   `tcp://127.0.0.1:<free port>` on a (1, 1, 2) ("pod", "data", "model")
+   mesh: `train_sharded` on phase 20's model, weights, batches, schedule
+   and rate, f32 with TF32 off, runs tensor parallel (`sharding.tp`: each
+   rank its 8 of 16 query heads and 4 of 8 kv heads, half the FFN columns
+   and half the vocabulary; the batch axes have size 1, so every
+   collective is an all-reduce and every shard is cut locally from the
+   same seeded init). Both ranks' losses within 1e-4 relative of phase
+   20's, exactly 4 x 28 + 5 model-axis all-reduces a step, and under
+   no_grad each rank's attention_impl="pallas" forward on its local heads
+   (28 flash launches a rank) within 1e-3 of "xla", the logits (B, S,
+   V/2). Logs each rank's step ms, per-rank peak memory (the set-up's and
+   the steps') and rank 0's profiled step beside phase 20's. The ranks
+   are joined with a timeout and killed if still alive.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; above it
 stand the card's name and power limit and one JSON line with each
@@ -2775,6 +2791,268 @@ def distribution_phase(device, card: str, tr: dict, pop: dict):
     log(f"  phase 28 took {time.perf_counter() - t_dist:.1f} s")
 
 
+# ---------------------------------------------------- tensor parallelism
+
+TP_RANKS = 2                       # phase 29: two model ranks on the card
+TP_REL = 1e-4                      # their losses against phase 20's
+TP_TIMEOUT_S = 600
+
+
+class peak_batches(timed_batches):
+    """timed_batches that also reads and resets the peak device memory at
+    each `next()`: `peaks[0]` is the set-up's (the full seeded init, then
+    the shards), `peaks[i]` step i's up to its loss read."""
+
+    def __init__(self, batches, device):
+        super().__init__(batches)
+        self.device, self.peaks = device, []
+
+    def __next__(self):
+        sync_device(self.device)
+        self.stamps.append(time.perf_counter())
+        self.peaks.append(peak_bytes(self.device, reset=True))
+        return next(self.batches)
+
+
+def sync_device(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def peak_bytes(device, reset=False) -> int:
+    """The device's peak allocated bytes since the last reset (0 on the
+    CPU, where a rehearsal runs)."""
+    if device.type != "cuda":
+        return 0
+    peak = torch.cuda.max_memory_allocated()
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return peak
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tp_rank(rank: int, port: int, out_dir: str, device_type: str):
+    """Phase 29, one model rank, in a process of its own: gloo on the card
+    (NCCL refuses two ranks on one device; gloo all-reduces CUDA tensors),
+    a (1, 1, 2) ("pod", "data", "model") mesh, `train_sharded` on phase
+    20's model, weights, batches and schedule, tensor parallel; a timed and
+    a profiled step counting the model-axis all-reduces; then the
+    "pallas" forward under no_grad on this rank's heads against "xla".
+    Writes rank<r>.json (its "error" on a failure) and exits non-zero on a
+    failure."""
+    import traceback
+    out = {"rank": rank}
+    try:
+        out.update(tp_rank_run(rank, port, torch.device(device_type)))
+    except Exception:
+        out["error"] = traceback.format_exc()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    if "error" in out:
+        raise SystemExit(1)
+
+
+def tp_rank_run(rank: int, port: int, device) -> dict:
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import distributed as D
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import linear_warmup_cosine
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.tp import TensorParallel
+    from repro_torch.train.step import build_lm_train_step
+    if device.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=TP_RANKS, rank=rank)
+    try:
+        mesh = init_device_mesh(device.type, (1, 1, TP_RANKS),
+                                mesh_dim_names=("pod", "data", "model"))
+        probe = torch.full((4,), float(rank + 1), device=device)
+        dist.all_reduce(probe, group=mesh.get_group("model"))
+        want = float(sum(range(1, TP_RANKS + 1)))
+        if probe.tolist() != [want] * 4:
+            raise AssertionError(f"gloo all-reduce on {device}: "
+                                 f"{probe.tolist()}")
+        cfg = full_config("float32")
+        batches = token_batches(cfg, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                                device)
+        data = peak_batches(batches, device)
+        sync_device(device)
+        peak_bytes(device, reset=True)
+        params, opt, losses = D.train_sharded(
+            cfg, mesh, data, num_steps=TRAIN_STEPS, lr=TRAIN_LR, seed=SEED,
+            log_every=1, verbose=False)
+        sync_device(device)
+        ends = data.stamps[1:] + [time.perf_counter()]
+        ms = [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+        peaks = data.peaks + [peak_bytes(device)]
+
+        tp = TensorParallel.build(cfg, mesh)
+        _, opt_update = adamw(linear_warmup_cosine(
+            TRAIN_LR, max(TRAIN_STEPS // 10, 1), TRAIN_STEPS))
+        step = build_lm_train_step(cfg, opt_update, tp=tp)
+        b_specs = R.batch_specs(cfg, batches[0], mesh)
+        state = {"params": params, "opt": opt}
+
+        def one_step():
+            state["params"], state["opt"], _ = step(
+                state["params"], state["opt"],
+                D.put_batch(mesh, b_specs, batches[1]))
+        # rank 0 profiles (two calls of the step), rank 1 steps alongside
+        prof = None
+        if device.type == "cuda" and rank == 0:
+            prof = profile_steps(one_step, 1)
+        else:
+            one_step()
+            one_step()
+        per_step = tp.all_reduces / 2
+        mib_per_step = tp.all_reduce_bytes / 2 / 2**20
+        params = state["params"]
+        del opt, state
+
+        leaves, spec = tree_flatten(params)
+        tokens = token_batches(cfg, 1, 2, EVAL_SEQ, device,
+                               seed=SEED + 5)[0]
+        with torch.no_grad():
+            local = tree_unflatten(spmd.split_params(
+                leaves, R.leaf_paths(params), (Replicate(),) * mesh.ndim,
+                tp), spec)
+            ref, _ = T.forward_train(local, cfg, tokens, tp=tp)
+            flash_attention.launches = 0
+            got, _ = T.forward_train(
+                local, cfg.replace(attention_impl="pallas"), tokens, tp=tp)
+            sync_device(device)
+        launches = flash_attention.launches
+        err = float((got - ref).abs().max())
+        return {"losses": losses, "ms": ms,
+                "peaks_gib": [p / 2**30 for p in peaks],
+                "all_reduces_per_step": per_step,
+                "all_reduce_mib_per_step": mib_per_step,
+                "profile": None if prof is None else {
+                    k: prof[k] for k in ("step_ms", "device_ms",
+                                         "busy_share", "top")},
+                "local_heads": tp.local_heads(cfg),
+                "local_kv_heads": cfg.n_kv_heads // TP_RANKS if tp.kv
+                else len(tp.kv_heads(cfg)),
+                "logits_shape": list(got.shape),
+                "pallas_launches": launches, "pallas_max_abs_err": err}
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_phase(device, card: str, tr: dict) -> dict:
+    """Phase 29: two model ranks, each a process on the one card, train
+    phase 20's model tensor parallel; returns both ranks' results after
+    the checks."""
+    import multiprocessing as mp
+    cfg = full_config("float32")
+    out_dir = ROOT / "build" / "chip_smoke_tp"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.glob("rank*.json"):
+        f.unlink()
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    port = free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=tp_rank,
+                         args=(r, port, str(out_dir), device.type))
+             for r in range(TP_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(TP_TIMEOUT_S - (time.perf_counter() - t0), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r, p in enumerate(procs):
+        path = out_dir / f"rank{r}.json"
+        if not path.exists():
+            raise AssertionError(f"phase 29 rank {r}: no result (exit code "
+                                 f"{p.exitcode}, {wall:.0f} s)")
+        res = json.loads(path.read_text())
+        if "error" in res or p.exitcode != 0:
+            raise AssertionError(f"phase 29 rank {r} (exit code "
+                                 f"{p.exitcode}): {res.get('error')}")
+        ranks.append(res)
+    n_flash = cfg.layer_types().count("attn")
+    want_reduces = 4 * cfg.n_layers + 1 + 4
+    for res in ranks:
+        r = res["rank"]
+        for i, (a, b) in enumerate(zip(res["losses"], tr["losses"])):
+            rel_close(f"phase 29 rank {r} step {i + 1} loss against phase "
+                      "20's", a, b, TP_REL)
+        if res["losses"] != ranks[0]["losses"]:
+            raise AssertionError("phase 29: the ranks logged other losses")
+        if res["all_reduces_per_step"] != want_reduces:
+            raise AssertionError(f"phase 29 rank {r}: "
+                                 f"{res['all_reduces_per_step']} model-axis "
+                                 f"all-reduces a step, expected "
+                                 f"{want_reduces}")
+        if res["pallas_launches"] != n_flash:
+            raise AssertionError(f"phase 29 rank {r}: flash launched "
+                                 f"{res['pallas_launches']} times, expected "
+                                 f"{n_flash}")
+        if not res["pallas_max_abs_err"] <= LOGIT_TOL:
+            raise AssertionError(f"phase 29 rank {r}: 'pallas' logits "
+                                 f"{res['pallas_max_abs_err']} from 'xla', "
+                                 f"beyond {LOGIT_TOL}")
+        if res["logits_shape"][-1] * TP_RANKS != cfg.padded_vocab_size:
+            raise AssertionError(f"phase 29 rank {r}: logits "
+                                 f"{res['logits_shape']}")
+    return {"ranks": ranks, "wall_s": wall, "card": card}
+
+
+def log_tp_phase(tp: dict, tr: dict):
+    """Phase 29's lines."""
+    card = tp["card"]
+    for res in tp["ranks"]:
+        ms = res["ms"]
+        step_ms = float(np.median(ms)) if ms else float("nan")
+        prof = res["profile"] or {}
+        busy = prof.get("busy_share")
+        log(f"  rank {res['rank']}: loss "
+            f"{' '.join(f'{x:.6f}' for x in res['losses'])}")
+        log(f"    step ms {' '.join(f'{x:.3f}' for x in ms)}; median of "
+            f"steps 2-{TRAIN_STEPS} {step_ms:.3f} (phase 20, one process: "
+            f"{tr['step_ms']:.3f}); peak memory {max(res['peaks_gib'][1:]):.2f}"
+            f" GiB over the steps, {res['peaks_gib'][0]:.2f} GiB in the "
+            f"set-up (phase 20: {tr['peak_gib']:.2f} GiB); card: {card}")
+        log(f"    {res['all_reduces_per_step']:.0f} model-axis all-reduces "
+            f"a step ({res['all_reduce_mib_per_step']:.1f} MiB); a profiled "
+            f"step {prof.get('step_ms', float('nan')):.3f} ms, device busy "
+            f"share {busy if busy is None else round(busy, 4)}")
+        for name, t, n in prof.get("top", [])[:5]:
+            log(f"      {t:9.3f} ms  x{n:<5d} {name}")
+        log(f"    'pallas' forward under no_grad on {res['local_heads']} "
+            f"query / {res['local_kv_heads']} kv heads: flash launched "
+            f"{res['pallas_launches']} times, logits "
+            f"{tuple(res['logits_shape'])} within "
+            f"{res['pallas_max_abs_err']:.3g} of 'xla' (tol {LOGIT_TOL})")
+    log(f"  phase 29 took {tp['wall_s']:.1f} s")
+
+
 def main(device: str = "cuda") -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this check runs only "
@@ -3192,6 +3470,13 @@ def main(device: str = "cuda") -> int:
     pop = sweep_phase(device, card)
     fam = family_phases(device, card)
     distribution_phase(device, card, tr, pop)
+    log(f"[29] tensor parallelism: {TP_RANKS} model ranks (processes on the "
+        f"one card, gloo), a (1, 1, {TP_RANKS}) ('pod', 'data', 'model') mesh:"
+        f" full-width, full-depth qwen3-1.7b in f32 (TF32 off), phase 20's "
+        f"weights, batches and schedule, {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens; losses within {TP_REL} "
+        f"relative of phase 20's; card: {card}")
+    log_tp_phase(tp_phase(device, card, tr), tr)
     g1, g3 = fam["granite"], fam["granite3b"]
     fam_flash = {"granite_dense": g1["dense"]["launches"]["flash_attention"],
                  "seamless": fam["encdec"]["run"]["launches"][

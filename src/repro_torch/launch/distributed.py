@@ -1,7 +1,10 @@
 """Distributed (mesh-sharded) training driver (the reference's
 `repro.launch.distributed`): params and optimizer state laid out on a
 DeviceMesh by the rule engine's specs, per-process batch feeding, and the
-train step on DTensor leaves (`sharding.spmd`).
+train step on DTensor leaves (`sharding.spmd`): data parallel over "pod" x
+"data", and over "model" tensor parallel for the dense decoders
+(`sharding.tp`) or, for the other families, storage only (the params
+gathered for each step).
 
 Every process calls ``initialize(coordinator, num_processes, process_id)``
 (NCCL on the card; ``device="cpu"`` gives gloo), builds a mesh
@@ -24,6 +27,7 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.optim.schedules import linear_warmup_cosine
 from repro_torch.sharding import rules as R
+from repro_torch.sharding.tp import TensorParallel
 from repro_torch.train.step import build_lm_train_step
 
 
@@ -62,7 +66,9 @@ def initialize(coordinator: Optional[str] = None, num_processes: int = 1,
 def shard_model(cfg, mesh, params, opt_state):
     """Place params + optimizer moments by the rule engine's specs (each
     moment tree mirrors the params; the step counter, a host scalar equal
-    on every rank, stays as it is: the replicated spec)."""
+    on every rank, stays as it is: the replicated spec). Every process
+    holds the same full trees (the same seeded init) and keeps its own
+    slices of them (`rules.distribute`)."""
     p_specs = R.param_specs(cfg, params, mesh)
     o_specs = R.opt_state_specs(cfg, opt_state, p_specs)
     params = R.distribute(mesh, params, p_specs)
@@ -74,9 +80,13 @@ def shard_model(cfg, mesh, params, opt_state):
 
 def make_sharded_step(cfg, mesh, opt_update, p_specs, o_specs, batch_example,
                       *, microbatches: int = 1):
-    """(step on DTensor leaves, the batch specs of `batch_example`)."""
+    """(step on DTensor leaves, the batch specs of `batch_example`). The
+    step is tensor parallel over "model" (`sharding.tp`) for an arch in
+    its scope when the axis is larger than 1, else data parallel with the
+    params gathered (`sharding.spmd`)."""
     b_specs = R.batch_specs(cfg, batch_example, mesh)
-    step = build_lm_train_step(cfg, opt_update, microbatches=microbatches)
+    step = build_lm_train_step(cfg, opt_update, microbatches=microbatches,
+                               tp=TensorParallel.build(cfg, mesh))
     return step, b_specs
 
 

@@ -6,16 +6,29 @@ Each case runs as rank 0 of a fake process group as large as the mesh (4,
 8, 256 or 512 ranks; torch's "fake" backend, whose collectives move
 nothing) under `FakeTensorMode`: params, optimizer state, batches and
 caches are fake DTensors laid out by the rule engine's specs
-(`launch.shapes.make_case`), and the step runs as it runs on a real mesh
-(`sharding.spmd`: data parallel over "pod" x "data", the "model" axis
-sharding storage). Counters:
+(`launch.shapes.make_case`), and the step runs as it runs on a real mesh:
+data parallel over "pod" x "data"; over "model", a train step of a dense
+decoder runs tensor parallel (`sharding.tp`: each rank its heads, FFN
+columns and vocabulary rows, explicit all-reduces), every other step on
+params gathered over "model" (`sharding.spmd`: the axis shards storage
+only, and its ranks repeat the same compute). Counters:
 
   flops_per_device          FlopCounterMode over the rank's local compute
   collectives               {kind: {count, bytes}} by the reference's five
                             kinds, bytes of each collective's result
-                            (CommDebugMode, its dispatch hook extended)
-  memory                    MemTracker's peak over the step, with the
-                            arguments' and outputs' local bytes
+                            (CommDebugMode, its dispatch hook extended);
+                            the tensor-parallel all-reduces included
+  tensor_parallel           whether the step ran tensor parallel;
+                            `model_axis_all_reduces` {count, bytes} its
+                            operators' all-reduces over "model" (two per
+                            layer forward and two backward, one for the
+                            embedding, four for the logits and the loss,
+                            per microbatch; remat one more per layer,
+                            the recomputed attention's),
+                            `gathered_leaves` the leaves stored split over
+                            "model" whose compute is gathered
+  memory                    MemTracker's peak over the step (the rank's),
+                            with the arguments' and outputs' local bytes
   bytes_accessed_per_device null: torch has no per-op bytes-accessed
                             counter (XLA's cost analysis had one)
   corrected_per_device      the raw counts: the reference corrects XLA's
@@ -156,9 +169,12 @@ def measure_case(cfg, shape_name, mesh, *, microbatches=None, remat=None):
                    mem.get_tracker_snapshot("peak").values())
     wall = time.perf_counter() - t0
     colls = {k: dict(v) for k, v in comm.collectives.items()}
+    tp = case["tp"]
     return case, {
         "flops": float(flops.get_total_flops()),
         "colls": colls,
+        "model_axis_all_reduces": None if tp is None else {
+            "count": tp.all_reduces, "bytes": tp.all_reduce_bytes},
         "coll_bytes": int(sum(c["bytes"] for c in colls.values())),
         "memory": {"peak_bytes": int(peak),
                    "argument_size_in_bytes": int(arg_bytes),
@@ -186,6 +202,9 @@ def run_case(arch_id: str, shape_name: str, mesh, mesh_tag: str, *,
         "bytes_accessed_per_device": None,
         "collectives": m["colls"],
         "collective_bytes_per_device": m["coll_bytes"],
+        "tensor_parallel": case["tp"] is not None,
+        "model_axis_all_reduces": m["model_axis_all_reduces"],
+        "gathered_leaves": case["gathered_leaves"],
         "memory": m["memory"],
         "run_s": round(m["run_s"], 2),
         "meta": meta,
@@ -198,7 +217,7 @@ def run_case(arch_id: str, shape_name: str, mesh, mesh_tag: str, *,
         print(f"[dryrun] {arch_id:24s} {shape_name:12s} {mesh_tag:10s} "
               f"flops/dev={rec['flops_per_device']:.3e} "
               f"coll={rec['collective_bytes_per_device']:.3e}B "
-              f"run={m['run_s']:.1f}s")
+              f"tp={rec['tensor_parallel']} run={m['run_s']:.1f}s")
         print(f"  memory: {m['memory']}")
     return rec
 

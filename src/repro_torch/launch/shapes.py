@@ -7,7 +7,8 @@ and the in/out spec trees, resolved against a mesh by the sharding rule
 engine. The numbers are the reference's.
 
 Shape semantics:
-  train_4k    -> train_step (fwd+bwd+AdamW), grad accumulation per arch
+  train_4k    -> train_step (fwd+bwd+AdamW), grad accumulation per arch;
+                 tensor parallel over "model" for the dense decoders
   prefill_32k -> serve_prefill (full forward + cache emit)
   decode_32k  -> serve_decode: ONE token, KV state of 32,768 positions
   long_500k   -> serve_decode at position 524,287; sub-quadratic state
@@ -28,6 +29,7 @@ from repro_torch.optim.schedules import linear_warmup_cosine
 from repro_torch.params import F32_LEAVES
 from repro_torch.serve.step import build_decode, build_prefill
 from repro_torch.sharding import rules as R
+from repro_torch.sharding.tp import TensorParallel, gathered_leaves
 from repro_torch.train.step import build_lm_train_step
 
 META = torch.device("meta")
@@ -139,8 +141,13 @@ def params_shapes(cfg):
 
 def make_case(arch_cfg, shape_name: str, mesh, *, microbatches=None,
               remat=None):
-    """Returns dict(fn, args, in_specs, out_specs, donate, meta); args are
-    meta tensors (the optimizer's step counter a CPU scalar)."""
+    """Returns dict(fn, args, in_specs, out_specs, donate, meta, tp,
+    gathered_leaves); args are meta tensors (the optimizer's step counter
+    a CPU scalar). A train case of a dense decoder on a mesh whose "model"
+    axis is larger than 1 runs tensor parallel (`tp`, a
+    `sharding.tp.TensorParallel` counting its all-reduces; else None);
+    `gathered_leaves` names the leaves stored split over "model" whose
+    compute is gathered."""
     case = SHAPES[shape_name]
     cfg = dryrun_config(arch_cfg)
     if remat is not None:
@@ -156,14 +163,17 @@ def make_case(arch_cfg, shape_name: str, mesh, *, microbatches=None,
         o_specs = R.opt_state_specs(cfg, o_shapes, p_specs)
         b_shapes = _train_batch_shapes(cfg, case)
         b_specs = R.batch_specs(cfg, b_shapes, mesh)
-        step = build_lm_train_step(cfg, opt_update, microbatches=mb)
+        tp = TensorParallel.build(cfg, mesh)
+        step = build_lm_train_step(cfg, opt_update, microbatches=mb, tp=tp)
         metric_specs = {k: R.P() for k in
                         ("xent", "loss", "load_balance", "router_z",
                          "dropped_frac", "grad_norm", "lr")}
         return dict(fn=step, args=(p_shapes, o_shapes, b_shapes),
                     in_specs=(p_specs, o_specs, b_specs),
                     out_specs=(p_specs, o_specs, metric_specs),
-                    donate=(0, 1), meta={"microbatches": mb, "cfg": cfg})
+                    donate=(0, 1), meta={"microbatches": mb, "cfg": cfg},
+                    tp=tp, gathered_leaves=gathered_leaves(cfg, p_shapes,
+                                                           mesh, tp))
 
     if case.kind == "prefill":
         b_shapes = _prefill_batch_shapes(cfg, case)
@@ -178,7 +188,9 @@ def make_case(arch_cfg, shape_name: str, mesh, *, microbatches=None,
         return dict(fn=fn, args=(p_shapes, b_shapes),
                     in_specs=(p_specs, b_specs),
                     out_specs=(tok_spec, c_specs),
-                    donate=(), meta={"cfg": cfg})
+                    donate=(), meta={"cfg": cfg}, tp=None,
+                    gathered_leaves=gathered_leaves(cfg, p_shapes, mesh,
+                                                    None))
 
     # decode
     B = case.global_batch
@@ -197,4 +209,6 @@ def make_case(arch_cfg, shape_name: str, mesh, *, microbatches=None,
                 out_specs=(pspec, c_specs),
                 donate=(3,),
                 meta={"cache_len": clen, "window": win, "cfg": cfg,
-                      "position": case.seq_len - 1})
+                      "position": case.seq_len - 1},
+                tp=None,    # serving runs on gathered params (call_local)
+                gathered_leaves=gathered_leaves(cfg, p_shapes, mesh, None))

@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import tp as TP
 from repro_torch.sharding.rules import constrain
 
 # ----------------------------------------------------------------------------- init
@@ -152,12 +153,24 @@ def _sdpa_xla(q, k, v, mask, scale):
     return out.reshape(B, Sq, nh, hd).to(q.dtype)
 
 
-def _project_qkv(params, cfg, x, src):
+def _project_qkv(params, cfg, x, src, tp=None):
+    """q (B, S, nh, hd), k and v (B, Sk, nkv, hd). With a tensor-parallel
+    context (`sharding.tp`): this rank's query heads (wq's local columns)
+    and the kv heads they read, from wk/wv's local columns where the kv
+    heads split, else from the gathered leaves' columns of `tp.kv_heads`."""
     B, S, _ = x.shape
     hd, nh, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    wk, wv = params["wk"], params["wv"]
+    if tp is not None:
+        nh = tp.local_heads(cfg)
+        if not tp.kv:
+            heads = tp.kv_heads(cfg)
+            wk, wv = (w.reshape(w.shape[0], nkv, hd)[:, heads].flatten(1)
+                      for w in (wk, wv))
+        nkv = wk.shape[1] // hd
     q = (x @ params["wq"]).reshape(B, S, nh, hd)
-    k = (src @ params["wk"]).reshape(B, src.shape[1], nkv, hd)
-    v = (src @ params["wv"]).reshape(B, src.shape[1], nkv, hd)
+    k = (src @ wk).reshape(B, src.shape[1], nkv, hd)
+    v = (src @ wv).reshape(B, src.shape[1], nkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"]["scale"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"]["scale"], cfg.norm_eps)
@@ -165,7 +178,8 @@ def _project_qkv(params, cfg, x, src):
 
 
 def attention(params, cfg, x, positions, *, kv=None, kv_positions=None,
-              causal=True, window=None, rope=True, constrain_kv=False):
+              causal=True, window=None, rope=True, constrain_kv=False,
+              tp=None):
     """Full-sequence attention (prefill / encoder / cross).
 
     x: (B, S, d). kv: optional (B, Sk, d) source for cross-attention.
@@ -178,12 +192,23 @@ def attention(params, cfg, x, positions, *, kv=None, kv_positions=None,
     over data, head_dim over model; `sharding.rules.constrain`): only
     where they are DTensors under an ambient mesh, else they are returned
     as they are.
+
+    With a tensor-parallel context (`sharding.tp`, self-attention only)
+    the block runs this rank's query heads on params holding its shards
+    (`_project_qkv`; `wo` its rows, a row-parallel product): x enters
+    through `copy_to_model` and the output leaves through
+    `reduce_from_model`; the returned k/v are the rank's.
     """
     B, S, d = x.shape
     hd, nh = cfg.resolved_head_dim, cfg.n_heads
     src = x if kv is None else kv
     kv_positions = positions if kv_positions is None else kv_positions
-    q, k, v = _project_qkv(params, cfg, x, src)
+    if tp is not None:
+        if kv is not None:
+            raise ValueError("tensor-parallel attention is self-attention")
+        nh = tp.local_heads(cfg)
+        x = src = TP.copy_to_model(x, tp)
+    q, k, v = _project_qkv(params, cfg, x, src, tp)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, kv_positions, cfg.rope_theta)
@@ -198,7 +223,10 @@ def attention(params, cfg, x, positions, *, kv=None, kv_positions=None,
                           torch.broadcast_to(kv_positions, (B, src.shape[1])),
                           causal, window)
         out = _sdpa_xla(q, k, v, mask, 1.0 / math.sqrt(hd))
-    return out.reshape(B, S, nh * hd) @ params["wo"], (k, v)
+    out = out.reshape(B, S, nh * hd) @ params["wo"]
+    if tp is not None:
+        out = TP.reduce_from_model(out, tp)
+    return out, (k, v)
 
 
 def attention_decode(params, cfg, x, pos, cache_k, cache_v, cache_pos, *,
@@ -505,7 +533,14 @@ def init_mlp(gen, d_model, d_ff, dtype, gated=True):
     return p
 
 
-def mlp(params, x, act="silu"):
+def mlp(params, x, act="silu", tp=None):
+    """With a tensor-parallel context (`sharding.tp`) params hold this
+    rank's FFN columns (w_gate/w_up) and rows (w_down): x enters through
+    `copy_to_model`, the row-parallel output leaves through
+    `reduce_from_model`."""
+    if tp is not None:
+        return TP.reduce_from_model(
+            mlp(params, TP.copy_to_model(x, tp), act), tp)
     a = ACTIVATIONS[act]
     if "w_gate" in params:        # SwiGLU-style
         return (a(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
@@ -520,9 +555,17 @@ def init_embedding(gen, vocab, d, dtype):
     return {"table": t.to(dtype)}
 
 
-def embed(params, tokens):
+def embed(params, tokens, tp=None):
+    """With a vocab-split context (`sharding.tp`) `table` is this rank's
+    rows: `vocab_parallel_embed`."""
+    if tp is not None:
+        return TP.vocab_parallel_embed(params["table"], tokens, tp)
     return params["table"][tokens]
 
 
-def unembed(params, x):
+def unembed(params, x, tp=None):
+    """With a vocab-split context the rank's (..., V/tp) logits (x enters
+    through `copy_to_model`)."""
+    if tp is not None:
+        x = TP.copy_to_model(x, tp)
     return x @ params["table"].T

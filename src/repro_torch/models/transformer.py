@@ -63,6 +63,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
+from repro_torch.sharding import tp as TP
 from repro_torch.sharding.rules import constrain
 
 
@@ -167,20 +168,33 @@ def init_lm(gen: torch.Generator, cfg) -> dict:
     return params
 
 
-def _ffn_apply(lp, cfg, h, want_aux: bool = False):
+def _split(tp, part: str):
+    """`tp` where the layer part ("heads", "ffn", "vocab") splits over
+    "model" (`sharding.tp`), else None: the part runs whole."""
+    return None if tp is None else tp.part(part)
+
+
+def _ffn_apply(lp, cfg, h, want_aux: bool = False, tp=None):
     """The layer's FFN: (out, aux). aux is the MoE's aux dict when
     `want_aux` and the FFN is an MoE, else None."""
     if cfg.moe:
         return MOE.moe_ffn(lp["ffn"], cfg, h, want_aux=want_aux)
-    return L.mlp(lp["ffn"], h, cfg.act), None
+    return L.mlp(lp["ffn"], h, cfg.act, _split(tp, "ffn")), None
 
 
-def _logits(params, cfg, x):
-    out = L.unembed(params["embed"], x) if cfg.tie_embeddings \
+def _logits(params, cfg, x, tp=None):
+    """Logits over the (padded) vocabulary; with a tensor-parallel context
+    whose vocabulary splits, this rank's (..., V/tp) slice of them, the
+    padding masked at the rank's offset: the full logits never exist."""
+    tp = _split(tp, "vocab")
+    if tp is not None and not cfg.tie_embeddings:
+        x = TP.copy_to_model(x, tp)
+    out = L.unembed(params["embed"], x, tp) if cfg.tie_embeddings \
         else x @ params["lm_head"]
     if cfg.padded_vocab_size != cfg.vocab_size:
         # padded vocab entries can never win argmax / contribute to lse
-        pad = torch.arange(cfg.padded_vocab_size, device=out.device)
+        lo = 0 if tp is None else tp.rank * out.shape[-1]
+        pad = torch.arange(lo, lo + out.shape[-1], device=out.device)
         out = out.masked_fill(pad >= cfg.vocab_size, -1e30)
     # vocab-sharded logits on a mesh (a no-op without one)
     return constrain(out, ("batch", None, "model"))
@@ -189,11 +203,12 @@ def _logits(params, cfg, x):
 # ============================================================== full sequence
 
 def _layer_full(lp, cfg, ltype, x, positions, window, enc=None,
-                want_aux=False, want_cache=False):
+                want_aux=False, want_cache=False, tp=None):
     """One layer, full sequence. `enc` is (encoder output, its positions)
     for an encoder-decoder's decoder, else None. Returns (x, cache at
     natural length, aux or None); `want_cache` (the prefill) puts the
-    emitted k/v in the prefill-cache layout on a mesh."""
+    emitted k/v in the prefill-cache layout on a mesh. `tp`: tensor
+    parallel over "model" (`sharding.tp`; attention layers only)."""
     h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
     if ltype == "ssm":
         out, cache = M2.mamba2_forward(lp["mamba"], cfg, h)
@@ -201,7 +216,8 @@ def _layer_full(lp, cfg, ltype, x, positions, window, enc=None,
     if ltype == "attn":
         att, (k, v) = L.attention(lp["attn"], cfg, h, positions,
                                   causal=True, window=window,
-                                  constrain_kv=want_cache)
+                                  constrain_kv=want_cache,
+                                  tp=_split(tp, "heads"))
         cache = {"k": k, "v": v,
                  "pos": torch.broadcast_to(positions, x.shape[:2])
                  .to(torch.int32)}
@@ -217,7 +233,7 @@ def _layer_full(lp, cfg, ltype, x, positions, window, enc=None,
         x = x + catt
         cache["cross_k"], cache["cross_v"] = ck, cv
     h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
-    ff, aux = _ffn_apply(lp, cfg, h, want_aux)
+    ff, aux = _ffn_apply(lp, cfg, h, want_aux, tp)
     return x + ff, cache, aux
 
 
@@ -238,10 +254,11 @@ def _encode(params, cfg, enc_embeds):
     return x, enc_pos
 
 
-def _inputs_to_x(params, cfg, batch):
+def _inputs_to_x(params, cfg, batch, tp=None):
     """Token embedding after the optional modality prefix. Returns (x,
     positions (1, P + S), P)."""
-    x = L.embed(params["embed"], batch["tokens"]).to(cfg.activation_dtype)
+    x = L.embed(params["embed"], batch["tokens"], _split(tp, "vocab")
+                ).to(cfg.activation_dtype)
     n_prefix = 0
     if batch.get("embeds") is not None:
         pre = batch["embeds"].to(cfg.activation_dtype)
@@ -251,16 +268,16 @@ def _inputs_to_x(params, cfg, batch):
     return constrain(x, ("batch", None, None)), positions, n_prefix
 
 
-def _stack_inputs(params, cfg, batch):
+def _stack_inputs(params, cfg, batch, tp=None):
     """(x, positions, n_prefix, enc) for a full-sequence pass."""
     enc = (_encode(params, cfg, batch["enc_embeds"]) if cfg.is_encdec
            else None)
-    return _inputs_to_x(params, cfg, batch) + (enc,)
+    return _inputs_to_x(params, cfg, batch, tp) + (enc,)
 
 
-def _head(params, cfg, x, n_prefix):
+def _head(params, cfg, x, n_prefix, tp=None):
     x = L.apply_rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, x[:, n_prefix:])
+    return _logits(params, cfg, x[:, n_prefix:], tp)
 
 
 def forward_prefill(params, cfg, batch, window=None):
@@ -296,19 +313,20 @@ def _zero_aux(device):
             for k in ("load_balance", "router_z", "dropped_frac")}
 
 
-def _run_layers(x, aux, layers, types, cfg, positions, window, enc):
+def _run_layers(x, aux, layers, types, cfg, positions, window, enc,
+                tp=None):
     """Layers over the full sequence, the MoE aux summed into `aux` (a new
     dict). Returns (x, aux)."""
     aux = dict(aux)
     for lp, t in zip(layers, types):
         x, _, a = _layer_full(lp, cfg, t, x, positions, window, enc,
-                              want_aux=True)
+                              want_aux=True, tp=tp)
         if a is not None:
             aux = {k: aux[k] + a[k] for k in aux}
     return x, aux
 
 
-def forward_train(params, cfg, batch, window=None):
+def forward_train(params, cfg, batch, window=None, tp=None):
     """The training forward: forward_prefill's stack without caches.
     Returns (logits (B, S, V) over the token positions, aux), aux the MoE
     aux values ("load_balance", "router_z", "dropped_frac") summed over
@@ -329,24 +347,35 @@ def forward_train(params, cfg, batch, window=None):
     nothing.
     Under attention_impl="pallas" the kernels run the forward, and a
     backward through them raises (`kernels.refuse_grad`), as the
-    reference's does."""
+    reference's does.
+
+    With a tensor-parallel context `tp` (`sharding.tp`; the dense
+    decoders only, `tp.in_scope`) params hold this rank's shards of the
+    leaves the "model" axis splits, each layer runs its heads and FFN
+    columns, and the logits are the rank's vocabulary slice (the loss:
+    `tp.vocab_parallel_xent`). Under remat the recomputed forward repeats
+    the all-reduces the backward needs (each layer's attention output's;
+    torch's checkpoint stops before the MLP's)."""
+    if tp is not None and not TP.in_scope(cfg):
+        raise ValueError(f"{cfg.arch_id}: no tensor-parallel forward for "
+                         "this family")
     window = cfg.window if window is None else window
-    x, positions, n_prefix, enc = _stack_inputs(params, cfg, batch)
+    x, positions, n_prefix, enc = _stack_inputs(params, cfg, batch, tp)
     aux = _zero_aux(x.device)
     layers, types = params["layers"], cfg.layer_types()
     n_pat = len(cfg.block_pattern)
     n_scan = cfg.n_blocks * n_pat
     for b in range(0, n_scan, n_pat):
         args = (layers[b:b + n_pat], types[b:b + n_pat], cfg, positions,
-                window, enc)
+                window, enc, tp)
         x, aux = (checkpoint(_run_layers, x, aux, *args, use_reentrant=False)
                   if cfg.remat else _run_layers(x, aux, *args))
         x = _seq_parallel(cfg, x)
     x, aux = _run_layers(x, aux, layers[n_scan:], types[n_scan:], cfg,
-                         positions, window, enc)
+                         positions, window, enc, tp)
     n_ffn_layers = sum(1 for t in types if t != "ssm")
     aux = {k: v / max(n_ffn_layers, 1) for k, v in aux.items()}
-    return _head(params, cfg, x, n_prefix), aux
+    return _head(params, cfg, x, n_prefix, tp), aux
 
 
 # ============================================================== dense cache

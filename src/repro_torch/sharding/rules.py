@@ -372,14 +372,22 @@ def spec_leaves(tree):
     return [s for _, s in _walk(tree)]
 
 
+def leaf_paths(tree):
+    """The path tuple of every leaf of `tree`, in the order of its leaves."""
+    return [p for p, _ in _walk(tree)]
+
+
 def distribute(mesh, tree, specs):
     """Every tensor of `tree` as a DTensor on `mesh` laid out by the spec
-    tree `specs` (`distribute_tensor`: rank 0's values are scattered)."""
+    tree `specs`. `tree` must be the same on every rank (a seeded init):
+    each rank keeps its own slice of it, with no collective (gloo has no
+    scatter of CUDA tensors)."""
     from torch.distributed.tensor import distribute_tensor
     leaves, tdef = tree_flatten(tree)
     s = spec_leaves(specs)
     if len(s) != len(leaves):
         raise ValueError(f"{len(leaves)} leaves, {len(s)} specs")
     return tree_unflatten(
-        [distribute_tensor(x, mesh, to_placements(mesh, sp))
+        [distribute_tensor(x, mesh, to_placements(mesh, sp),
+                           src_data_rank=None)
          for x, sp in zip(leaves, s)], tdef)

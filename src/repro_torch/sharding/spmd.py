@@ -11,7 +11,13 @@ as on one device:
   the mesh dims the batch is sharded on and Replicate elsewhere, so the
   backward all-reduces it over those dims and slices it back to the
   parameter's own placements (ZeRO-3 style over "model": the model axis
-  shards storage, and every rank of it runs the same rows);
+  shards storage, and every rank of it runs the same rows), except under
+  tensor parallelism (`sharding.tp`, the dense decoders' train step,
+  `split_params`): there a leaf the "model" axis splits is used as its
+  local shard, whose gradient is already the shard's, each rank of the
+  axis computes only its heads, FFN columns and vocabulary rows, and the
+  model's explicit all-reduces carry the residual stream across the
+  split;
 - each rank runs the model on its own rows of the batch (`to_local`);
 - the loss a rank differentiates is its mean over its rows divided by the
   number of batch shards, so the summed gradient is the global mean's;
@@ -88,6 +94,37 @@ def gather_params(leaves: List, grad_placements) -> List:
                                   [Replicate()] * p.device_mesh.ndim)
             p = full.to_local(grad_placements=grad_placements)
         out.append(p)
+    return out
+
+
+def split_params(leaves: List, paths: List, grad_placements, tp) -> List:
+    """The tensor-parallel counterpart of `gather_params`: each DTensor
+    leaf as the local tensor the rank computes with, by `tp.role` of its
+    path. A split leaf is its local shard, its gradient already the
+    shard's (Shard over "model"); any other leaf is gathered, its gradient
+    Partial over "model" where it is used inside the head split and
+    Replicate where every rank uses it whole. Over the batch axes every
+    gradient is read as `grad_placements` gives."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    out = []
+    for p, path in zip(leaves, paths):
+        if not is_dtensor(p):
+            out.append(p)
+            continue
+        mesh = p.device_mesh
+        m = mesh.mesh_dim_names.index("model")
+        role = tp.role(path)
+        pl = list(grad_placements)
+        if role[0] == "shard":
+            if p.placements[m] != Shard(role[1]):
+                raise ValueError(f"{'/'.join(map(str, path))} is stored as "
+                                 f"{p.placements[m]} over 'model', computed "
+                                 f"as Shard({role[1]})")
+            pl[m] = Shard(role[1])
+        else:
+            p = p.redistribute(mesh, [Replicate()] * mesh.ndim)
+            pl[m] = Partial() if role[0] == "partial" else Replicate()
+        out.append(p.to_local(grad_placements=pl))
     return out
 
 

@@ -1,0 +1,248 @@
+"""Tensor parallelism over the mesh's "model" axis for the dense decoders:
+Megatron-LM's column/row split with explicit collectives, the port's
+counterpart of GSPMD partitioning the reference's step over "model".
+
+A rank of the model axis computes only its share, in the layouts the rule
+engine stores (`rules.param_specs`): its query heads (`wq`/`wk`/`wv`
+columns, `wo` rows), its FFN columns (`w_gate`/`w_up` columns, `w_down`
+rows) and its vocabulary rows (`embed/table` rows, `lm_head` columns). The
+residual stream stays whole on every rank. Four operators carry it across
+the split, each an all-reduce over the model group in one direction and
+the identity in the other:
+
+  copy_to_model         identity forward, all-reduce backward: the input
+                        of a column-parallel product
+  reduce_from_model     all-reduce forward, identity backward: the output
+                        of a row-parallel product
+  vocab_parallel_embed  the rank's vocabulary rows looked up, the others
+                        zero, then reduce_from_model
+  vocab_parallel_xent   `train.losses.softmax_xent` over (..., V/tp) local
+                        logits: the max (no gradient), the sum of exps and
+                        the target logit each all-reduced (the mean over V
+                        too under label smoothing); the full (..., V)
+                        logits never exist
+
+All of them use `all_reduce` alone (the one collective gloo also runs on
+CUDA tensors). A split the heads, the FFN width or the vocabulary does not
+divide falls back per part: the part's leaves are gathered and computed
+whole on every rank (`TensorParallel.heads`/`.kv`/`.ffn`/`.vocab`); where
+the query heads divide and the kv heads do not, `wk`/`wv` are gathered and
+each rank projects the kv heads its query heads read. Storage keeps the
+reference's specs in every case.
+
+The families in scope (`in_scope`) are the decoders whose layers are all
+attention plus a dense MLP; the others keep the gathered step
+(`spmd.gather_params`).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from functools import cached_property
+from typing import List, Optional
+
+import torch
+
+from repro_torch.sharding import rules as R
+
+COLUMN = ("wq", "wk", "wv", "w_gate", "w_up")    # split on dim 1; wo and
+                                                 # w_down on dim 0
+
+
+def in_scope(cfg) -> bool:
+    """Decoders whose layers are all attention plus a dense MLP (a modality
+    prefix only changes the inputs)."""
+    return (cfg.moe is None and not cfg.is_encdec
+            and all(t == "attn" for t in cfg.layer_types()))
+
+
+@dataclass
+class TensorParallel:
+    """The mesh, the size of its "model" axis, and which parts of the layer
+    split (a part that does not divide is computed whole); the model group
+    and this rank's place in it are read from the mesh when first used (a
+    plan needs no process group). Counts the all-reduces its operators
+    issue (`all_reduces`, `all_reduce_bytes`: forward and backward,
+    recomputations included)."""
+    mesh: object
+    size: int
+    heads: bool          # query heads (and wq, wo, q/k norms) split
+    kv: bool             # kv heads split too (else wk/wv gathered)
+    ffn: bool
+    vocab: bool
+    all_reduces: int = field(default=0)
+    all_reduce_bytes: int = field(default=0)
+
+    @classmethod
+    def build(cls, cfg, mesh) -> Optional["TensorParallel"]:
+        """The context for `cfg` on `mesh`, or None where the step stays
+        gathered: no "model" axis larger than 1, or an arch out of
+        scope."""
+        tp = R.mesh_axis_size(mesh, "model")
+        if tp <= 1 or not in_scope(cfg):
+            return None
+        return cls(mesh=mesh, size=tp, heads=cfg.n_heads % tp == 0,
+                   kv=cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0,
+                   ffn=cfg.d_ff % tp == 0,
+                   vocab=cfg.padded_vocab_size % tp == 0)
+
+    @cached_property
+    def group(self):
+        return self.mesh.get_group("model")
+
+    @cached_property
+    def rank(self) -> int:
+        return self.mesh.get_local_rank("model")
+
+    def part(self, name: str) -> Optional["TensorParallel"]:
+        """self where `name` ("heads", "ffn", "vocab") splits, else None
+        (the part runs the one-device code on gathered leaves)."""
+        return self if getattr(self, name) else None
+
+    def all_reduce(self, x, op: str = "sum"):
+        import torch.distributed._functional_collectives as funcol
+        self.all_reduces += 1
+        self.all_reduce_bytes += x.numel() * x.element_size()
+        return funcol.wait_tensor(funcol.all_reduce(x, op, self.group))
+
+    # ------------------------------------------------------- attention
+
+    def local_heads(self, cfg) -> int:
+        return cfg.n_heads // self.size
+
+    def kv_heads(self, cfg) -> List[int]:
+        """The kv heads this rank's query heads read, in order, one entry
+        per local kv group (GQA: query head h reads kv head h // rep):
+        whole groups, one shared group, or one kv head per query head
+        where the groups straddle ranks."""
+        nh_l = self.local_heads(cfg)
+        rep = cfg.n_heads // cfg.n_kv_heads
+        first = self.rank * nh_l
+        if nh_l % rep == 0:
+            return list(range(first // rep, (first + nh_l) // rep))
+        if rep % nh_l == 0:
+            return [first // rep]
+        return [(first + j) // rep for j in range(nh_l)]
+
+    # ------------------------------------------------------- leaf roles
+
+    def role(self, path: tuple):
+        """How the step takes the leaf at the port's `path`, and how its
+        gradient lies over "model": ("shard", d) local shard, already its
+        gradient's; ("partial",) gathered, used inside the head split (its
+        gradient a partial sum over the model ranks); ("replicate",)
+        gathered or replicated and used whole on every rank (the residual
+        stream's norms, a part that does not split), the same gradient on
+        every rank."""
+        name = path[-2] if path[-1] == "scale" else path[-1]
+        parent = path[-2] if len(path) >= 2 else None
+        if name == "table":
+            return ("shard", 0) if self.vocab else ("replicate",)
+        if name == "lm_head":
+            return ("shard", 1) if self.vocab else ("replicate",)
+        if parent == "attn" or name in ("q_norm", "k_norm"):
+            if not self.heads:
+                return ("replicate",)
+            if name in ("wk", "wv") and not self.kv:
+                return ("partial",)
+            if name in ("q_norm", "k_norm"):
+                return ("partial",)
+            return ("shard", 1) if name in COLUMN else ("shard", 0)
+        if parent == "ffn":
+            if not self.ffn:
+                return ("replicate",)
+            return ("shard", 1) if name in COLUMN else ("shard", 0)
+        return ("replicate",)
+
+
+# ------------------------------------------------------------ operators
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce(g.contiguous()), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.all_reduce(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x, tp: TensorParallel):
+    """Identity forward, all-reduce backward (Megatron's f)."""
+    return _CopyToModel.apply(x, tp)
+
+
+def reduce_from_model(x, tp: TensorParallel):
+    """All-reduce forward, identity backward (Megatron's g)."""
+    return _ReduceFromModel.apply(x, tp)
+
+
+def _vocab_local(ids, rows: int, tp: TensorParallel):
+    """(ids as indices into this rank's `rows` vocabulary rows, clamped,
+    and the mask of the ids it owns)."""
+    local = ids.long() - tp.rank * rows
+    own = (local >= 0) & (local < rows)
+    return local.clamp(0, rows - 1), own
+
+
+def vocab_parallel_embed(table, tokens, tp: TensorParallel):
+    """`table[tokens]` with `table` this rank's (V/tp, d) rows: the rows
+    it owns looked up, the others zero, summed over the model ranks."""
+    idx, own = _vocab_local(tokens, table.shape[0], tp)
+    x = table[idx].masked_fill(~own[..., None], 0)
+    return reduce_from_model(x, tp)
+
+
+def vocab_parallel_xent(logits, labels, mask=None,
+                        label_smoothing: float = 0.0, *, tp: TensorParallel):
+    """`softmax_xent` of the full logits, given this rank's (..., V/tp)
+    slice of them: the same mean token cross-entropy in float32, the mask's
+    denominator and the smoothing's mean over the whole (padded)
+    vocabulary included. Every rank returns the same value."""
+    logits = logits.float()
+    rows = logits.shape[-1]
+    with torch.no_grad():
+        m = tp.all_reduce(logits.amax(dim=-1), "max")
+    sumexp = reduce_from_model(torch.exp(logits - m[..., None]).sum(dim=-1),
+                               tp)
+    lse = m + torch.log(sumexp)
+    idx, own = _vocab_local(labels, rows, tp)
+    ll = torch.gather(logits, -1, idx[..., None])[..., 0]
+    ll = reduce_from_model(ll.masked_fill(~own, 0), tp)
+    nll = lse - ll
+    if label_smoothing > 0:
+        mean = reduce_from_model(logits.sum(dim=-1), tp) / (rows * tp.size)
+        nll = (1 - label_smoothing) * nll + label_smoothing * (lse - mean)
+    if mask is not None:
+        denom = torch.clamp(mask.sum(), min=1.0)
+        return (nll * mask).sum() / denom
+    return nll.mean()
+
+
+def gathered_leaves(cfg, params, mesh, tp: Optional[TensorParallel]):
+    """The reference paths (blocks stacked, `rules.reference_path`) of the
+    leaves stored split over "model" whose compute is gathered: every such
+    leaf without tensor parallelism, else those of the parts that do not
+    split. In tree order, each path once."""
+    specs = R.spec_leaves(R.param_specs(cfg, params, mesh))
+    out = []
+    for path, spec in zip(R.leaf_paths(params), specs):
+        if not any(e == "model" or (isinstance(e, tuple) and "model" in e)
+                   for e in spec):
+            continue
+        if tp is not None and tp.role(path)[0] == "shard":
+            continue
+        name = R.reference_path(path, cfg)[0]
+        if name not in out:
+            out.append(name)
+    return out

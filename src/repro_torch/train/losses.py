@@ -2,10 +2,16 @@
 
 The reference extracts the label's logit with a masked sum over the vocab
 axis, because a gather along a sharded axis makes GSPMD all-gather the
-logits; nothing is sharded here, so the port gathers."""
+logits; the port's one-device logits are whole, so it gathers, and its
+tensor-parallel loss (`sharding.tp.vocab_parallel_xent`) gathers within
+the rank's vocabulary slice under a mask."""
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from repro_torch.sharding import tp as TP
 
 
 def softmax_xent(logits, labels, mask=None, label_smoothing: float = 0.0):
@@ -26,11 +32,19 @@ def softmax_xent(logits, labels, mask=None, label_smoothing: float = 0.0):
     return nll.mean()
 
 
-def lm_loss(params, cfg, batch, forward_fn, *, window=None):
+def lm_loss(params, cfg, batch, forward_fn, *, window=None, tp=None):
     """Cross-entropy + MoE aux (`load_balance_coef * load_balance +
-    router_z_coef * router_z`). Returns (loss, metrics)."""
-    logits, aux = forward_fn(params, cfg, batch, window=window)
-    xent = softmax_xent(logits, batch["labels"], batch.get("mask"))
+    router_z_coef * router_z`). Returns (loss, metrics). With a tensor-
+    parallel context (`sharding.tp`) the forward runs under it, and the
+    loss of vocab-split logits is `tp.vocab_parallel_xent`."""
+    if tp is None:
+        logits, aux = forward_fn(params, cfg, batch, window=window)
+        xent_fn = softmax_xent
+    else:
+        logits, aux = forward_fn(params, cfg, batch, window=window, tp=tp)
+        xent_fn = (functools.partial(TP.vocab_parallel_xent, tp=tp)
+                   if tp.vocab else softmax_xent)
+    xent = xent_fn(logits, batch["labels"], batch.get("mask"))
     loss = xent
     if cfg.moe:
         loss = loss + cfg.moe.load_balance_coef * aux["load_balance"] \

@@ -8,9 +8,10 @@ shares p's storage), calls `torch.autograd.grad`, and hands the gradients
 to the optimizer, which updates the params in place.
 
 On a mesh (DTensor params and batch, `launch.distributed`) the same step
-runs on local tensors: `sharding.spmd` gathers the params, feeds each rank
-its rows, and returns gradients laid out as the params are and metrics
-averaged over the batch shards.
+runs on local tensors: `sharding.spmd` gathers the params (or, tensor
+parallel, hands each rank its shards of the leaves the "model" axis
+splits: `sharding.tp`), feeds each rank its rows, and returns gradients
+laid out as the params are and metrics averaged over the batch shards.
 """
 from __future__ import annotations
 
@@ -20,23 +21,29 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from repro_torch.models import transformer as T
+from repro_torch.sharding import rules as R
 from repro_torch.sharding import spmd
 from repro_torch.train.losses import lm_loss
 
 METRIC_KEYS = ("xent", "loss", "load_balance", "router_z", "dropped_frac")
 
 
-def value_and_grad(loss_fn: Callable, params, *args):
+def value_and_grad(loss_fn: Callable, params, *args, tp=None):
     """(loss, aux, grads) of `loss_fn(params, *args) -> (loss, aux)`: aux
     detached, grads a list in the order of the params' leaves (zeros for a
     leaf the loss does not reach, as jax.grad gives). With DTensor leaves
     (`sharding.spmd`) the loss and aux are the global means and each
-    gradient a DTensor laid out as its param."""
+    gradient a DTensor laid out as its param. With a tensor-parallel
+    context (`sharding.tp`, the DTensor case only) the leaves the model
+    axis splits reach `loss_fn` as their local shards
+    (`spmd.split_params`), and `loss_fn` computes with `tp`."""
     leaves, spec = tree_flatten(params)
     live = [p.detach().requires_grad_() for p in leaves]
     mesh, grad_pl = spmd.batch_placements(args)
     if mesh is None and spmd.any_dtensor(leaves):
         mesh, grad_pl = leaves[0].device_mesh, None
+    if mesh is None and tp is not None:
+        raise ValueError("a tensor-parallel step needs DTensor params")
     with torch.enable_grad():
         if mesh is None:
             loss, aux = loss_fn(tree_unflatten(live, spec), *args)
@@ -45,7 +52,9 @@ def value_and_grad(loss_fn: Callable, params, *args):
             if grad_pl is None:    # batch replicated: no batch shards
                 from torch.distributed.tensor import Replicate
                 grad_pl = (Replicate(),) * mesh.ndim
-            full = spmd.gather_params(live, grad_pl)
+            full = (spmd.gather_params(live, grad_pl) if tp is None else
+                    spmd.split_params(live, R.leaf_paths(params), grad_pl,
+                                      tp))
             local_args = tree_map(spmd.local, args)
             loss, aux = loss_fn(tree_unflatten(full, spec), *local_args)
             grads = torch.autograd.grad(
@@ -63,7 +72,7 @@ def value_and_grad(loss_fn: Callable, params, *args):
 
 
 def build_lm_train_step(cfg, opt_update: Callable, *, microbatches: int = 1,
-                        window=None, forward_fn=None):
+                        window=None, forward_fn=None, tp=None):
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics).
 
@@ -71,24 +80,25 @@ def build_lm_train_step(cfg, opt_update: Callable, *, microbatches: int = 1,
     (per-process) batch dim; with microbatches = k the batch is split along
     it into k slices of b/k rows, the gradients are summed in float32 and
     divided by k, and the metrics are the slices' means: the activation-
-    memory lever, as in the reference.
+    memory lever, as in the reference. ``tp`` (`sharding.tp`, on DTensor
+    params) runs the model tensor-parallel over the mesh's "model" axis.
     """
     fwd = forward_fn or T.forward_train
 
     def loss_fn(params, mb):
-        return lm_loss(params, cfg, mb, fwd, window=window)
+        return lm_loss(params, cfg, mb, fwd, window=window, tp=tp)
 
     def step(params, opt_state, batch):
         _, spec = tree_flatten(params)
         if microbatches == 1:
-            _, metrics, grads = value_and_grad(loss_fn, params, batch)
+            _, metrics, grads = value_and_grad(loss_fn, params, batch, tp=tp)
         else:
             b = next(iter(batch.values())).shape[0]
             rows = b // microbatches
             grads, metrics = None, {k: 0.0 for k in METRIC_KEYS}
             for i in range(microbatches):
                 mb = spmd.batch_rows(batch, i * rows, (i + 1) * rows)
-                _, m, g = value_and_grad(loss_fn, params, mb)
+                _, m, g = value_and_grad(loss_fn, params, mb, tp=tp)
                 if grads is None:
                     grads = [x.to(torch.float32, copy=True) for x in g]
                 else:

@@ -1,0 +1,283 @@
+"""Rank functions for the tensor-parallel tests
+(tests/test_torch_tensor_parallel.py), run on gloo ranks by
+`_torch_dist.spawn`, and the inputs they share with the one-device
+references (numpy draws from a seed)."""
+import numpy as np
+import torch
+from torch.utils._pytree import tree_leaves, tree_map
+
+B, S = 2, 16
+
+
+def attn_config(case: str):
+    """The reduced qwen3-1.7b (4 heads, 2 kv heads, head_dim 64, qk-norm),
+    or, for "straddle", 12 heads over 3 kv heads (groups of 4 straddle the
+    ranks of 2 and 4)."""
+    from repro_torch.configs import registry
+    cfg = registry.get("qwen3-1.7b", reduced=True)
+    if case == "straddle":
+        cfg = cfg.replace(n_heads=12, n_kv_heads=3, head_dim=16)
+    return cfg
+
+
+def padded_config():
+    """Reduced qwen3-1.7b with a vocabulary of 500 padded to 512."""
+    from repro_torch.configs import registry
+    return registry.get("qwen3-1.7b", reduced=True).replace(
+        vocab_size=500, vocab_pad_to=128)
+
+
+def operator_inputs(case: str, seed: int = 0) -> dict:
+    """Full weights and inputs of one operator case, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+
+    def n(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+    if case in ("mlp_gated", "mlp"):
+        d, ff = 256, 512
+        out = {"w_up": n(d, ff, scale=d ** -0.5),
+               "w_down": n(ff, d, scale=ff ** -0.5),
+               "x": n(B, S, d), "g": n(B, S, d)}
+        if case == "mlp_gated":
+            out["w_gate"] = n(d, ff, scale=d ** -0.5)
+        return out
+    if case in ("attention", "straddle"):
+        cfg = attn_config(case)
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        nh, nkv = cfg.n_heads, cfg.n_kv_heads
+        return {"wq": n(d, nh * hd, scale=d ** -0.5),
+                "wk": n(d, nkv * hd, scale=d ** -0.5),
+                "wv": n(d, nkv * hd, scale=d ** -0.5),
+                "wo": n(nh * hd, d, scale=(nh * hd) ** -0.5),
+                "q_norm": n(hd, scale=0.1), "k_norm": n(hd, scale=0.1),
+                "x": n(B, S, d), "g": n(B, S, d)}
+    cfg = padded_config()
+    V, d = cfg.padded_vocab_size, cfg.d_model
+    if case == "embed":
+        return {"table": n(V, d, scale=0.02),
+                "tokens": rng.integers(0, cfg.vocab_size, (B, S)),
+                "g": n(B, S, d)}
+    if case == "logits":
+        return {"table": n(V, d, scale=0.02), "x": n(B, S, d),
+                "g": n(B, S, V)}
+    # xent: logits as `_logits` gives them (padding at -1e30)
+    logits = n(B, S, V, scale=3.0)
+    logits[..., cfg.vocab_size:] = -1e30
+    return {"logits": logits,
+            "labels": rng.integers(0, cfg.vocab_size, (B, S)),
+            "mask": (rng.random((B, S)) < 0.7).astype(np.float32)}
+
+
+OPERATOR_CASES = ("mlp_gated", "mlp", "attention", "straddle", "embed",
+                  "logits", "xent", "xent_masked")
+
+
+def _cols(w, r, k):
+    n = w.shape[1] // k
+    return w[:, r * n:(r + 1) * n]
+
+
+def _rows(w, r, k):
+    n = w.shape[0] // k
+    return w[r * n:(r + 1) * n]
+
+
+def run_operator(case: str, inp: dict, tp=None) -> dict:
+    """One operator's forward and the gradients of (out * g).sum() (for the
+    loss: of the loss), with `tp` on this rank's shards of `inp`, or on one
+    device with tp=None. Returns the output and every input's gradient:
+    the shards' and, for gathered leaves used inside the head split, the
+    rank's partial sums."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import tp as TP
+    from repro_torch.train.losses import softmax_xent
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in inp.items()}
+    r, k = (0, 1) if tp is None else (tp.rank, tp.size)
+    if case in ("mlp_gated", "mlp"):
+        p = {"w_up": _cols(t["w_up"], r, k), "w_down": _rows(t["w_down"], r, k)}
+        if "w_gate" in t:
+            p["w_gate"] = _cols(t["w_gate"], r, k)
+        act = "silu" if case == "mlp_gated" else "gelu"
+        leaves = {**p, "x": t["x"]}
+        _track(leaves)
+        out = L.mlp({n: leaves[n] for n in p}, leaves["x"], act, tp)
+    elif case in ("attention", "straddle"):
+        cfg = attn_config(case)
+        kv_split = tp is None or tp.kv
+        p = {"wq": _cols(t["wq"], r, k),
+             "wk": _cols(t["wk"], r, k) if kv_split else t["wk"],
+             "wv": _cols(t["wv"], r, k) if kv_split else t["wv"],
+             "wo": _rows(t["wo"], r, k),
+             "q_norm": {"scale": t["q_norm"]},
+             "k_norm": {"scale": t["k_norm"]}}
+        leaves = {"wq": p["wq"], "wk": p["wk"], "wv": p["wv"],
+                  "wo": p["wo"], "q_norm": p["q_norm"]["scale"],
+                  "k_norm": p["k_norm"]["scale"], "x": t["x"]}
+        _track(leaves)
+        p = {"wq": leaves["wq"], "wk": leaves["wk"], "wv": leaves["wv"],
+             "wo": leaves["wo"], "q_norm": {"scale": leaves["q_norm"]},
+             "k_norm": {"scale": leaves["k_norm"]}}
+        pos = torch.arange(S)[None, :]
+        out = L.attention(p, cfg, leaves["x"], pos, causal=True, tp=tp)[0]
+    elif case == "embed":
+        leaves = {"table": _rows(t["table"], r, k)}
+        _track(leaves)
+        out = L.embed(leaves, t["tokens"], tp)
+    elif case == "logits":
+        cfg = padded_config()
+        leaves = {"table": _rows(t["table"], r, k), "x": t["x"]}
+        _track(leaves)
+        out = T._logits({"embed": {"table": leaves["table"]}}, cfg,
+                        leaves["x"], tp)
+        t["g"] = _cols(t["g"].reshape(-1, t["g"].shape[-1]), r, k).reshape(
+            out.shape)
+    else:
+        mask = t["mask"] if case == "xent_masked" else None
+        smooth = 0.1 if case == "xent_masked" else 0.0
+        logits = t["logits"]
+        leaves = {"logits": _cols(logits.reshape(-1, logits.shape[-1]),
+                                  r, k).reshape(B, S, -1)}
+        _track(leaves)
+        if tp is None:
+            out = softmax_xent(leaves["logits"], t["labels"], mask, smooth)
+        else:
+            out = TP.vocab_parallel_xent(leaves["logits"], t["labels"],
+                                         mask, smooth, tp=tp)
+    loss = out if out.ndim == 0 else (out * t["g"]).sum()
+    loss.backward()
+    return {"out": out.detach(),
+            **{f"d_{n}": v.grad for n, v in leaves.items()}}
+
+
+def _track(leaves: dict):
+    for n in leaves:
+        leaves[n] = leaves[n].clone().requires_grad_()
+
+
+def operator_ranks(rank, world, cases):
+    """Every case of `cases` on this rank's shards, on a ("model",) mesh
+    of all the ranks (f32, TF32 off)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.sharding.tp import TensorParallel
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("model",))
+    out = {}
+    for case in cases:
+        cfg = attn_config(case) if case in ("attention", "straddle") \
+            else padded_config()
+        tp = TensorParallel.build(cfg, mesh)
+        out[case] = run_operator(case, operator_inputs(case), tp)
+        out[case]["kv_split"] = tp.kv
+    return out
+
+
+# ------------------------------------------------------------ training
+
+STREAM = dict(seq=32, batch=8, seed=0, branch=4)
+
+
+def stream(cfg):
+    from repro_torch.data.tokens import TokenStream
+    return TokenStream(cfg.vocab_size, STREAM["seq"], STREAM["batch"],
+                       seed=STREAM["seed"], branch=STREAM["branch"])
+
+
+def init_params(cfg, ref_path):
+    """The reference's initial params (pickled by its run), bridged."""
+    import pickle
+    from repro_torch.params import params_from_jax
+    with open(ref_path, "rb") as f:
+        tree = pickle.load(f)["init"]
+    return params_from_jax(tree, cfg, device="cpu")
+
+
+def step_grads(cfg, mesh, params, *, microbatches=1, shapes=None):
+    """The gradients (full tensors) and metrics of the mesh step on the
+    stream's first batch. With `shapes` (a list), the shape of every op's
+    output during it is appended there."""
+    from repro_torch.launch import distributed as D
+    from repro_torch.optim import adamw
+    opt_init, _ = adamw(1e-3)
+    dp, opt, _, _ = D.shard_model(cfg, mesh, params, opt_init(params))
+    got = []
+
+    def record(grads, state, p):
+        got.extend(tree_leaves(grads))
+        return p, state, {}
+    batch = stream(cfg).next_batch()
+    step, b_specs = D.make_sharded_step(cfg, mesh, record, None, None, batch,
+                                        microbatches=microbatches)
+    dbatch = D.put_batch(mesh, b_specs, batch)
+    if shapes is None:
+        _, _, m = step(dp, opt, dbatch)
+    else:
+        with ShapeRecorder(shapes):
+            _, _, m = step(dp, opt, dbatch)
+    return ([x.full_tensor() for x in got],
+            {k: float(v) for k, v in m.items()})
+
+
+class ShapeRecorder(torch.utils._python_dispatch.TorchDispatchMode):
+    """Appends the shape of every plain tensor an op returns."""
+
+    def __init__(self, shapes: list):
+        super().__init__()
+        self.shapes = shapes
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if type(t) is torch.Tensor:
+                self.shapes.append(tuple(t.shape))
+        return out
+
+
+def tp_train_ranks(rank, world, arch, ref_path, mesh_shape, names, steps,
+                   lr, log_every, variants):
+    """On a mesh of `mesh_shape` / `names`: step 1's gradients for each
+    (microbatches, remat) of `variants`, and `train_sharded`'s logged
+    losses over `steps` steps (None: no run); with ("shapes", ...) in
+    variants, the op output shapes of a plain step. Gradients and params
+    from rank 0 only."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import registry
+    from repro_torch.launch import distributed as D
+    from repro_torch.sharding.tp import TensorParallel
+    cfg = registry.get(arch, reduced=True)
+    mesh = init_device_mesh("cpu", mesh_shape, mesh_dim_names=names)
+    params = init_params(cfg, ref_path)
+    out = {"tp": TensorParallel.build(cfg, mesh) is not None}
+    for mb, remat in variants:
+        if mb == "shapes":
+            shapes = []
+            step_grads(cfg, mesh, tree_map(torch.clone, params),
+                       shapes=shapes)
+            out["shapes"] = sorted(set(shapes))
+            continue
+        c = cfg.replace(remat=remat)
+        g, m = step_grads(c, mesh, tree_map(torch.clone, params),
+                          microbatches=mb)
+        out[(mb, remat)] = {"grads": g if rank == 0 else None,
+                            "loss": m["loss"]}
+    if steps:
+        D.T.init_lm = lambda gen, c: init_params(c, ref_path)
+        _, _, losses = D.train_sharded(
+            cfg, mesh, iter(stream(cfg)), num_steps=steps, lr=lr,
+            log_every=log_every, verbose=False)
+        out["losses"] = losses
+    return out
+
+
+def one_rank_grads(cfg, params, microbatches=1):
+    """Step 1's gradients and loss of the unsharded step, one device."""
+    from repro_torch.train.step import build_lm_train_step
+    got = []
+
+    def record(g, s, p):
+        got.extend(tree_leaves(g))
+        return p, s, {}
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v))
+             for k, v in stream(cfg).next_batch().items()}
+    _, _, m = build_lm_train_step(cfg, record, microbatches=microbatches)(
+        params, None, batch)
+    return got, float(m["loss"])

@@ -14,11 +14,12 @@ port starts from (`T.init_lm` patched), and a checkpoint of them.
 
 Tolerances: losses within 1e-4 relative, against the reference and
 against one rank (partial sums over two mesh axes reduce in another order
-than one batch's). The first step's gradients against one rank: within
-1e-5 of each leaf's max |value| (measured: 9.3e-7). Params against one
-rank after 8 AdamW steps at lr 5e-3: within 5e-3 of each leaf's max
-(measured: 5.8e-4 with one microbatch, 3.2e-3 with two, in the tied
-embedding table). An AdamW step moves an element by up to the learning
+than one batch's). The (2, 2, 2) mesh runs reduced qwen3-1.7b tensor
+parallel over "model" (`sharding.tp`). The first step's gradients
+against one rank: within 1e-5 of each leaf's max |value| (measured:
+9.3e-7). Params against one rank after 8 AdamW steps at lr 5e-3: within
+5e-3 of each leaf's max (measured: 2.3e-3 with one microbatch, 2.6e-3
+with two; 5.8e-4 and 3.2e-3 when the step gathered the params). An AdamW step moves an element by up to the learning
 rate whatever its gradient's size, so an element whose gradient is near
 zero turns the reduction order's last-bit differences into a visible step,
 and 8 steps at this rate compound them; the losses stay within 1e-6.

@@ -4,11 +4,20 @@ collective and memory counters, and the CLI on full configs on the debug
 meshes (the reference's tests/test_sharding_rules.py reduced cases and
 tests/test_dryrun_small.py CLI cases). `constrain` on a fake (2, 2) mesh.
 
-Flops: the mesh step is data parallel over "pod" x "data" and every rank
-of the "model" axis runs the same rows (`sharding.spmd`), so a case's
+Flops: the mesh step is data parallel over "pod" x "data". A train step
+of a dense decoder is tensor parallel over "model" (`sharding.tp`): each
+rank computes its heads, FFN columns and vocabulary rows, so a case's
 per-device flops times the ranks equal the one-rank count of the same step
-times the model axis size (the replication factor, 2 on the debug
-meshes), within 1%.
+(the replicated remainder, the norms, counts no flops: FlopCounterMode
+counts products only; measured: equal, 0.0 relative), within 1%. Every
+other step (the other families' training, every serving step) runs the
+same rows on every rank of the "model" axis (`sharding.spmd`): flops times
+ranks equal the one-rank count times the model axis size (the replication
+factor, 2 on the debug meshes), within 1%. The tensor-parallel step's
+all-reduces over "model": 4 per layer (two forward, two backward), one
+for the embedding and four for the logits and the loss (the max, the sum
+of exps, the target logit, and the logits' input in the backward), per
+microbatch.
 """
 import json
 import os
@@ -63,7 +72,7 @@ def test_reduced_case_runs_on_debug_mesh(debug_mesh, small, arch, shape):
     assert m["memory"]["peak_bytes"] > 0
     colls = m["colls"]
     assert set(DR.COLLECTIVES) <= set(colls)
-    assert colls["all-gather"]["count"] > 0     # params gathered over model
+    assert colls["all-gather"]["count"] > 0     # batch rows, gathered params
     if kind == "train":
         assert colls["all-reduce"]["count"] >= 1     # the gradients
         assert colls["all-reduce"]["bytes"] > 0
@@ -92,13 +101,84 @@ def one_rank_flops(cfg, shape, microbatches):
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
 def test_flops_per_device_times_ranks_is_one_rank_times_replication(
         debug_mesh, small, shape):
+    """qwen3-1.7b: tensor parallel in training (no replication), the model
+    axis replicating the serving steps."""
     cfg = reduced("qwen3-1.7b", shape)
-    mb = 2 if S.SHAPES[shape].kind == "train" else None
-    _, m = DR.measure_case(cfg, shape, debug_mesh, microbatches=mb)
+    train = S.SHAPES[shape].kind == "train"
+    mb = 2 if train else None
+    case, m = DR.measure_case(cfg, shape, debug_mesh, microbatches=mb)
+    assert (case["tp"] is not None) == train
     one = one_rank_flops(cfg, shape, mb)
+    replication = 1 if train else R.mesh_axis_size(debug_mesh, "model")
+    assert abs(m["flops"] * debug_mesh.size() - one * replication) \
+        <= FLOPS_REL * one * replication
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "pixtral-12b"])
+def test_tensor_parallel_train_flops_times_ranks_is_one_rank(
+        debug_mesh, small, arch):
+    cfg = reduced(arch, "train_4k")
+    case, m = DR.measure_case(cfg, "train_4k", debug_mesh, microbatches=2)
+    assert case["tp"] is not None
+    one = one_rank_flops(cfg, "train_4k", 2)
+    assert abs(m["flops"] * debug_mesh.size() - one) <= FLOPS_REL * one
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-130m",
+                                  "recurrentgemma-9b",
+                                  "seamless-m4t-large-v2"])
+def test_gathered_train_flops_times_ranks_is_one_rank_times_replication(
+        debug_mesh, small, arch):
+    """The families out of the tensor-parallel scope keep the gathered
+    step: every rank of the model axis repeats the compute."""
+    cfg = reduced(arch, "train_4k")
+    case, m = DR.measure_case(cfg, "train_4k", debug_mesh, microbatches=2)
+    assert case["tp"] is None
+    assert m["model_axis_all_reduces"] is None
+    one = one_rank_flops(cfg, "train_4k", 2)
     replication = R.mesh_axis_size(debug_mesh, "model")
     assert abs(m["flops"] * debug_mesh.size() - one * replication) \
         <= FLOPS_REL * one * replication
+
+
+@pytest.mark.parametrize("microbatches,remat", [(1, False), (2, False),
+                                                (1, True)])
+def test_model_axis_all_reduces_per_layer(debug_mesh, small, microbatches,
+                                          remat):
+    """4 per layer + 1 for the embedding + 4 for the logits and the loss,
+    per microbatch. Remat recomputes each layer's forward in the backward
+    up to the last value the backward reads (torch's checkpoint stops
+    early): the attention's all-reduce again, not the MLP's (its output
+    is only added to the residual stream), one more per layer."""
+    cfg = reduced("qwen3-1.7b", "train_4k")
+    case, m = DR.measure_case(cfg, "train_4k", debug_mesh,
+                              microbatches=microbatches, remat=remat)
+    per_mb = (4 + remat) * cfg.n_layers + 1 + 4
+    tp = m["model_axis_all_reduces"]
+    assert tp["count"] == microbatches * per_mb
+    assert tp["bytes"] > 0
+    # they go through the counted collectives
+    assert m["colls"]["all-reduce"]["count"] > tp["count"]
+
+
+@pytest.mark.parametrize("arch,shape,tensor_parallel", [
+    ("qwen3-1.7b", "train_4k", True),
+    ("qwen3-1.7b", "decode_32k", False),
+    ("granite-moe-1b-a400m", "train_4k", False),
+])
+def test_record_says_tensor_parallel_and_gathered_leaves(
+        debug_mesh, small, monkeypatch, arch, shape, tensor_parallel):
+    cfg = reduced(arch, shape)
+    monkeypatch.setattr(DR.registry, "get", lambda a: cfg)
+    rec = DR.run_case(arch, shape, debug_mesh, "pod1", verbose=False)
+    assert rec["tensor_parallel"] is tensor_parallel
+    if tensor_parallel:
+        assert rec["gathered_leaves"] == []     # 4/2 heads, 2/2 kv heads
+        assert rec["model_axis_all_reduces"]["count"] > 0
+    else:
+        assert "embed/table" in rec["gathered_leaves"]
+        assert "blocks/0/attn/wq" in rec["gathered_leaves"]
+        assert rec["model_axis_all_reduces"] is None
 
 
 @pytest.mark.parametrize("dims,shape,want", [
@@ -147,7 +227,9 @@ def run_cli(args, tmp_path, timeout=120):
 RECORD_KEYS = {"flops_per_device", "bytes_accessed_per_device",
                "collectives", "collective_bytes_per_device", "memory",
                "meta", "param_count", "active_param_count",
-               "corrected_per_device", "n_devices", "arch", "shape", "mesh"}
+               "corrected_per_device", "n_devices", "arch", "shape", "mesh",
+               "tensor_parallel", "model_axis_all_reduces",
+               "gathered_leaves"}
 
 
 @pytest.mark.parametrize("arch,shape", [("qwen3-1.7b", "decode_32k"),

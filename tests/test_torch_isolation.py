@@ -1,5 +1,6 @@
 """The port stands alone: no module of `repro_torch`, not the root
-`chip_smoke.py` and not the card probes `tools/probe_*.py` imports JAX or
+`chip_smoke.py` and not the tools `tools/*.py` (the card probes, the
+dry-run table) imports JAX or
 the reference package `repro` — not at import time (a fresh interpreter
 imports every module and inspects `sys.modules`) and not lazily inside a
 function (every import statement in the sources is read)."""
@@ -14,7 +15,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-           + sorted((ROOT / "tools").glob("probe_*.py")))
+           + sorted((ROOT / "tools").glob("*.py")))
 
 _PROBE = r"""
 import importlib, pkgutil, sys
