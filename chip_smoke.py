@@ -275,6 +275,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
    V/2). Logs each rank's step ms, per-rank peak memory (the set-up's and
    the steps') and rank 0's profiled step beside phase 20's. The ranks
    are joined with a timeout and killed if still alive.
+30. Tensor parallelism for the MoE decoder, after phase 29, on phase 29's
+   machinery (two ranks, gloo, (1, 1, 2), f32 with TF32 off, "xla"):
+   granite-moe-1b-a400m at full width and depth (24 layers, d_model 1024,
+   16/8 heads, 32 experts top-8, expert d_ff 512; its vocabulary of
+   49,155 padded to 49,408, a multiple of 256 as the dry-run pads it, so
+   two ranks split it), expert parallel (16 experts a rank; the routing,
+   the capacity slots and the aux losses whole on each rank), 4 AdamW
+   steps of 8 x 256 tokens. The oracle is the same seeded weights and
+   batches through the unsharded step in this process on the card, run
+   first: both ranks' losses within 1e-4 relative, exactly 5 x 24 + 5
+   model-axis all-reduces a step, and each rank's "pallas" forward on its
+   8 query / 4 kv heads (24 flash launches a rank) within 1e-3 of "xla".
+   Logs step ms, rank 0's busy share, the per-rank peak beside the
+   unsharded run's, and the dropped fraction.
+31. The encoder-decoder, the same way: seamless-m4t-large-v2 at full width
+   and depth (24 + 24 layers, d_model 1024, 16/16 heads, d_ff 8192, vocab
+   256206), 4 steps of 4 rows of 400 stub encoder frames + 256 tokens;
+   the encoder and every cross-attention split by heads, the encoder
+   output sent into the split once: exactly 4 x 24 + 6 x 24 + 1 + 5
+   all-reduces a step, flash on each rank's 8 heads in the decoder's
+   self-attention only (24 launches a rank).
+32. The MoE load balance on a data-parallel mesh under remat, after phase
+   31: granite-moe-1b-a400m at full width, its depth cut to 4 layers, f32
+   with TF32 off, remat on, the load-balance coefficient raised from 0.01
+   to 1 (its gradient then weighs on the router's); two data ranks, each a
+   process on the one card over gloo, on a (1, 2, 1) mesh (the gathered
+   step: no model split). Step 1's gradients on 8 x 256 tokens (4 rows a
+   rank), leaf by leaf within 1e-5 of each leaf's max of one device's on
+   the whole batch (in each rank's process), the loss within 1e-4
+   relative, and exactly 3 all-reduces over the data axis a layer (the
+   means' forward, the checkpoint's recompute on autograd's own thread,
+   the backward), the load balance within 1e-6 relative of one device's.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; above it
 stand the card's name and power limit and one JSON line with each
@@ -2793,9 +2825,16 @@ def distribution_phase(device, card: str, tr: dict, pop: dict):
 
 # ---------------------------------------------------- tensor parallelism
 
-TP_RANKS = 2                       # phase 29: two model ranks on the card
-TP_REL = 1e-4                      # their losses against phase 20's
+TP_RANKS = 2                       # phases 29-31: two model ranks
+TP_REL = 1e-4                      # their losses against one process's
 TP_TIMEOUT_S = 600
+TP_FAMILY_STEPS = 4                # phases 30-31: AdamW steps
+TP_VOCAB_PAD = 256                 # phase 30: 49155 -> 49408, as the
+                                   # dry-run pads it (two ranks divide it)
+SEAMLESS_ROWS, SEAMLESS_FRAMES, SEAMLESS_TOKENS = 4, 400, 256   # phase 31
+DP_LAYERS = 4                      # phase 32: granite-moe-1b's depth cut
+DP_GRAD_TOL = 1e-5                 # each leaf's gradient, of its max
+DP_LB_REL = 1e-6                   # the load balance against one device's
 
 
 class peak_batches(timed_batches):
@@ -2837,19 +2876,98 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def tp_rank(rank: int, port: int, out_dir: str, device_type: str):
-    """Phase 29, one model rank, in a process of its own: gloo on the card
-    (NCCL refuses two ranks on one device; gloo all-reduces CUDA tensors),
-    a (1, 1, 2) ("pod", "data", "model") mesh, `train_sharded` on phase
-    20's model, weights, batches and schedule, tensor parallel; a timed and
-    a profiled step counting the model-axis all-reduces; then the
-    "pallas" forward under no_grad on this rank's heads against "xla".
-    Writes rank<r>.json (its "error" on a failure) and exits non-zero on a
-    failure."""
+def tp_config(phase: int):
+    """The f32 model of a tensor-parallel phase: 29 qwen3-1.7b (phase 20's),
+    30 granite-moe-1b-a400m (its vocabulary padded to TP_VOCAB_PAD), 31
+    seamless-m4t-large-v2, each at full width and depth."""
+    if phase == 29:
+        return full_config("float32")
+    if phase == 30:
+        return family_config("granite-moe-1b-a400m", "float32",
+                             vocab_pad_to=TP_VOCAB_PAD)
+    return family_config("seamless-m4t-large-v2", "float32")
+
+
+def tp_batches(phase: int, cfg, device, n=None, rows=None, seq=None,
+               seed=SEED) -> list:
+    """A phase's training batches, the same in every process (the token
+    stream; seamless' stub frames from a seeded CUDA generator): 8 x 256
+    tokens for 29 and 30, 4 rows of 400 frames + 256 tokens for 31."""
+    if phase == 31:
+        rows = rows or SEAMLESS_ROWS
+        out = token_batches(cfg, n or TP_FAMILY_STEPS, rows,
+                            seq or SEAMLESS_TOKENS, device, seed=seed)
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        for b in out:
+            b["enc_embeds"] = torch.randn(
+                (rows, SEAMLESS_FRAMES, cfg.d_model), generator=gen,
+                device=device)
+        return out
+    return token_batches(cfg, n or (TRAIN_STEPS if phase == 29 else
+                                    TP_FAMILY_STEPS),
+                         rows or TRAIN_BATCH, seq or TRAIN_SEQ, device,
+                         seed=seed)
+
+
+def tp_want_reduces(phase: int, cfg) -> int:
+    """The model-axis all-reduces of a step (one microbatch): 4 a dense
+    layer, 5 an MoE layer (the attention's 2; the experts' output forward,
+    their input's and the gate weights' copies backward), 4 an encoder
+    layer and 6 a decoder layer with cross-attention, 1 for the encoder
+    output, plus the embedding's 1 and the logits' and loss's 4."""
+    if cfg.is_encdec:
+        return 4 * cfg.n_enc_layers + 6 * cfg.n_layers + 1 + 5
+    return (5 if cfg.moe else 4) * cfg.n_layers + 5
+
+
+def tp_baseline(device, phase: int) -> dict:
+    """Phases 30-31's oracle: the same seeded weights, batches, schedule
+    and rate as `train_sharded`'s through the unsharded step in this
+    process on the card."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import linear_warmup_cosine
+    from repro_torch.train.step import build_lm_train_step
+    cfg = tp_config(phase)
+    batches = tp_batches(phase, cfg, device)
+    n = len(batches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync_device(device)
+    peak_bytes(device, reset=True)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = T.init_lm(gen, cfg)
+    n_params = numel(params)
+    opt_init, opt_update = adamw(linear_warmup_cosine(
+        TRAIN_LR, max(n // 10, 1), n))
+    step = build_lm_train_step(cfg, opt_update)
+    opt = opt_init(params)
+    losses, ms, dropped = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        dropped.append(float(m["dropped_frac"]))
+    peak = peak_bytes(device)
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ms": ms, "dropped_frac": dropped,
+            "step_ms": float(np.median(ms[1:])), "peak_gib": peak / 2**30,
+            "params": n_params}
+
+
+def tp_rank(rank: int, port: int, out_dir: str, device_type: str,
+            phase: int = 29):
+    """Phases 29-32, one rank, in a process of its own (`tp_rank_run`;
+    phase 32: `dp_rank_run`). Writes rank<r>.json (its "error" on a
+    failure) and exits non-zero on a failure."""
     import traceback
     out = {"rank": rank}
+    run = dp_rank_run if phase == 32 else tp_rank_run
     try:
-        out.update(tp_rank_run(rank, port, torch.device(device_type)))
+        out.update(run(rank, port, torch.device(device_type), phase))
     except Exception:
         out["error"] = traceback.format_exc()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -2858,10 +2976,40 @@ def tp_rank(rank: int, port: int, out_dir: str, device_type: str):
         raise SystemExit(1)
 
 
-def tp_rank_run(rank: int, port: int, device) -> dict:
+def init_ranks(rank: int, port: int, device, mesh_shape: tuple):
+    """A rank of phases 29-32 on the card: TF32 off, gloo (NCCL refuses
+    two ranks on one device; gloo all-reduces CUDA tensors, probed here),
+    a ("pod", "data", "model") mesh of `mesh_shape`."""
     import torch.distributed as dist
     sys.path.insert(0, str(SRC))
     from torch.distributed.device_mesh import init_device_mesh
+    if device.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=TP_RANKS, rank=rank)
+    mesh = init_device_mesh(device.type, mesh_shape,
+                            mesh_dim_names=("pod", "data", "model"))
+    probe = torch.full((4,), float(rank + 1), device=device)
+    dist.all_reduce(probe)
+    want = float(sum(range(1, TP_RANKS + 1)))
+    if probe.tolist() != [want] * 4:
+        raise AssertionError(f"gloo all-reduce on {device}: "
+                             f"{probe.tolist()}")
+    return mesh
+
+
+def tp_rank_run(rank: int, port: int, device, phase: int = 29) -> dict:
+    """Phases 29-31: a (1, 1, 2) mesh, `train_sharded` on the phase's
+    model, weights, batches and schedule, tensor parallel; a timed and a
+    profiled step counting the model-axis all-reduces; then the "pallas"
+    forward under no_grad on this rank's heads against "xla"."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+    mesh = init_ranks(rank, port, device, (1, 1, TP_RANKS))
     from torch.distributed.tensor import Replicate
     from torch.utils._pytree import tree_flatten, tree_unflatten
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -2873,29 +3021,15 @@ def tp_rank_run(rank: int, port: int, device) -> dict:
     from repro_torch.sharding import spmd
     from repro_torch.sharding.tp import TensorParallel
     from repro_torch.train.step import build_lm_train_step
-    if device.type == "cuda":
-        torch.cuda.set_device(0)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=TP_RANKS, rank=rank)
     try:
-        mesh = init_device_mesh(device.type, (1, 1, TP_RANKS),
-                                mesh_dim_names=("pod", "data", "model"))
-        probe = torch.full((4,), float(rank + 1), device=device)
-        dist.all_reduce(probe, group=mesh.get_group("model"))
-        want = float(sum(range(1, TP_RANKS + 1)))
-        if probe.tolist() != [want] * 4:
-            raise AssertionError(f"gloo all-reduce on {device}: "
-                                 f"{probe.tolist()}")
-        cfg = full_config("float32")
-        batches = token_batches(cfg, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
-                                device)
+        cfg = tp_config(phase)
+        batches = tp_batches(phase, cfg, device)
+        n = len(batches)
         data = peak_batches(batches, device)
         sync_device(device)
         peak_bytes(device, reset=True)
         params, opt, losses = D.train_sharded(
-            cfg, mesh, data, num_steps=TRAIN_STEPS, lr=TRAIN_LR, seed=SEED,
+            cfg, mesh, data, num_steps=n, lr=TRAIN_LR, seed=SEED,
             log_every=1, verbose=False)
         sync_device(device)
         ends = data.stamps[1:] + [time.perf_counter()]
@@ -2904,13 +3038,13 @@ def tp_rank_run(rank: int, port: int, device) -> dict:
 
         tp = TensorParallel.build(cfg, mesh)
         _, opt_update = adamw(linear_warmup_cosine(
-            TRAIN_LR, max(TRAIN_STEPS // 10, 1), TRAIN_STEPS))
+            TRAIN_LR, max(n // 10, 1), n))
         step = build_lm_train_step(cfg, opt_update, tp=tp)
         b_specs = R.batch_specs(cfg, batches[0], mesh)
         state = {"params": params, "opt": opt}
 
         def one_step():
-            state["params"], state["opt"], _ = step(
+            state["params"], state["opt"], state["m"] = step(
                 state["params"], state["opt"],
                 D.put_batch(mesh, b_specs, batches[1]))
         # rank 0 profiles (two calls of the step), rank 1 steps alongside
@@ -2922,20 +3056,21 @@ def tp_rank_run(rank: int, port: int, device) -> dict:
             one_step()
         per_step = tp.all_reduces / 2
         mib_per_step = tp.all_reduce_bytes / 2 / 2**20
+        dropped = float(state["m"]["dropped_frac"])
         params = state["params"]
         del opt, state
 
         leaves, spec = tree_flatten(params)
-        tokens = token_batches(cfg, 1, 2, EVAL_SEQ, device,
-                               seed=SEED + 5)[0]
+        inputs = tp_batches(phase, cfg, device, n=1, rows=2, seq=EVAL_SEQ,
+                            seed=SEED + 5)[0]
         with torch.no_grad():
             local = tree_unflatten(spmd.split_params(
                 leaves, R.leaf_paths(params), (Replicate(),) * mesh.ndim,
                 tp), spec)
-            ref, _ = T.forward_train(local, cfg, tokens, tp=tp)
+            ref, _ = T.forward_train(local, cfg, inputs, tp=tp)
             flash_attention.launches = 0
             got, _ = T.forward_train(
-                local, cfg.replace(attention_impl="pallas"), tokens, tp=tp)
+                local, cfg.replace(attention_impl="pallas"), inputs, tp=tp)
             sync_device(device)
         launches = flash_attention.launches
         err = float((got - ref).abs().max())
@@ -2943,24 +3078,27 @@ def tp_rank_run(rank: int, port: int, device) -> dict:
                 "peaks_gib": [p / 2**30 for p in peaks],
                 "all_reduces_per_step": per_step,
                 "all_reduce_mib_per_step": mib_per_step,
+                "dropped_frac": dropped,
                 "profile": None if prof is None else {
                     k: prof[k] for k in ("step_ms", "device_ms",
                                          "busy_share", "top")},
                 "local_heads": tp.local_heads(cfg),
                 "local_kv_heads": cfg.n_kv_heads // TP_RANKS if tp.kv
                 else len(tp.kv_heads(cfg)),
+                "experts": tp.experts,
+                "local_experts": (len(tp.local_experts(cfg)) if cfg.moe
+                                  else None),
                 "logits_shape": list(got.shape),
                 "pallas_launches": launches, "pallas_max_abs_err": err}
     finally:
         dist.destroy_process_group()
 
 
-def tp_phase(device, card: str, tr: dict) -> dict:
-    """Phase 29: two model ranks, each a process on the one card, train
-    phase 20's model tensor parallel; returns both ranks' results after
-    the checks."""
+def run_ranks(device, phase: int):
+    """Phase `phase`'s TP_RANKS ranks (`tp_rank`), each a process on the
+    one card, joined with a timeout and killed if still alive; (their
+    results, the wall seconds). Raises if a rank failed."""
     import multiprocessing as mp
-    cfg = full_config("float32")
     out_dir = ROOT / "build" / "chip_smoke_tp"
     out_dir.mkdir(parents=True, exist_ok=True)
     for f in out_dir.glob("rank*.json"):
@@ -2971,7 +3109,7 @@ def tp_phase(device, card: str, tr: dict) -> dict:
     port = free_port()
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=tp_rank,
-                         args=(r, port, str(out_dir), device.type))
+                         args=(r, port, str(out_dir), device.type, phase))
              for r in range(TP_RANKS)]
     t0 = time.perf_counter()
     for p in procs:
@@ -2989,44 +3127,182 @@ def tp_phase(device, card: str, tr: dict) -> dict:
     for r, p in enumerate(procs):
         path = out_dir / f"rank{r}.json"
         if not path.exists():
-            raise AssertionError(f"phase 29 rank {r}: no result (exit code "
-                                 f"{p.exitcode}, {wall:.0f} s)")
+            raise AssertionError(f"phase {phase} rank {r}: no result (exit "
+                                 f"code {p.exitcode}, {wall:.0f} s)")
         res = json.loads(path.read_text())
         if "error" in res or p.exitcode != 0:
-            raise AssertionError(f"phase 29 rank {r} (exit code "
+            raise AssertionError(f"phase {phase} rank {r} (exit code "
                                  f"{p.exitcode}): {res.get('error')}")
         ranks.append(res)
-    n_flash = cfg.layer_types().count("attn")
-    want_reduces = 4 * cfg.n_layers + 1 + 4
+    return ranks, wall
+
+
+def tp_phase(device, card: str, base: dict, phase: int = 29) -> dict:
+    """Phases 29-31: two model ranks, each a process on the one card,
+    train the phase's model tensor parallel; returns both ranks' results
+    after the checks against `base` (the unsharded run's losses: phase
+    20's, or `tp_baseline`'s)."""
+    cfg = tp_config(phase)
+    ranks, wall = run_ranks(device, phase)
+    n_flash = cfg.layer_types().count("attn")     # the decoder's
+    want_reduces = tp_want_reduces(phase, cfg)
     for res in ranks:
         r = res["rank"]
-        for i, (a, b) in enumerate(zip(res["losses"], tr["losses"])):
-            rel_close(f"phase 29 rank {r} step {i + 1} loss against phase "
-                      "20's", a, b, TP_REL)
+        if len(res["losses"]) != len(base["losses"]):
+            raise AssertionError(f"phase {phase} rank {r}: "
+                                 f"{len(res['losses'])} losses")
+        for i, (a, b) in enumerate(zip(res["losses"], base["losses"])):
+            rel_close(f"phase {phase} rank {r} step {i + 1} loss against "
+                      "the unsharded step's", a, b, TP_REL)
         if res["losses"] != ranks[0]["losses"]:
-            raise AssertionError("phase 29: the ranks logged other losses")
+            raise AssertionError(f"phase {phase}: the ranks logged other "
+                                 "losses")
         if res["all_reduces_per_step"] != want_reduces:
-            raise AssertionError(f"phase 29 rank {r}: "
+            raise AssertionError(f"phase {phase} rank {r}: "
                                  f"{res['all_reduces_per_step']} model-axis "
                                  f"all-reduces a step, expected "
                                  f"{want_reduces}")
         if res["pallas_launches"] != n_flash:
-            raise AssertionError(f"phase 29 rank {r}: flash launched "
+            raise AssertionError(f"phase {phase} rank {r}: flash launched "
                                  f"{res['pallas_launches']} times, expected "
                                  f"{n_flash}")
         if not res["pallas_max_abs_err"] <= LOGIT_TOL:
-            raise AssertionError(f"phase 29 rank {r}: 'pallas' logits "
+            raise AssertionError(f"phase {phase} rank {r}: 'pallas' logits "
                                  f"{res['pallas_max_abs_err']} from 'xla', "
                                  f"beyond {LOGIT_TOL}")
         if res["logits_shape"][-1] * TP_RANKS != cfg.padded_vocab_size:
-            raise AssertionError(f"phase 29 rank {r}: logits "
+            raise AssertionError(f"phase {phase} rank {r}: logits "
                                  f"{res['logits_shape']}")
-    return {"ranks": ranks, "wall_s": wall, "card": card}
+        if cfg.moe and res["experts"] != "expert":
+            raise AssertionError(f"phase {phase} rank {r}: experts split "
+                                 f"as {res['experts']}")
+    return {"ranks": ranks, "wall_s": wall, "card": card, "phase": phase,
+            "want_reduces": want_reduces}
 
 
-def log_tp_phase(tp: dict, tr: dict):
-    """Phase 29's lines."""
-    card = tp["card"]
+def dp_config():
+    """Phase 32's model: granite-moe-1b-a400m at full width, f32, its depth
+    cut to DP_LAYERS, remat on, the load-balance coefficient raised from
+    0.01 to 1 (its gradient then weighs on the router's)."""
+    import dataclasses
+    cfg = family_config("granite-moe-1b-a400m", "float32")
+    return cfg.replace(n_layers=DP_LAYERS, remat=True,
+                       moe=dataclasses.replace(cfg.moe, load_balance_coef=1.0))
+
+
+def dp_rank_run(rank: int, port: int, device, phase: int = 32) -> dict:
+    """Phase 32: a (1, 2, 1) mesh (the batch split over "data", no model
+    split). The unsharded step's gradients on the whole batch in this
+    process, then the mesh step's on this rank's rows, counting the
+    all-reduces over the data axis (`spmd._all_reduce_over`: forward and
+    backward); each leaf's worst error against its max."""
+    import torch.distributed as dist
+    mesh = init_ranks(rank, port, device, (1, TP_RANKS, 1))
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.launch import distributed as D
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding import spmd
+    from repro_torch.train.step import build_lm_train_step
+    try:
+        cfg = dp_config()
+        batch = tp_batches(30, cfg, device, n=1)[0]
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        params = T.init_lm(gen, cfg)
+        got = {}
+
+        def record(grads, state, p):
+            got["grads"] = tree_leaves(grads)
+            return p, state, {}
+        _, _, m1 = build_lm_train_step(cfg, record)(params, None, batch)
+        want = got.pop("grads")
+
+        opt_init, _ = adamw(1e-3)
+        dp, opt, _, _ = D.shard_model(cfg, mesh, params, opt_init(params))
+        step, b_specs = D.make_sharded_step(cfg, mesh, record, None, None,
+                                            batch)
+        plain, calls = spmd._all_reduce_over, []
+
+        def counted(x, groups):
+            calls.append(len(groups))
+            return plain(x, groups)
+        spmd._all_reduce_over = counted
+        try:
+            sync_device(device)
+            t0 = time.perf_counter()
+            _, _, m = step(dp, opt, D.put_batch(mesh, b_specs, batch))
+            sync_device(device)
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            spmd._all_reduce_over = plain
+        names = ["/".join(map(str, p)) for p in R.leaf_paths(params)]
+        errs = {}
+        for name, a, b in zip(names, got["grads"], want):
+            a = a.full_tensor()
+            errs[name] = float((a - b).abs().max()
+                               / b.abs().max().clamp_min(1e-30))
+        return {"loss": float(m["loss"]), "one_device_loss": float(m1["loss"]),
+                "load_balance": float(m["load_balance"]),
+                "one_device_load_balance": float(m1["load_balance"]),
+                "batch_all_reduces": len(calls),
+                "groups_per_all_reduce": sorted(set(calls)),
+                "errs": errs, "ms": ms}
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_phase(device, card: str) -> dict:
+    """Phase 32: two data ranks train step 1 of `dp_config` under remat;
+    every gradient, the loss and the load balance against one device's,
+    and the count of data-axis all-reduces."""
+    t0 = time.perf_counter()
+    cfg = dp_config()
+    log(f"[32] the MoE load balance on a data-parallel mesh under remat: "
+        f"granite-moe-1b-a400m at full width, {DP_LAYERS} of its 24 "
+        f"layers, f32 (TF32 off), 'xla', load-balance coefficient 1; "
+        f"{TP_RANKS} data ranks (processes on the one card, gloo), a (1, "
+        f"{TP_RANKS}, 1) mesh; step 1 on {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+        f"against one device's; card: {card}")
+    ranks, wall = run_ranks(device, 32)
+    want_reduces = 3 * cfg.n_layers     # forward, recompute, backward
+    for res in ranks:
+        r = res["rank"]
+        rel_close(f"phase 32 rank {r} loss against one device's",
+                  res["loss"], res["one_device_loss"], TP_REL)
+        rel_close(f"phase 32 rank {r} load balance against one device's",
+                  res["load_balance"], res["one_device_load_balance"],
+                  DP_LB_REL)
+        if res["batch_all_reduces"] != want_reduces \
+                or res["groups_per_all_reduce"] != [1]:
+            raise AssertionError(
+                f"phase 32 rank {r}: {res['batch_all_reduces']} data-axis "
+                f"all-reduces over {res['groups_per_all_reduce']} groups, "
+                f"expected {want_reduces} over one")
+        bad = {k: v for k, v in res["errs"].items() if not v <= DP_GRAD_TOL}
+        if bad:
+            raise AssertionError(f"phase 32 rank {r}: gradients beyond "
+                                 f"{DP_GRAD_TOL} of their max: {bad}")
+        if not any(k.endswith("ffn/router") for k in res["errs"]):
+            raise AssertionError(f"phase 32 rank {r}: no router gradient")
+        worst = max(res["errs"], key=res["errs"].get)
+        router = max(v for k, v in res["errs"].items()
+                     if k.endswith("ffn/router"))
+        log(f"  rank {r}: loss {res['loss']:.6f} (one device "
+            f"{res['one_device_loss']:.6f}), load balance "
+            f"{res['load_balance']:.6f} (one device "
+            f"{res['one_device_load_balance']:.6f}); {len(res['errs'])} "
+            f"gradients within {res['errs'][worst]:.3g} of their max "
+            f"(worst {worst}; the router's {router:.3g}; tol {DP_GRAD_TOL})"
+            f"; {res['batch_all_reduces']} data-axis all-reduces (expected "
+            f"{want_reduces}); the step {res['ms']:.3f} ms")
+    log(f"  phase 32 took {time.perf_counter() - t0:.1f} s")
+    return {"ranks": ranks, "wall_s": wall}
+
+
+def log_tp_phase(tp: dict, base: dict, base_name: str = "phase 20"):
+    """A tensor-parallel phase's lines."""
+    card, phase = tp["card"], tp["phase"]
     for res in tp["ranks"]:
         ms = res["ms"]
         step_ms = float(np.median(ms)) if ms else float("nan")
@@ -3035,22 +3311,64 @@ def log_tp_phase(tp: dict, tr: dict):
         log(f"  rank {res['rank']}: loss "
             f"{' '.join(f'{x:.6f}' for x in res['losses'])}")
         log(f"    step ms {' '.join(f'{x:.3f}' for x in ms)}; median of "
-            f"steps 2-{TRAIN_STEPS} {step_ms:.3f} (phase 20, one process: "
-            f"{tr['step_ms']:.3f}); peak memory {max(res['peaks_gib'][1:]):.2f}"
-            f" GiB over the steps, {res['peaks_gib'][0]:.2f} GiB in the "
-            f"set-up (phase 20: {tr['peak_gib']:.2f} GiB); card: {card}")
+            f"steps 2-{len(ms) + 1} {step_ms:.3f} ({base_name}, one process: "
+            f"{base['step_ms']:.3f}); peak memory "
+            f"{max(res['peaks_gib'][1:]):.2f} GiB over the steps, "
+            f"{res['peaks_gib'][0]:.2f} GiB in the set-up ({base_name}: "
+            f"{base['peak_gib']:.2f} GiB); card: {card}")
         log(f"    {res['all_reduces_per_step']:.0f} model-axis all-reduces "
-            f"a step ({res['all_reduce_mib_per_step']:.1f} MiB); a profiled "
+            f"a step (expected {tp['want_reduces']}; "
+            f"{res['all_reduce_mib_per_step']:.1f} MiB); a profiled "
             f"step {prof.get('step_ms', float('nan')):.3f} ms, device busy "
             f"share {busy if busy is None else round(busy, 4)}")
         for name, t, n in prof.get("top", [])[:5]:
             log(f"      {t:9.3f} ms  x{n:<5d} {name}")
+        if res["experts"] is not None:
+            log(f"    experts split as {res['experts']!r}: "
+                f"{res['local_experts']} a rank; dropped_frac of a step "
+                f"{res['dropped_frac']:.6f}")
         log(f"    'pallas' forward under no_grad on {res['local_heads']} "
             f"query / {res['local_kv_heads']} kv heads: flash launched "
             f"{res['pallas_launches']} times, logits "
             f"{tuple(res['logits_shape'])} within "
             f"{res['pallas_max_abs_err']:.3g} of 'xla' (tol {LOGIT_TOL})")
-    log(f"  phase 29 took {tp['wall_s']:.1f} s")
+    log(f"  phase {phase} took {tp['wall_s']:.1f} s")
+
+
+def family_tp_phases(device, card: str, phases=(30, 31)) -> dict:
+    """Tensor-parallel phases (30-31; 29 against its own unsharded run, as
+    tools/probe_tp.py drives it), logged as they run: each model's
+    unsharded baseline in this process, then its two tensor-parallel
+    ranks. Returns {phase: tp_phase's result with its "base"}."""
+    out = {}
+    what = {
+        29: f"qwen3-1.7b at full width and depth, phase 20's weights, "
+            f"batches and schedule, {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ} tokens",
+        30: f"granite-moe-1b-a400m at full width and depth (vocabulary "
+            f"padded to a multiple of {TP_VOCAB_PAD}), expert parallel, "
+            f"{TP_FAMILY_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens",
+        31: f"seamless-m4t-large-v2 at full width and depth, "
+            f"{TP_FAMILY_STEPS} steps of {SEAMLESS_ROWS} rows of "
+            f"{SEAMLESS_FRAMES} encoder frames + {SEAMLESS_TOKENS} tokens"}
+    for phase in phases:
+        t0 = time.perf_counter()
+        log(f"[{phase}] tensor parallelism: {what[phase]}; f32 (TF32 off), "
+            f"'xla', {TP_RANKS} model ranks (processes on the one card, "
+            f"gloo), a (1, 1, {TP_RANKS}) mesh; losses within {TP_REL} "
+            f"relative of the unsharded step's in one process; card: {card}")
+        base = tp_baseline(device, phase)
+        log(f"  unsharded, one process: {base['params'] / 1e9:.3f} B "
+            f"parameters; loss {' '.join(f'{x:.6f}' for x in base['losses'])}"
+            f"; step ms {' '.join(f'{x:.3f}' for x in base['ms'])}; peak "
+            f"{base['peak_gib']:.2f} GiB; dropped_frac "
+            f"{' '.join(f'{x:.6f}' for x in base['dropped_frac'])}")
+        tp = tp_phase(device, card, base, phase)
+        log_tp_phase(tp, base, "unsharded")
+        log(f"  phase {phase} with its baseline took "
+            f"{time.perf_counter() - t0:.1f} s")
+        out[phase] = {**tp, "base": base}
+    return out
 
 
 def main(device: str = "cuda") -> int:
@@ -3476,13 +3794,20 @@ def main(device: str = "cuda") -> int:
         f"weights, batches and schedule, {TRAIN_STEPS} steps of "
         f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens; losses within {TP_REL} "
         f"relative of phase 20's; card: {card}")
-    log_tp_phase(tp_phase(device, card, tr), tr)
+    tp29 = tp_phase(device, card, tr)
+    log_tp_phase(tp29, tr)
+    tps = {29: tp29, **family_tp_phases(device, card)}
+    dp_phase(device, card)
     g1, g3 = fam["granite"], fam["granite3b"]
     fam_flash = {"granite_dense": g1["dense"]["launches"]["flash_attention"],
                  "seamless": fam["encdec"]["run"]["launches"][
                      "flash_attention"],
                  "pixtral": fam["prefix"]["run"]["launches"][
                      "flash_attention"]}
+    # each tensor-parallel phase's "pallas" forward: rank 0's launches
+    fam_flash.update({f"tp_{name}": tps[ph]["ranks"][0]["pallas_launches"]
+                      for ph, name in ((29, "qwen3"), (30, "granite_1b"),
+                                       (31, "seamless"))})
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",

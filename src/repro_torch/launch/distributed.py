@@ -2,8 +2,9 @@
 `repro.launch.distributed`): params and optimizer state laid out on a
 DeviceMesh by the rule engine's specs, per-process batch feeding, and the
 train step on DTensor leaves (`sharding.spmd`): data parallel over "pod" x
-"data", and over "model" tensor parallel for the dense decoders
-(`sharding.tp`) or, for the other families, storage only (the params
+"data", and over "model" tensor parallel for the families whose layers
+are all attention (the dense and MoE decoders, the encoder-decoder:
+`sharding.tp`) or, for the recurrent families, storage only (the params
 gathered for each step).
 
 Every process calls ``initialize(coordinator, num_processes, process_id)``

@@ -193,21 +193,22 @@ def attention(params, cfg, x, positions, *, kv=None, kv_positions=None,
     where they are DTensors under an ambient mesh, else they are returned
     as they are.
 
-    With a tensor-parallel context (`sharding.tp`, self-attention only)
-    the block runs this rank's query heads on params holding its shards
-    (`_project_qkv`; `wo` its rows, a row-parallel product): x enters
-    through `copy_to_model` and the output leaves through
-    `reduce_from_model`; the returned k/v are the rank's.
+    With a tensor-parallel context (`sharding.tp`) the block runs this
+    rank's query heads on params holding its shards (`_project_qkv`; `wo`
+    its rows, a row-parallel product): x enters through `copy_to_model`
+    and the output leaves through `reduce_from_model`; the returned k/v
+    are the rank's. A cross-attention's `kv` must already be inside the
+    split (the caller sends the encoder output through `copy_to_model`
+    once for every layer that reads it); its keys and values are the
+    rank's kv heads' projections of it.
     """
     B, S, d = x.shape
     hd, nh = cfg.resolved_head_dim, cfg.n_heads
-    src = x if kv is None else kv
     kv_positions = positions if kv_positions is None else kv_positions
     if tp is not None:
-        if kv is not None:
-            raise ValueError("tensor-parallel attention is self-attention")
         nh = tp.local_heads(cfg)
-        x = src = TP.copy_to_model(x, tp)
+        x = TP.copy_to_model(x, tp)
+    src = x if kv is None else kv
     q, k, v = _project_qkv(params, cfg, x, src, tp)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)

@@ -30,6 +30,19 @@ discard them and XLA removes that code.
 
 The expert products are `torch.einsum` (batched matrix products), as the
 reference's are `jnp.einsum` outside any Pallas kernel.
+
+On a mesh (`sharding.spmd`) the load-balance loss is the global batch's,
+as the reference's one program over the whole batch computes it: the
+router's mean probabilities and the routed fractions are each rank's
+rows' means made global over the batch dims' groups the step hands in
+(`spmd.global_batch_mean`) before their product.
+With a tensor-parallel context (`sharding.tp`, `tp.experts`) the
+routing, the slots and the aux losses run whole on every rank of the
+model axis (the same rows, so the same drops), and only the experts
+split: a rank scatters its own experts' kept entries into a (B, Ep/tp,
+C, d) buffer and runs them ("expert"), or runs the whole buffer through
+its columns of every expert ("d_ff"); the mixed output is summed over
+the ranks.
 """
 from __future__ import annotations
 
@@ -38,6 +51,8 @@ import math
 import torch
 
 from repro_torch.models.layers import ACTIVATIONS, dense_init, uniform_init
+from repro_torch.sharding import spmd
+from repro_torch.sharding import tp as TP
 from repro_torch.sharding.rules import constrain
 
 
@@ -77,10 +92,15 @@ def route(logits, K: int):
     return vals[..., :K], order[..., :K]
 
 
-def moe_ffn(params, cfg, x, *, want_aux: bool = False):
+def moe_ffn(params, cfg, x, *, want_aux: bool = False, tp=None,
+            batch_groups=()):
     """x: (B, S, d) -> (out (B, S, d), aux). One dispatch group per row.
     aux is None unless `want_aux`; then {"load_balance", "router_z",
-    "dropped_frac"}, f32 scalars, as the reference returns them."""
+    "dropped_frac"}, f32 scalars, as the reference returns them; with
+    `batch_groups` (`spmd.batch_groups`: x is this rank's rows of a split
+    batch) the load balance is the global batch's. With a
+    tensor-parallel context whose experts split (`tp.experts`), params
+    hold this rank's shards of the expert weights and the router whole."""
     m = cfg.moe
     B, S, d = x.shape
     E, K, Ep = m.n_experts, m.top_k, m.padded_n_experts
@@ -97,15 +117,51 @@ def moe_ffn(params, cfg, x, *, want_aux: bool = False):
     pos = (torch.cumsum(onehot, dim=1, dtype=torch.int32) * onehot) \
         .sum(-1) - 1
     keep = pos < C
-    slot = flat_e * C + torch.where(keep, pos, 0)                # (B, SK)
-    tok = torch.arange(S * K, device=x.device) // K
-    src = torch.where(keep[..., None], x[:, tok], 0)             # (B, SK, d)
-    index = slot[..., None].expand(B, S * K, d)
-    buf = torch.zeros((B, Ep * C, d), dtype=x.dtype, device=x.device) \
-        .scatter_add(1, index, src).view(B, Ep, C, d)
+
+    # --- aux losses (before the experts, as the reference orders them:
+    # a recomputed forward then stops before the experts' all-reduce) ---
+    aux = None
+    if want_aux:
+        probs = torch.softmax(logits, dim=-1)
+        me = probs.mean(dim=(0, 1))
+        ce = (idx[..., None] == torch.arange(E, device=x.device)).float() \
+            .sum(dim=2).mean(dim=(0, 1)) / K
+        me, ce = spmd.global_batch_mean(torch.stack([me, ce]), batch_groups)
+        aux = {"load_balance": E * (me * ce).sum(),
+               "router_z": (torch.logsumexp(logits, dim=-1) ** 2).mean(),
+               "dropped_frac": 1.0 - keep.float().mean()}
+
+    if tp is None:
+        return _experts(params, cfg, x, weights, flat_e, pos, keep,
+                        range(Ep), C), aux
+    return TP.reduce_from_model(_experts(
+        params, cfg, TP.copy_to_model(x, tp), TP.copy_to_model(weights, tp),
+        flat_e, pos, keep, tp.local_experts(cfg), C), tp), aux
+
+
+def _experts(params, cfg, x, weights, flat_e, pos, keep, experts: range, C):
+    """Dispatch, the `experts` (a range of the padded experts: the expert
+    weights' leading dim), combine. The kept entries routed to them are
+    scatter-added into a (B, len(experts), C, d) buffer, each expert runs
+    on its C slots, and each entry's output is gathered back and mixed by
+    its gate weight (the other entries add zero)."""
+    B, S, d = x.shape
+    SK = flat_e.shape[1]
+    K = SK // S
+    lo, n = experts.start, len(experts)
+    if n == cfg.moe.padded_n_experts:           # all of them: no filter
+        mine, slot = keep, flat_e * C + torch.where(keep, pos, 0)
+    else:
+        mine = keep & (flat_e >= lo) & (flat_e < lo + n)
+        slot = torch.where(mine, (flat_e - lo) * C + pos, 0)     # (B, SK)
+    tok = torch.arange(SK, device=x.device) // K
+    src = torch.where(mine[..., None], x[:, tok], 0)             # (B, SK, d)
+    index = slot[..., None].expand(B, SK, d)
+    buf = torch.zeros((B, n * C, d), dtype=x.dtype, device=x.device) \
+        .scatter_add(1, index, src).view(B, n, C, d)
     buf = constrain(buf, ("batch", "model", None, None))         # (B,E,C,d)
 
-    # --- experts: (B, Ep, C, d) x (Ep, d, ff) ---
+    # --- experts: (B, n, C, d) x (n, d, ff) ---
     act = ACTIVATIONS[cfg.act]
     h = act(torch.einsum("becd,edf->becf", buf, params["w_gate"])) \
         * torch.einsum("becd,edf->becf", buf, params["w_up"])
@@ -113,18 +169,7 @@ def moe_ffn(params, cfg, x, *, want_aux: bool = False):
     out_buf = constrain(out_buf, ("batch", "model", None, None))
 
     # --- combine ---
-    gathered = torch.gather(out_buf.reshape(B, Ep * C, d), 1, index)
-    gathered = torch.where(keep[..., None], gathered, 0)
-    out = (gathered * weights.reshape(B, S * K, 1)).reshape(B, S, K, d) \
+    gathered = torch.gather(out_buf.reshape(B, n * C, d), 1, index)
+    gathered = torch.where(mine[..., None], gathered, 0)
+    return (gathered * weights.reshape(B, SK, 1)).reshape(B, S, K, d) \
         .sum(dim=2)
-    if not want_aux:
-        return out, None
-
-    probs = torch.softmax(logits, dim=-1)
-    me = probs.mean(dim=(0, 1))
-    ce = (idx[..., None] == torch.arange(E, device=x.device)).float() \
-        .sum(dim=2).mean(dim=(0, 1)) / K
-    aux = {"load_balance": E * (me * ce).sum(),
-           "router_z": (torch.logsumexp(logits, dim=-1) ** 2).mean(),
-           "dropped_frac": 1.0 - keep.float().mean()}
-    return out, aux

@@ -169,16 +169,21 @@ def init_lm(gen: torch.Generator, cfg) -> dict:
 
 
 def _split(tp, part: str):
-    """`tp` where the layer part ("heads", "ffn", "vocab") splits over
-    "model" (`sharding.tp`), else None: the part runs whole."""
+    """`tp` where the layer part ("heads", "ffn", "vocab", "experts")
+    splits over "model" (`sharding.tp`), else None: the part runs
+    whole."""
     return None if tp is None else tp.part(part)
 
 
-def _ffn_apply(lp, cfg, h, want_aux: bool = False, tp=None):
+def _ffn_apply(lp, cfg, h, want_aux: bool = False, tp=None,
+               batch_groups=()):
     """The layer's FFN: (out, aux). aux is the MoE's aux dict when
-    `want_aux` and the FFN is an MoE, else None."""
+    `want_aux` and the FFN is an MoE, else None (its load balance over
+    the global batch with `batch_groups`, `moe.moe_ffn`)."""
     if cfg.moe:
-        return MOE.moe_ffn(lp["ffn"], cfg, h, want_aux=want_aux)
+        return MOE.moe_ffn(lp["ffn"], cfg, h, want_aux=want_aux,
+                           tp=_split(tp, "experts"),
+                           batch_groups=batch_groups)
     return L.mlp(lp["ffn"], h, cfg.act, _split(tp, "ffn")), None
 
 
@@ -203,12 +208,14 @@ def _logits(params, cfg, x, tp=None):
 # ============================================================== full sequence
 
 def _layer_full(lp, cfg, ltype, x, positions, window, enc=None,
-                want_aux=False, want_cache=False, tp=None):
+                want_aux=False, want_cache=False, tp=None, batch_groups=()):
     """One layer, full sequence. `enc` is (encoder output, its positions)
     for an encoder-decoder's decoder, else None. Returns (x, cache at
     natural length, aux or None); `want_cache` (the prefill) puts the
     emitted k/v in the prefill-cache layout on a mesh. `tp`: tensor
-    parallel over "model" (`sharding.tp`; attention layers only)."""
+    parallel over "model" (`sharding.tp`; attention layers only; `enc`'s
+    output then already inside the head split, `_stack_inputs`).
+    `batch_groups`: the MoE's, `_ffn_apply`."""
     h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
     if ltype == "ssm":
         out, cache = M2.mamba2_forward(lp["mamba"], cfg, h)
@@ -229,26 +236,29 @@ def _layer_full(lp, cfg, ltype, x, positions, window, enc=None,
         catt, (ck, cv) = L.attention(lp["cross_attn"], cfg, h, positions,
                                      kv=enc[0], kv_positions=enc[1],
                                      causal=False, rope=False,
-                                     constrain_kv=want_cache)
+                                     constrain_kv=want_cache,
+                                     tp=_split(tp, "heads"))
         x = x + catt
         cache["cross_k"], cache["cross_v"] = ck, cv
     h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
-    ff, aux = _ffn_apply(lp, cfg, h, want_aux, tp)
+    ff, aux = _ffn_apply(lp, cfg, h, want_aux, tp, batch_groups)
     return x + ff, cache, aux
 
 
-def _encode(params, cfg, enc_embeds):
+def _encode(params, cfg, enc_embeds, tp=None):
     """The encoder stack: non-causal self-attention (with RoPE) over the
-    stub embeddings. Returns (encoder output, its positions (1, Se))."""
+    stub embeddings. Returns (encoder output, its positions (1, Se)).
+    With `tp` its layers split as the dense decoder's do."""
     enc_pos = torch.arange(enc_embeds.shape[1],
                            device=enc_embeds.device)[None, :]
     x = enc_embeds.to(cfg.activation_dtype)
     for lp in params["encoder"]["layers"]:
         y = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
-        att, _ = L.attention(lp["attn"], cfg, y, enc_pos, causal=False)
+        att, _ = L.attention(lp["attn"], cfg, y, enc_pos, causal=False,
+                             tp=_split(tp, "heads"))
         x = x + att
         y = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
-        ff, _ = _ffn_apply(lp, cfg, y)
+        ff, _ = _ffn_apply(lp, cfg, y, tp=tp)
         x = x + ff
     x = L.apply_rms_norm(params["encoder"]["final_norm"], x, cfg.norm_eps)
     return x, enc_pos
@@ -269,9 +279,16 @@ def _inputs_to_x(params, cfg, batch, tp=None):
 
 
 def _stack_inputs(params, cfg, batch, tp=None):
-    """(x, positions, n_prefix, enc) for a full-sequence pass."""
-    enc = (_encode(params, cfg, batch["enc_embeds"]) if cfg.is_encdec
-           else None)
+    """(x, positions, n_prefix, enc) for a full-sequence pass. Where the
+    heads split over "model", the encoder's output enters the split here,
+    once (`copy_to_model`: one all-reduce in the backward for every
+    cross-attention's keys and values)."""
+    enc = None
+    if cfg.is_encdec:
+        enc = _encode(params, cfg, batch["enc_embeds"], tp)
+        heads = _split(tp, "heads")
+        if heads is not None:
+            enc = (TP.copy_to_model(enc[0], heads), enc[1])
     return _inputs_to_x(params, cfg, batch, tp) + (enc,)
 
 
@@ -314,19 +331,19 @@ def _zero_aux(device):
 
 
 def _run_layers(x, aux, layers, types, cfg, positions, window, enc,
-                tp=None):
+                tp=None, batch_groups=()):
     """Layers over the full sequence, the MoE aux summed into `aux` (a new
     dict). Returns (x, aux)."""
     aux = dict(aux)
     for lp, t in zip(layers, types):
         x, _, a = _layer_full(lp, cfg, t, x, positions, window, enc,
-                              want_aux=True, tp=tp)
+                              want_aux=True, tp=tp, batch_groups=batch_groups)
         if a is not None:
             aux = {k: aux[k] + a[k] for k in aux}
     return x, aux
 
 
-def forward_train(params, cfg, batch, window=None, tp=None):
+def forward_train(params, cfg, batch, window=None, tp=None, batch_groups=()):
     """The training forward: forward_prefill's stack without caches.
     Returns (logits (B, S, V) over the token positions, aux), aux the MoE
     aux values ("load_balance", "router_z", "dropped_frac") summed over
@@ -349,13 +366,20 @@ def forward_train(params, cfg, batch, window=None, tp=None):
     backward through them raises (`kernels.refuse_grad`), as the
     reference's does.
 
-    With a tensor-parallel context `tp` (`sharding.tp`; the dense
-    decoders only, `tp.in_scope`) params hold this rank's shards of the
-    leaves the "model" axis splits, each layer runs its heads and FFN
-    columns, and the logits are the rank's vocabulary slice (the loss:
-    `tp.vocab_parallel_xent`). Under remat the recomputed forward repeats
-    the all-reduces the backward needs (each layer's attention output's;
-    torch's checkpoint stops before the MLP's)."""
+    With a tensor-parallel context `tp` (`sharding.tp`; the families
+    whose layers are all attention, `tp.in_scope`) params hold this
+    rank's shards of the leaves the "model" axis splits, each layer runs
+    its heads and its FFN columns or experts (the encoder's layers and
+    the cross-attention too), and the logits are the rank's vocabulary
+    slice (the loss: `tp.vocab_parallel_xent`). Under remat the
+    recomputed forward repeats the all-reduces the backward needs (each
+    layer's attention output's; torch's checkpoint stops before the
+    FFN's).
+
+    `batch_groups` (`sharding.spmd.batch_groups`: `batch` is this rank's
+    rows of a batch split over them) makes the MoE load balance the
+    global batch's. They are an argument of each checkpointed block, so
+    its recompute, on autograd's own thread on a card, gets them too."""
     if tp is not None and not TP.in_scope(cfg):
         raise ValueError(f"{cfg.arch_id}: no tensor-parallel forward for "
                          "this family")
@@ -367,12 +391,12 @@ def forward_train(params, cfg, batch, window=None, tp=None):
     n_scan = cfg.n_blocks * n_pat
     for b in range(0, n_scan, n_pat):
         args = (layers[b:b + n_pat], types[b:b + n_pat], cfg, positions,
-                window, enc, tp)
+                window, enc, tp, batch_groups)
         x, aux = (checkpoint(_run_layers, x, aux, *args, use_reentrant=False)
                   if cfg.remat else _run_layers(x, aux, *args))
         x = _seq_parallel(cfg, x)
     x, aux = _run_layers(x, aux, layers[n_scan:], types[n_scan:], cfg,
-                         positions, window, enc, tp)
+                         positions, window, enc, tp, batch_groups)
     n_ffn_layers = sum(1 for t in types if t != "ssm")
     aux = {k: v / max(n_ffn_layers, 1) for k, v in aux.items()}
     return _head(params, cfg, x, n_prefix, tp), aux

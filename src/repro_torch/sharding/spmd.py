@@ -12,15 +12,21 @@ as on one device:
   backward all-reduces it over those dims and slices it back to the
   parameter's own placements (ZeRO-3 style over "model": the model axis
   shards storage, and every rank of it runs the same rows), except under
-  tensor parallelism (`sharding.tp`, the dense decoders' train step,
-  `split_params`): there a leaf the "model" axis splits is used as its
-  local shard, whose gradient is already the shard's, each rank of the
-  axis computes only its heads, FFN columns and vocabulary rows, and the
-  model's explicit all-reduces carry the residual stream across the
-  split;
+  tensor parallelism (`sharding.tp`, the train step of the families whose
+  layers are all attention, `split_params`): there a leaf the "model"
+  axis splits is used as its local shard, whose gradient is already the
+  shard's, each rank of the axis computes only its heads, FFN columns or
+  experts and vocabulary rows, and the model's explicit all-reduces carry
+  the residual stream across the split;
 - each rank runs the model on its own rows of the batch (`to_local`);
 - the loss a rank differentiates is its mean over its rows divided by the
   number of batch shards, so the summed gradient is the global mean's;
+- a statistic the loss takes over the whole batch before it multiplies
+  (the MoE load-balance loss: the product of two batch means) is made
+  global inside the step (`global_batch_mean` over the `batch_groups`
+  the step hands the forward as an argument), so each rank's loss
+  carries the global product, as the reference's one program over the
+  global batch does;
 - elementwise optimizer updates run on the local shards in place
   (`local`), and the global norm sums each leaf's squares over the dims it
   is sharded on.
@@ -80,6 +86,56 @@ def n_shards(mesh, placements) -> int:
         if isinstance(p, Partial):
             n *= mesh.size(i)
     return n
+
+
+def batch_groups(batch) -> tuple:
+    """The process groups of the mesh dims (of size > 1) that split the
+    rows of `batch` (a tree with DTensor leaves: `batch_placements`); ()
+    for plain tensors or a replicated batch."""
+    mesh, placements = batch_placements(batch)
+    if mesh is None:
+        return ()
+    from torch.distributed.tensor import Partial
+    return tuple(mesh.get_group(i) for i, p in enumerate(placements)
+                 if isinstance(p, Partial) and mesh.size(i) > 1)
+
+
+def global_batch_mean(x, groups: tuple = ()):
+    """`x`, a mean over this rank's rows of the batch, as the mean over
+    the global batch: summed over the batch shards of `groups`
+    (`batch_groups`) and divided by their number (the shards hold equal
+    rows, so this is exact). The sum is an all-reduce whose backward is
+    the same all-reduce, so every rank's gradient of a loss that reads the
+    result carries every rank's share (after the step's sum of the ranks'
+    gradients: the global batch's gradient). Without groups, `x` itself.
+    The groups are an argument, not ambient state: a layer recomputed in
+    the backward (remat) runs on autograd's own thread on a card."""
+    if not groups:
+        return x
+    n = 1
+    for g in groups:
+        n *= g.size()
+    return _SumOverBatch.apply(x, groups) / n
+
+
+def _all_reduce_over(x, groups):
+    import torch.distributed._functional_collectives as funcol
+    for g in groups:
+        x = funcol.wait_tensor(funcol.all_reduce(x.contiguous(), "sum", g))
+    return x
+
+
+class _SumOverBatch(torch.autograd.Function):
+    # torch.distributed.nn.functional.all_reduce has this backward too, but
+    # is deprecated for the functional collectives, which have none
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return _all_reduce_over(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_over(g, ctx.groups), None
 
 
 def gather_params(leaves: List, grad_placements) -> List:

@@ -1,14 +1,16 @@
-"""Tensor parallelism over the mesh's "model" axis for the dense decoders:
+"""Tensor parallelism over the mesh's "model" axis for every family whose
+layers are all attention (the dense and MoE decoders, the encoder-decoder):
 Megatron-LM's column/row split with explicit collectives, the port's
 counterpart of GSPMD partitioning the reference's step over "model".
 
 A rank of the model axis computes only its share, in the layouts the rule
 engine stores (`rules.param_specs`): its query heads (`wq`/`wk`/`wv`
-columns, `wo` rows), its FFN columns (`w_gate`/`w_up` columns, `w_down`
-rows) and its vocabulary rows (`embed/table` rows, `lm_head` columns). The
-residual stream stays whole on every rank. Four operators carry it across
-the split, each an all-reduce over the model group in one direction and
-the identity in the other:
+columns, `wo` rows; in the encoder and the cross-attention too), its FFN
+columns (`w_gate`/`w_up` columns, `w_down` rows), its experts or its
+columns of every expert (below) and its vocabulary rows (`embed/table`
+rows, `lm_head` columns). The residual stream stays whole on every rank.
+Four operators carry it across the split, each an all-reduce over the
+model group in one direction and the identity in the other:
 
   copy_to_model         identity forward, all-reduce backward: the input
                         of a column-parallel product
@@ -30,8 +32,22 @@ the query heads divide and the kv heads do not, `wk`/`wv` are gathered and
 each rank projects the kv heads its query heads read. Storage keeps the
 reference's specs in every case.
 
-The families in scope (`in_scope`) are the decoders whose layers are all
-attention plus a dense MLP; the others keep the gathered step
+An MoE FFN (`models.moe`) splits by the reference's storage rule
+(`TensorParallel.experts`): "expert" where the model axis divides the
+padded experts (each rank holds Ep/tp whole experts and runs only its
+experts' kept entries, in a (B, Ep/tp, C, d) buffer), "d_ff" where it
+divides the expert width instead (each rank runs every expert's buffer
+through its d_ff columns), else the experts run whole. The router, its
+top-k, the capacity slots and the aux losses stay outside the split, on
+the whole input, the same on every rank; the FFN's input and the gate
+weights enter through `copy_to_model`, the mixed output leaves through
+`reduce_from_model`. The rows are the same on every rank, so no
+all-to-all is needed. An encoder-decoder's encoder output enters the
+split once (`copy_to_model` before the decoder stack), and every
+cross-attention projects its kv heads' keys and values from it.
+
+The families in scope (`in_scope`) are those whose layers are all
+attention; the recurrent ones keep the gathered step
 (`spmd.gather_params`).
 """
 from __future__ import annotations
@@ -49,10 +65,25 @@ COLUMN = ("wq", "wk", "wv", "w_gate", "w_up")    # split on dim 1; wo and
 
 
 def in_scope(cfg) -> bool:
-    """Decoders whose layers are all attention plus a dense MLP (a modality
-    prefix only changes the inputs)."""
-    return (cfg.moe is None and not cfg.is_encdec
-            and all(t == "attn" for t in cfg.layer_types()))
+    """Families whose layers are all attention, with a dense or an MoE FFN
+    (a modality prefix only changes the inputs; an encoder-decoder's
+    encoder layers are the dense decoder's)."""
+    return all(t == "attn" for t in cfg.layer_types())
+
+
+def expert_split(cfg, size: int) -> Optional[str]:
+    """How an MoE FFN splits over `size` model ranks, by the reference's
+    storage rule (`rules.py`): "expert" where `size` divides the padded
+    experts, "d_ff" where it divides the expert width, else None (the
+    experts run whole)."""
+    m = cfg.moe
+    if m is None:
+        return None
+    if m.padded_n_experts % size == 0:
+        return "expert"
+    if m.expert_d_ff % size == 0:
+        return "d_ff"
+    return None
 
 
 @dataclass
@@ -67,8 +98,9 @@ class TensorParallel:
     size: int
     heads: bool          # query heads (and wq, wo, q/k norms) split
     kv: bool             # kv heads split too (else wk/wv gathered)
-    ffn: bool
+    ffn: bool            # the dense FFN's columns split
     vocab: bool
+    experts: Optional[str] = None    # MoE: "expert", "d_ff" or None
     all_reduces: int = field(default=0)
     all_reduce_bytes: int = field(default=0)
 
@@ -82,8 +114,9 @@ class TensorParallel:
             return None
         return cls(mesh=mesh, size=tp, heads=cfg.n_heads % tp == 0,
                    kv=cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0,
-                   ffn=cfg.d_ff % tp == 0,
-                   vocab=cfg.padded_vocab_size % tp == 0)
+                   ffn=cfg.moe is None and cfg.d_ff % tp == 0,
+                   vocab=cfg.padded_vocab_size % tp == 0,
+                   experts=expert_split(cfg, tp))
 
     @cached_property
     def group(self):
@@ -94,8 +127,9 @@ class TensorParallel:
         return self.mesh.get_local_rank("model")
 
     def part(self, name: str) -> Optional["TensorParallel"]:
-        """self where `name` ("heads", "ffn", "vocab") splits, else None
-        (the part runs the one-device code on gathered leaves)."""
+        """self where `name` ("heads", "ffn", "vocab", "experts") splits,
+        else None (the part runs the one-device code on gathered
+        leaves)."""
         return self if getattr(self, name) else None
 
     def all_reduce(self, x, op: str = "sum"):
@@ -108,6 +142,15 @@ class TensorParallel:
 
     def local_heads(self, cfg) -> int:
         return cfg.n_heads // self.size
+
+    def local_experts(self, cfg) -> range:
+        """The padded experts whose compute is this rank's: its Ep/tp
+        where the experts split, else all of them."""
+        ep = cfg.moe.padded_n_experts
+        if self.experts != "expert":
+            return range(ep)
+        n = ep // self.size
+        return range(self.rank * n, (self.rank + 1) * n)
 
     def kv_heads(self, cfg) -> List[int]:
         """The kv heads this rank's query heads read, in order, one entry
@@ -131,15 +174,22 @@ class TensorParallel:
         gradient's; ("partial",) gathered, used inside the head split (its
         gradient a partial sum over the model ranks); ("replicate",)
         gathered or replicated and used whole on every rank (the residual
-        stream's norms, a part that does not split), the same gradient on
-        every rank."""
+        stream's norms, the MoE router, a part that does not split), the
+        same gradient on every rank. The encoder's layers and the
+        cross-attention take the decoder's roles."""
         name = path[-2] if path[-1] == "scale" else path[-1]
         parent = path[-2] if len(path) >= 2 else None
         if name == "table":
             return ("shard", 0) if self.vocab else ("replicate",)
         if name == "lm_head":
             return ("shard", 1) if self.vocab else ("replicate",)
-        if parent == "attn" or name in ("q_norm", "k_norm"):
+        if parent == "ffn" and self.experts is not None:
+            if name == "router":
+                return ("replicate",)
+            if self.experts == "expert":
+                return ("shard", 0)
+            return ("shard", 1) if name == "w_down" else ("shard", 2)
+        if parent in ("attn", "cross_attn") or name in ("q_norm", "k_norm"):
             if not self.heads:
                 return ("replicate",)
             if name in ("wk", "wv") and not self.kv:

@@ -32,18 +32,22 @@ def softmax_xent(logits, labels, mask=None, label_smoothing: float = 0.0):
     return nll.mean()
 
 
-def lm_loss(params, cfg, batch, forward_fn, *, window=None, tp=None):
+def lm_loss(params, cfg, batch, forward_fn, *, window=None, tp=None,
+            batch_groups=()):
     """Cross-entropy + MoE aux (`load_balance_coef * load_balance +
     router_z_coef * router_z`). Returns (loss, metrics). With a tensor-
     parallel context (`sharding.tp`) the forward runs under it, and the
-    loss of vocab-split logits is `tp.vocab_parallel_xent`."""
-    if tp is None:
-        logits, aux = forward_fn(params, cfg, batch, window=window)
-        xent_fn = softmax_xent
-    else:
-        logits, aux = forward_fn(params, cfg, batch, window=window, tp=tp)
-        xent_fn = (functools.partial(TP.vocab_parallel_xent, tp=tp)
-                   if tp.vocab else softmax_xent)
+    loss of vocab-split logits is `tp.vocab_parallel_xent`. With
+    `batch_groups` (`sharding.spmd.batch_groups`: `batch` is this rank's
+    rows of a split batch) the forward takes the MoE load balance over the
+    global batch."""
+    kw = {} if tp is None else {"tp": tp}
+    if batch_groups:
+        kw["batch_groups"] = batch_groups
+    logits, aux = forward_fn(params, cfg, batch, window=window, **kw)
+    xent_fn = softmax_xent
+    if tp is not None and tp.vocab:
+        xent_fn = functools.partial(TP.vocab_parallel_xent, tp=tp)
     xent = xent_fn(logits, batch["labels"], batch.get("mask"))
     loss = xent
     if cfg.moe:

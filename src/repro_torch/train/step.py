@@ -15,6 +15,7 @@ laid out as the params are and metrics averaged over the batch shards.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -82,23 +83,32 @@ def build_lm_train_step(cfg, opt_update: Callable, *, microbatches: int = 1,
     divided by k, and the metrics are the slices' means: the activation-
     memory lever, as in the reference. ``tp`` (`sharding.tp`, on DTensor
     params) runs the model tensor-parallel over the mesh's "model" axis.
+    On a mesh whose batch is split, the forward gets the batch dims'
+    groups (`spmd.batch_groups`) as an argument, so the MoE load balance
+    is the global (micro)batch's, in a layer recomputed in the backward
+    too.
     """
     fwd = forward_fn or T.forward_train
 
-    def loss_fn(params, mb):
-        return lm_loss(params, cfg, mb, fwd, window=window, tp=tp)
+    def loss_fn(params, mb, groups):
+        return lm_loss(params, cfg, mb, fwd, window=window, tp=tp,
+                       batch_groups=groups)
+
+    def grads_of(params, mb):
+        return value_and_grad(functools.partial(
+            loss_fn, groups=spmd.batch_groups(mb)), params, mb, tp=tp)
 
     def step(params, opt_state, batch):
         _, spec = tree_flatten(params)
         if microbatches == 1:
-            _, metrics, grads = value_and_grad(loss_fn, params, batch, tp=tp)
+            _, metrics, grads = grads_of(params, batch)
         else:
             b = next(iter(batch.values())).shape[0]
             rows = b // microbatches
             grads, metrics = None, {k: 0.0 for k in METRIC_KEYS}
             for i in range(microbatches):
                 mb = spmd.batch_rows(batch, i * rows, (i + 1) * rows)
-                _, m, g = value_and_grad(loss_fn, params, mb, tp=tp)
+                _, m, g = grads_of(params, mb)
                 if grads is None:
                     grads = [x.to(torch.float32, copy=True) for x in g]
                 else:

@@ -1,7 +1,11 @@
 """Rank functions for the tensor-parallel tests
-(tests/test_torch_tensor_parallel.py), run on gloo ranks by
+(tests/test_torch_tensor_parallel.py and
+tests/test_torch_tensor_parallel_families.py), run on gloo ranks by
 `_torch_dist.spawn`, and the inputs they share with the one-device
 references (numpy draws from a seed)."""
+import contextlib
+import dataclasses
+
 import numpy as np
 import torch
 from torch.utils._pytree import tree_leaves, tree_map
@@ -171,15 +175,130 @@ def operator_ranks(rank, world, cases):
     return out
 
 
+# ------------------------------------------------------------ MoE operator
+
+MOE_CASES = ("expert", "d_ff", "drops")
+
+
+def family_config(case: str, registry=None):
+    """A training or operator case's config, from the port's registry or
+    the reference's (`registry`): reduced granite-moe-1b-a400m (4 experts
+    top-2, expert d_ff 128) for "expert" and "granite-moe-1b-a400m";
+    with 3 experts (no model axis of 2 or 4 divides them: each expert's
+    d_ff splits) for "d_ff" and "granite-moe-e3"; at capacity factor 0.5
+    (entries dropped) for "drops"; with the load-balance coefficient
+    raised from 0.01 to 1 (its gradient above the tests' bars) for
+    "granite-moe-lb"; any other name a reduced arch."""
+    if registry is None:
+        from repro_torch.configs import registry
+    moe = {"expert": {}, "d_ff": {"n_experts": 3},
+           "granite-moe-e3": {"n_experts": 3},
+           "drops": {"capacity_factor": 0.5},
+           "granite-moe-lb": {"load_balance_coef": 1.0}}.get(case)
+    if moe is None:
+        return registry.get(case, reduced=True)
+    cfg = registry.get("granite-moe-1b-a400m", reduced=True)
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, **moe))
+
+
+def moe_inputs(case: str, seed: int = 1) -> dict:
+    """Full MoE weights and inputs of one operator case, as numpy arrays
+    (the router at unit scale: well separated top-k logits)."""
+    cfg = family_config(case)
+    rng = np.random.default_rng(seed)
+    d, ff = cfg.d_model, cfg.moe.expert_d_ff
+    E, Ep = cfg.moe.n_experts, cfg.moe.padded_n_experts
+
+    def n(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+    return {"router": n(d, E, scale=d ** -0.5),
+            "w_gate": n(Ep, d, ff, scale=d ** -0.5),
+            "w_up": n(Ep, d, ff, scale=d ** -0.5),
+            "w_down": n(Ep, ff, d, scale=ff ** -0.5),
+            "x": n(B, S, d), "g": n(B, S, d)}
+
+
+def moe_shard(name: str, w, how, r: int, k: int):
+    """The rank's compute shard of expert leaf `name` under the split
+    `how` ("expert", "d_ff" or None)."""
+    if how is None or name == "router":
+        return w
+    if how == "expert":
+        return _rows(w, r, k)
+    if name == "w_down":
+        n = w.shape[1] // k
+        return w[:, r * n:(r + 1) * n]
+    n = w.shape[2] // k
+    return w[..., r * n:(r + 1) * n]
+
+
+def run_moe(case: str, inp: dict, tp=None) -> dict:
+    """The MoE FFN's forward and the gradients of (out * g).sum() plus
+    its load-balance and z losses, with `tp` on this rank's expert
+    shards, or on one device with tp=None."""
+    from repro_torch.models import moe as MOE
+    cfg = family_config(case)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in inp.items()}
+    r, k, how = (0, 1, None) if tp is None else (tp.rank, tp.size,
+                                                 tp.experts)
+    leaves = {name: moe_shard(name, t[name], how, r, k)
+              for name in ("router", "w_gate", "w_up", "w_down")}
+    leaves["x"] = t["x"]
+    _track(leaves)
+    out, aux = MOE.moe_ffn({n: leaves[n] for n in ("router", "w_gate",
+                                                   "w_up", "w_down")},
+                           cfg, leaves["x"], want_aux=True, tp=tp)
+    loss = (out * t["g"]).sum() + aux["load_balance"] + aux["router_z"]
+    loss.backward()
+    return {"out": out.detach(), "split": how,
+            **{k: float(v.detach()) for k, v in aux.items()},
+            **{f"d_{n}": v.grad for n, v in leaves.items()}}
+
+
+def moe_ranks(rank, world, cases):
+    """Every MoE case on this rank's expert shards, on a ("model",) mesh
+    of all the ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.sharding.tp import TensorParallel
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("model",))
+    return {case: run_moe(case, moe_inputs(case),
+                          TensorParallel.build(family_config(case), mesh))
+            for case in cases}
+
+
 # ------------------------------------------------------------ training
 
 STREAM = dict(seq=32, batch=8, seed=0, branch=4)
+ENC_FRAMES = 16          # an encoder-decoder's stub frames per row
 
 
-def stream(cfg):
-    from repro_torch.data.tokens import TokenStream
-    return TokenStream(cfg.vocab_size, STREAM["seq"], STREAM["batch"],
-                       seed=STREAM["seed"], branch=STREAM["branch"])
+class stream:
+    """The token stream of the training tests; for an encoder-decoder
+    each batch also carries "enc_embeds" (B, ENC_FRAMES, d), normal
+    draws at 0.5 from numpy's generator seeded by the batch's index (the
+    reference's tests/test_torch_tensor_parallel_families.py script draws
+    the same)."""
+
+    def __init__(self, cfg):
+        from repro_torch.data.tokens import TokenStream
+        self.cfg, self.i = cfg, 0
+        self.tokens = TokenStream(cfg.vocab_size, STREAM["seq"],
+                                  STREAM["batch"], seed=STREAM["seed"],
+                                  branch=STREAM["branch"])
+
+    def next_batch(self) -> dict:
+        batch = self.tokens.next_batch()
+        if self.cfg.is_encdec:
+            rng = np.random.default_rng(1000 + self.i)
+            batch["enc_embeds"] = (rng.standard_normal(
+                (STREAM["batch"], ENC_FRAMES, self.cfg.d_model)) * 0.5
+            ).astype(np.float32)
+        self.i += 1
+        return batch
+
+    def __iter__(self):
+        while True:
+            yield self.next_batch()
 
 
 def init_params(cfg, ref_path):
@@ -232,6 +351,23 @@ class ShapeRecorder(torch.utils._python_dispatch.TorchDispatchMode):
         return out
 
 
+@contextlib.contextmanager
+def count_batch_reduces():
+    """A list that gains one entry per all-reduce over the batch dims
+    (`spmd.global_batch_mean`'s, forward or backward) while open."""
+    from repro_torch.sharding import spmd
+    plain, calls = spmd._all_reduce_over, []
+
+    def counted(x, groups):
+        calls.append(len(groups))
+        return plain(x, groups)
+    spmd._all_reduce_over = counted
+    try:
+        yield calls
+    finally:
+        spmd._all_reduce_over = plain
+
+
 def tp_train_ranks(rank, world, arch, ref_path, mesh_shape, names, steps,
                    lr, log_every, variants):
     """On a mesh of `mesh_shape` / `names`: step 1's gradients for each
@@ -243,7 +379,7 @@ def tp_train_ranks(rank, world, arch, ref_path, mesh_shape, names, steps,
     from repro_torch.configs import registry
     from repro_torch.launch import distributed as D
     from repro_torch.sharding.tp import TensorParallel
-    cfg = registry.get(arch, reduced=True)
+    cfg = family_config(arch, registry)
     mesh = init_device_mesh("cpu", mesh_shape, mesh_dim_names=names)
     params = init_params(cfg, ref_path)
     out = {"tp": TensorParallel.build(cfg, mesh) is not None}
@@ -255,10 +391,12 @@ def tp_train_ranks(rank, world, arch, ref_path, mesh_shape, names, steps,
             out["shapes"] = sorted(set(shapes))
             continue
         c = cfg.replace(remat=remat)
-        g, m = step_grads(c, mesh, tree_map(torch.clone, params),
-                          microbatches=mb)
+        with count_batch_reduces() as calls:
+            g, m = step_grads(c, mesh, tree_map(torch.clone, params),
+                              microbatches=mb)
         out[(mb, remat)] = {"grads": g if rank == 0 else None,
-                            "loss": m["loss"]}
+                            "loss": m["loss"], "metrics": m,
+                            "batch_reduces": len(calls)}
     if steps:
         D.T.init_lm = lambda gen, c: init_params(c, ref_path)
         _, _, losses = D.train_sharded(

@@ -5,19 +5,26 @@ meshes (the reference's tests/test_sharding_rules.py reduced cases and
 tests/test_dryrun_small.py CLI cases). `constrain` on a fake (2, 2) mesh.
 
 Flops: the mesh step is data parallel over "pod" x "data". A train step
-of a dense decoder is tensor parallel over "model" (`sharding.tp`): each
-rank computes its heads, FFN columns and vocabulary rows, so a case's
-per-device flops times the ranks equal the one-rank count of the same step
-(the replicated remainder, the norms, counts no flops: FlopCounterMode
-counts products only; measured: equal, 0.0 relative), within 1%. Every
-other step (the other families' training, every serving step) runs the
-same rows on every rank of the "model" axis (`sharding.spmd`): flops times
-ranks equal the one-rank count times the model axis size (the replication
-factor, 2 on the debug meshes), within 1%. The tensor-parallel step's
-all-reduces over "model": 4 per layer (two forward, two backward), one
-for the embedding and four for the logits and the loss (the max, the sum
-of exps, the target logit, and the logits' input in the backward), per
-microbatch.
+of a family whose layers are all attention (the dense and MoE decoders,
+the encoder-decoder) is tensor parallel over "model" (`sharding.tp`):
+each rank computes its heads, FFN columns or experts and vocabulary rows,
+so a case's per-device flops times the ranks equal the one-rank count of
+the same step within 1% (the replicated remainder counts few flops:
+FlopCounterMode counts products only, and of them only the MoE router's
+runs on every rank; measured: the dense decoders equal, granite-moe 0.03%
+above). Every other step (the recurrent families' training, every
+serving step) runs the same rows on every rank of the "model" axis
+(`sharding.spmd`): flops times ranks equal the one-rank count times the
+model axis size (the replication factor, 2 on the debug meshes), within
+1%. The tensor-parallel step's all-reduces over "model", per microbatch:
+4 per dense layer (two forward, two backward), 5 per MoE layer (the
+attention's 2; the experts' output forward, their input and the gate
+weights backward), 6 per encoder-decoder decoder layer (the
+cross-attention adds its output forward and its query's input backward),
+1 for the encoder output (its keys' and values' input, once for all
+cross-attentions), one for the embedding and four for the logits and the
+loss (the max, the sum of exps, the target logit, and the logits' input
+in the backward).
 """
 import json
 import os
@@ -114,7 +121,9 @@ def test_flops_per_device_times_ranks_is_one_rank_times_replication(
         <= FLOPS_REL * one * replication
 
 
-@pytest.mark.parametrize("arch", ["starcoder2-7b", "pixtral-12b"])
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "pixtral-12b",
+                                  "granite-moe-1b-a400m",
+                                  "seamless-m4t-large-v2"])
 def test_tensor_parallel_train_flops_times_ranks_is_one_rank(
         debug_mesh, small, arch):
     cfg = reduced(arch, "train_4k")
@@ -124,13 +133,12 @@ def test_tensor_parallel_train_flops_times_ranks_is_one_rank(
     assert abs(m["flops"] * debug_mesh.size() - one) <= FLOPS_REL * one
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-130m",
-                                  "recurrentgemma-9b",
-                                  "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b"])
 def test_gathered_train_flops_times_ranks_is_one_rank_times_replication(
         debug_mesh, small, arch):
-    """The families out of the tensor-parallel scope keep the gathered
-    step: every rank of the model axis repeats the compute."""
+    """The families out of the tensor-parallel scope (the recurrent ones)
+    keep the gathered step: every rank of the model axis repeats the
+    compute."""
     cfg = reduced(arch, "train_4k")
     case, m = DR.measure_case(cfg, "train_4k", debug_mesh, microbatches=2)
     assert case["tp"] is None
@@ -161,13 +169,46 @@ def test_model_axis_all_reduces_per_layer(debug_mesh, small, microbatches,
     assert m["colls"]["all-reduce"]["count"] > tp["count"]
 
 
-@pytest.mark.parametrize("arch,shape,tensor_parallel", [
-    ("qwen3-1.7b", "train_4k", True),
-    ("qwen3-1.7b", "decode_32k", False),
-    ("granite-moe-1b-a400m", "train_4k", False),
+@pytest.mark.parametrize("microbatches,remat", [(1, False), (2, False),
+                                                (1, True)])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "seamless-m4t-large-v2"])
+def test_family_model_axis_all_reduces(debug_mesh, small, arch,
+                                       microbatches, remat):
+    """Per microbatch: granite-moe 5 per layer (attention 2; the MoE's
+    output forward, its input's and gate weights' copies backward) + 5;
+    seamless 4 per encoder layer + 6 per decoder layer (the cross-
+    attention's output forward and its query's input backward besides
+    the dense layer's 4) + 1 (the encoder output's copy, backward, once
+    for every cross-attention) + 5. Remat recomputes a decoder layer up
+    to the last value its backward reads: every attention output's
+    all-reduce again (the residual stream's next norm reads it), not the
+    FFN's or the MoE's (only added to the stream); the encoder is not
+    recomputed. The MoE load balance's all-reduces over the batch axes
+    are no model-axis ones."""
+    cfg = reduced(arch, "train_4k")
+    case, m = DR.measure_case(cfg, "train_4k", debug_mesh,
+                              microbatches=microbatches, remat=remat)
+    L = cfg.n_layers
+    if cfg.is_encdec:
+        per_mb = 4 * cfg.n_enc_layers + (6 + 2 * remat) * L + 1 + 5
+    else:
+        per_mb = (5 + remat) * L + 5
+    tp = m["model_axis_all_reduces"]
+    assert case["tp"] is not None
+    assert tp["count"] == microbatches * per_mb
+    assert m["colls"]["all-reduce"]["count"] > tp["count"]
+
+
+@pytest.mark.parametrize("arch,shape,tensor_parallel,wq", [
+    ("qwen3-1.7b", "train_4k", True, None),
+    ("qwen3-1.7b", "decode_32k", False, "blocks/0/attn/wq"),
+    ("granite-moe-1b-a400m", "train_4k", True, None),
+    # ("rglru", "rglru", "attn"): the first attention block is the third
+    ("recurrentgemma-9b", "train_4k", False, "blocks/2/attn/wq"),
 ])
 def test_record_says_tensor_parallel_and_gathered_leaves(
-        debug_mesh, small, monkeypatch, arch, shape, tensor_parallel):
+        debug_mesh, small, monkeypatch, arch, shape, tensor_parallel, wq):
     cfg = reduced(arch, shape)
     monkeypatch.setattr(DR.registry, "get", lambda a: cfg)
     rec = DR.run_case(arch, shape, debug_mesh, "pod1", verbose=False)
@@ -177,7 +218,7 @@ def test_record_says_tensor_parallel_and_gathered_leaves(
         assert rec["model_axis_all_reduces"]["count"] > 0
     else:
         assert "embed/table" in rec["gathered_leaves"]
-        assert "blocks/0/attn/wq" in rec["gathered_leaves"]
+        assert wq in rec["gathered_leaves"]
         assert rec["model_axis_all_reduces"] is None
 
 

@@ -60,8 +60,8 @@ def drops(monkeypatch):
     seen = []
     plain = TM.moe_ffn
 
-    def recording(params, cfg, x, *, want_aux=False):
-        out, aux = plain(params, cfg, x, want_aux=True)
+    def recording(params, cfg, x, *, want_aux=False, **kw):
+        out, aux = plain(params, cfg, x, want_aux=True, **kw)
         frac = float(aux["dropped_frac"])
         if frac > 0:
             seen.append((x.shape[1], frac))

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""The dry-run's train_4k records of the dense decoders on the reference's
-four meshes, run through the dry-run CLI in parallel processes, as one
-table: per-device flops (and times the ranks), all-reduces and
-all-gathers, collective bytes and the per-rank peak.
+"""The dry-run's train_4k records of the archs tensor parallel over
+"model" (by default the five dense decoders; `--archs` names others) on
+the reference's four meshes, run through the dry-run CLI in parallel
+processes, as one table: per-device flops (and times the ranks),
+all-reduces and all-gathers, collective bytes and the per-rank peak.
 
-    python3 tools/dryrun_table.py [--src DIR] [--jobs 8] [--out FILE]
+    python3 tools/dryrun_table.py [--src DIR] [--jobs 8] [--archs A,B]
+                                  [--out FILE]
 
 `--src` runs another checkout's package (its `src/`; for a parent
 against change comparison unpack the parent with `git archive` into the
@@ -46,10 +48,10 @@ def launch(src: Path, arch: str, mesh: str, out: Path):
                             stderr=subprocess.STDOUT), log
 
 
-def run_all(src: Path, jobs: int) -> list:
+def run_all(src: Path, jobs: int, archs=ARCHS) -> list:
     """Every (arch, mesh) case, `jobs` at a time; a record per case ({"error":
     its log's tail} where it failed)."""
-    cases = [(a, m) for a in ARCHS for m in MESHES]
+    cases = [(a, m) for a in archs for m in MESHES]
     tmp = Path(tempfile.mkdtemp(prefix="dryrun_table_"))
     pending, running, done = list(cases), {}, {}
     while pending or running:
@@ -101,11 +103,13 @@ def main(argv=None):
     ap.add_argument("--src", default=str(ROOT),
                     help="checkout whose src/ runs (default: this one)")
     ap.add_argument("--jobs", type=int, default=os.cpu_count() or 1)
+    ap.add_argument("--archs", default=",".join(ARCHS),
+                    help="comma-separated arch ids")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     src = Path(args.src).resolve()
     t0 = time.perf_counter()
-    recs = run_all(src, args.jobs)
+    recs = run_all(src, args.jobs, tuple(args.archs.split(",")))
     print(f"dry-run train_4k from {src} ({time.perf_counter() - t0:.1f} s)")
     print("| arch | mesh | tensor parallel | flops/device | flops/device x "
           "ranks | all-reduces (model axis) | all-gathers | collective "
