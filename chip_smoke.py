@@ -307,6 +307,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    relative, and exactly 3 all-reduces over the data axis a layer (the
    means' forward, the checkpoint's recompute on autograd's own thread,
    the backward), the load balance within 1e-6 relative of one device's.
+33. Tensor parallelism for the RG-LRU hybrid, after phase 32, on phase
+   29's machinery (two model ranks, gloo, (1, 1, 2), f32 with TF32 off,
+   "xla", the unsharded step run first in this process as the oracle):
+   recurrentgemma-9b at full width (d_model 4096, lru width 4096, 16/1
+   heads of 256, d_ff 12288, vocab 256000, tied), its depth cut to one
+   pattern block (r, r, a) as phase 21 cuts it (1.71 B parameters: the
+   full depth with AdamW's moments needs about 144 GB), 4 AdamW steps of
+   8 x 256 tokens. Each rank runs its 2,048 of the 4,096 RG-LRU channels
+   (the gates read the conv output gathered over the ranks), its 8 of 16
+   query heads (the one kv head projected on both), half the FFN columns
+   and half the vocabulary: both ranks' losses within 1e-4 relative,
+   exactly 6 x 2 + 4 + 5 + 4 = 25 model-axis all-reduces a step (the
+   last 4: wk and wv, stored split, gathered and their gradients
+   reduced), and each
+   rank's "pallas" forward on its channels and heads (2 RG-LRU scan and 1
+   flash launches a rank) within 1e-3 of "xla".
+34. Mamba2 the same way: mamba2-130m at full width and depth (24 layers,
+   d_model 768, 24 SSM heads of 64, d_state 128, chunk 256, vocab 50280,
+   tied), 4 steps of 8 x 512 tokens (every row crosses a chunk boundary,
+   so the carried state is in the gradient). Each rank runs its 12 heads
+   (their z, x and dt columns of the gathered in_proj and the one group's
+   B/C, the conv, the SSD, the gated RMSNorm's sum of squares all-reduced
+   over the ranks) and half the vocabulary: exactly 4 x 24 + 5 + 4 x 24
+   = 197 all-reduces a step (in_proj and conv_w, stored split by
+   contiguous columns, gathered and their gradients reduced in every
+   layer), the "pallas" forward with 24 SSD launches a rank on 12 heads.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; above it
 stand the card's name and power limit and one JSON line with each
@@ -2825,10 +2851,11 @@ def distribution_phase(device, card: str, tr: dict, pop: dict):
 
 # ---------------------------------------------------- tensor parallelism
 
-TP_RANKS = 2                       # phases 29-31: two model ranks
+TP_RANKS = 2                       # phases 29-34: two model ranks
 TP_REL = 1e-4                      # their losses against one process's
 TP_TIMEOUT_S = 600
-TP_FAMILY_STEPS = 4                # phases 30-31: AdamW steps
+TP_FAMILY_STEPS = 4                # phases 30-31, 33-34: AdamW steps
+TP_MAMBA_SEQ = 512                 # phase 34: two 256-token chunks a row
 TP_VOCAB_PAD = 256                 # phase 30: 49155 -> 49408, as the
                                    # dry-run pads it (two ranks divide it)
 SEAMLESS_ROWS, SEAMLESS_FRAMES, SEAMLESS_TOKENS = 4, 400, 256   # phase 31
@@ -2879,12 +2906,19 @@ def free_port() -> int:
 def tp_config(phase: int):
     """The f32 model of a tensor-parallel phase: 29 qwen3-1.7b (phase 20's),
     30 granite-moe-1b-a400m (its vocabulary padded to TP_VOCAB_PAD), 31
-    seamless-m4t-large-v2, each at full width and depth."""
+    seamless-m4t-large-v2, 34 mamba2-130m, each at full width and depth;
+    33 recurrentgemma-9b at full width, one pattern block deep (phase
+    21's cut)."""
     if phase == 29:
         return full_config("float32")
     if phase == 30:
         return family_config("granite-moe-1b-a400m", "float32",
                              vocab_pad_to=TP_VOCAB_PAD)
+    if phase == 33:
+        return rgemma_config("float32", n_layers=RGEMMA_TRAIN_LAYERS,
+                             tail_pattern=())
+    if phase == 34:
+        return mamba_config("float32")
     return family_config("seamless-m4t-large-v2", "float32")
 
 
@@ -2892,7 +2926,8 @@ def tp_batches(phase: int, cfg, device, n=None, rows=None, seq=None,
                seed=SEED) -> list:
     """A phase's training batches, the same in every process (the token
     stream; seamless' stub frames from a seeded CUDA generator): 8 x 256
-    tokens for 29 and 30, 4 rows of 400 frames + 256 tokens for 31."""
+    tokens for 29, 30 and 33, 4 rows of 400 frames + 256 tokens for 31,
+    8 x 512 tokens for 34."""
     if phase == 31:
         rows = rows or SEAMLESS_ROWS
         out = token_batches(cfg, n or TP_FAMILY_STEPS, rows,
@@ -2905,8 +2940,9 @@ def tp_batches(phase: int, cfg, device, n=None, rows=None, seq=None,
         return out
     return token_batches(cfg, n or (TRAIN_STEPS if phase == 29 else
                                     TP_FAMILY_STEPS),
-                         rows or TRAIN_BATCH, seq or TRAIN_SEQ, device,
-                         seed=seed)
+                         rows or TRAIN_BATCH,
+                         seq or (TP_MAMBA_SEQ if phase == 34 else TRAIN_SEQ),
+                         device, seed=seed)
 
 
 def tp_want_reduces(phase: int, cfg) -> int:
@@ -2914,16 +2950,40 @@ def tp_want_reduces(phase: int, cfg) -> int:
     layer, 5 an MoE layer (the attention's 2; the experts' output forward,
     their input's and the gate weights' copies backward), 4 an encoder
     layer and 6 a decoder layer with cross-attention, 1 for the encoder
-    output, plus the embedding's 1 and the logits' and loss's 4."""
+    output, 6 an RG-LRU layer (the mixer's input backward, its conv
+    output's gather forward and backward, its output forward; the MLP's
+    2), 4 a Mamba2 layer (its input backward, the norm's sum of squares
+    forward and backward, its output forward), plus the embedding's 1 and
+    the logits' and loss's 4; and two for each leaf stored split over
+    "model" that the step takes whole and uses inside the split (its
+    gather, its gradient's reduction: recurrentgemma's wk and wv, each
+    Mamba2 layer's in_proj and conv_w; `tp.leaf_gather_all_reduces`)."""
+    from repro_torch.launch.shapes import params_shapes
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding import tp as TP
+    mesh = R.mesh_like((1, 1, TP_RANKS), ("pod", "data", "model"))
+    gathers = TP.leaf_gather_all_reduces(
+        cfg, params_shapes(cfg), mesh, TP.TensorParallel.build(cfg, mesh))
     if cfg.is_encdec:
-        return 4 * cfg.n_enc_layers + 6 * cfg.n_layers + 1 + 5
-    return (5 if cfg.moe else 4) * cfg.n_layers + 5
+        return 4 * cfg.n_enc_layers + 6 * cfg.n_layers + 1 + 5 + gathers
+    per = {"attn": 5 if cfg.moe else 4, "rglru": 6, "ssm": 4}
+    return sum(per[t] for t in cfg.layer_types()) + 5 + gathers
+
+
+def tp_want_launches(cfg) -> dict:
+    """The kernels a rank's "pallas" training forward launches: flash once
+    per decoder attention layer, the RG-LRU scan per RG-LRU layer, SSD per
+    Mamba2 layer."""
+    types = cfg.layer_types()
+    return {"flash_attention": types.count("attn"),
+            "rglru_scan": types.count("rglru"),
+            "ssd_scan": types.count("ssm")}
 
 
 def tp_baseline(device, phase: int) -> dict:
-    """Phases 30-31's oracle: the same seeded weights, batches, schedule
-    and rate as `train_sharded`'s through the unsharded step in this
-    process on the card."""
+    """Phases 30-31 and 33-34's oracle: the same seeded weights, batches,
+    schedule and rate as `train_sharded`'s through the unsharded step in
+    this process on the card."""
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
     from repro_torch.optim.schedules import linear_warmup_cosine
@@ -2960,7 +3020,7 @@ def tp_baseline(device, phase: int) -> dict:
 
 def tp_rank(rank: int, port: int, out_dir: str, device_type: str,
             phase: int = 29):
-    """Phases 29-32, one rank, in a process of its own (`tp_rank_run`;
+    """Phases 29-34, one rank, in a process of its own (`tp_rank_run`;
     phase 32: `dp_rank_run`). Writes rank<r>.json (its "error" on a
     failure) and exits non-zero on a failure."""
     import traceback
@@ -2977,7 +3037,7 @@ def tp_rank(rank: int, port: int, out_dir: str, device_type: str,
 
 
 def init_ranks(rank: int, port: int, device, mesh_shape: tuple):
-    """A rank of phases 29-32 on the card: TF32 off, gloo (NCCL refuses
+    """A rank of phases 29-34 on the card: TF32 off, gloo (NCCL refuses
     two ranks on one device; gloo all-reduces CUDA tensors, probed here),
     a ("pod", "data", "model") mesh of `mesh_shape`."""
     import torch.distributed as dist
@@ -3001,18 +3061,15 @@ def init_ranks(rank: int, port: int, device, mesh_shape: tuple):
 
 
 def tp_rank_run(rank: int, port: int, device, phase: int = 29) -> dict:
-    """Phases 29-31: a (1, 1, 2) mesh, `train_sharded` on the phase's
-    model, weights, batches and schedule, tensor parallel; a timed and a
-    profiled step counting the model-axis all-reduces; then the "pallas"
-    forward under no_grad on this rank's heads against "xla"."""
+    """Phases 29-31 and 33-34: a (1, 1, 2) mesh, `train_sharded` on the
+    phase's model, weights, batches and schedule, tensor parallel; a timed
+    and a profiled step counting the model-axis all-reduces; then the
+    "pallas" forward under no_grad on this rank's heads and channels
+    against "xla", every kernel's launches counted."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import Replicate
-    from torch.utils._pytree import tree_flatten, tree_unflatten
     mesh = init_ranks(rank, port, device, (1, 1, TP_RANKS))
     from torch.distributed.tensor import Replicate
     from torch.utils._pytree import tree_flatten, tree_unflatten
-    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.launch import distributed as D
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
@@ -3068,11 +3125,14 @@ def tp_rank_run(rank: int, port: int, device, phase: int = 29) -> dict:
                 leaves, R.leaf_paths(params), (Replicate(),) * mesh.ndim,
                 tp), spec)
             ref, _ = T.forward_train(local, cfg, inputs, tp=tp)
-            flash_attention.launches = 0
+            fns = counters()
+            for fn in fns.values():
+                fn.launches = 0
             got, _ = T.forward_train(
                 local, cfg.replace(attention_impl="pallas"), inputs, tp=tp)
             sync_device(device)
-        launches = flash_attention.launches
+        launches = {k: fn.launches for k, fn in fns.items()
+                    if k != "paged_attention"}
         err = float((got - ref).abs().max())
         return {"losses": losses, "ms": ms,
                 "peaks_gib": [p / 2**30 for p in peaks],
@@ -3085,6 +3145,10 @@ def tp_rank_run(rank: int, port: int, device, phase: int = 29) -> dict:
                 "local_heads": tp.local_heads(cfg),
                 "local_kv_heads": cfg.n_kv_heads // TP_RANKS if tp.kv
                 else len(tp.kv_heads(cfg)),
+                "local_lru": (cfg.rglru.lru_width // TP_RANKS if tp.lru
+                              else None),
+                "local_ssm_heads": (cfg.ssm.n_heads(cfg.d_model) // TP_RANKS
+                                    if tp.ssm else None),
                 "experts": tp.experts,
                 "local_experts": (len(tp.local_experts(cfg)) if cfg.moe
                                   else None),
@@ -3138,13 +3202,13 @@ def run_ranks(device, phase: int):
 
 
 def tp_phase(device, card: str, base: dict, phase: int = 29) -> dict:
-    """Phases 29-31: two model ranks, each a process on the one card,
-    train the phase's model tensor parallel; returns both ranks' results
-    after the checks against `base` (the unsharded run's losses: phase
-    20's, or `tp_baseline`'s)."""
+    """Phases 29-31 and 33-34: two model ranks, each a process on the one
+    card, train the phase's model tensor parallel; returns both ranks'
+    results after the checks against `base` (the unsharded run's losses:
+    phase 20's, or `tp_baseline`'s)."""
     cfg = tp_config(phase)
     ranks, wall = run_ranks(device, phase)
-    n_flash = cfg.layer_types().count("attn")     # the decoder's
+    want_launches = tp_want_launches(cfg)
     want_reduces = tp_want_reduces(phase, cfg)
     for res in ranks:
         r = res["rank"]
@@ -3162,10 +3226,10 @@ def tp_phase(device, card: str, base: dict, phase: int = 29) -> dict:
                                  f"{res['all_reduces_per_step']} model-axis "
                                  f"all-reduces a step, expected "
                                  f"{want_reduces}")
-        if res["pallas_launches"] != n_flash:
-            raise AssertionError(f"phase {phase} rank {r}: flash launched "
-                                 f"{res['pallas_launches']} times, expected "
-                                 f"{n_flash}")
+        if res["pallas_launches"] != want_launches:
+            raise AssertionError(f"phase {phase} rank {r}: kernel launches "
+                                 f"{res['pallas_launches']}, expected "
+                                 f"{want_launches}")
         if not res["pallas_max_abs_err"] <= LOGIT_TOL:
             raise AssertionError(f"phase {phase} rank {r}: 'pallas' logits "
                                  f"{res['pallas_max_abs_err']} from 'xla', "
@@ -3176,6 +3240,10 @@ def tp_phase(device, card: str, base: dict, phase: int = 29) -> dict:
         if cfg.moe and res["experts"] != "expert":
             raise AssertionError(f"phase {phase} rank {r}: experts split "
                                  f"as {res['experts']}")
+        if (cfg.rglru and res["local_lru"] is None) or \
+                (cfg.ssm and res["local_ssm_heads"] is None):
+            raise AssertionError(f"phase {phase} rank {r}: the recurrent "
+                                 "mixer does not split")
     return {"ranks": ranks, "wall_s": wall, "card": card, "phase": phase,
             "want_reduces": want_reduces}
 
@@ -3327,17 +3395,23 @@ def log_tp_phase(tp: dict, base: dict, base_name: str = "phase 20"):
             log(f"    experts split as {res['experts']!r}: "
                 f"{res['local_experts']} a rank; dropped_frac of a step "
                 f"{res['dropped_frac']:.6f}")
-        log(f"    'pallas' forward under no_grad on {res['local_heads']} "
-            f"query / {res['local_kv_heads']} kv heads: flash launched "
-            f"{res['pallas_launches']} times, logits "
-            f"{tuple(res['logits_shape'])} within "
-            f"{res['pallas_max_abs_err']:.3g} of 'xla' (tol {LOGIT_TOL})")
+        where = [f"{res['local_heads']} query / {res['local_kv_heads']} kv "
+                 "heads"] if res["local_heads"] else []
+        if res["local_lru"]:
+            where.append(f"{res['local_lru']} RG-LRU channels")
+        if res["local_ssm_heads"]:
+            where.append(f"{res['local_ssm_heads']} SSM heads")
+        launched = {k: n for k, n in res["pallas_launches"].items() if n}
+        log(f"    'pallas' forward under no_grad on {', '.join(where)}: "
+            f"launches {launched}, logits {tuple(res['logits_shape'])} "
+            f"within {res['pallas_max_abs_err']:.3g} of 'xla' (tol "
+            f"{LOGIT_TOL})")
     log(f"  phase {phase} took {tp['wall_s']:.1f} s")
 
 
 def family_tp_phases(device, card: str, phases=(30, 31)) -> dict:
-    """Tensor-parallel phases (30-31; 29 against its own unsharded run, as
-    tools/probe_tp.py drives it), logged as they run: each model's
+    """Tensor-parallel phases (30-31, 33-34; 29 against its own unsharded
+    run, as tools/probe_tp.py drives it), logged as they run: each model's
     unsharded baseline in this process, then its two tensor-parallel
     ranks. Returns {phase: tp_phase's result with its "base"}."""
     out = {}
@@ -3350,7 +3424,13 @@ def family_tp_phases(device, card: str, phases=(30, 31)) -> dict:
             f"{TP_FAMILY_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens",
         31: f"seamless-m4t-large-v2 at full width and depth, "
             f"{TP_FAMILY_STEPS} steps of {SEAMLESS_ROWS} rows of "
-            f"{SEAMLESS_FRAMES} encoder frames + {SEAMLESS_TOKENS} tokens"}
+            f"{SEAMLESS_FRAMES} encoder frames + {SEAMLESS_TOKENS} tokens",
+        33: f"recurrentgemma-9b at full width, one pattern block (r, r, "
+            f"a), the RG-LRU channels split, "
+            f"{TP_FAMILY_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens",
+        34: f"mamba2-130m at full width and depth, the SSM heads split, "
+            f"{TP_FAMILY_STEPS} steps of {TRAIN_BATCH} x {TP_MAMBA_SEQ} "
+            f"tokens"}
     for phase in phases:
         t0 = time.perf_counter()
         log(f"[{phase}] tensor parallelism: {what[phase]}; f32 (TF32 off), "
@@ -3798,6 +3878,7 @@ def main(device: str = "cuda") -> int:
     log_tp_phase(tp29, tr)
     tps = {29: tp29, **family_tp_phases(device, card)}
     dp_phase(device, card)
+    tps.update(family_tp_phases(device, card, (33, 34)))
     g1, g3 = fam["granite"], fam["granite3b"]
     fam_flash = {"granite_dense": g1["dense"]["launches"]["flash_attention"],
                  "seamless": fam["encdec"]["run"]["launches"][
@@ -3805,9 +3886,18 @@ def main(device: str = "cuda") -> int:
                  "pixtral": fam["prefix"]["run"]["launches"][
                      "flash_attention"]}
     # each tensor-parallel phase's "pallas" forward: rank 0's launches
-    fam_flash.update({f"tp_{name}": tps[ph]["ranks"][0]["pallas_launches"]
-                      for ph, name in ((29, "qwen3"), (30, "granite_1b"),
-                                       (31, "seamless"))})
+    tp_launches = {name: tps[ph]["ranks"][0]["pallas_launches"]
+                   for ph, name in ((29, "qwen3"), (30, "granite_1b"),
+                                    (31, "seamless"),
+                                    (33, "recurrentgemma"), (34, "mamba2"))}
+    fam_flash.update({f"tp_{name}": n["flash_attention"]
+                      for name, n in tp_launches.items()
+                      if n["flash_attention"]})
+    rglru_paths = {"recurrentgemma": dense_r["launches"]["rglru_scan"],
+                   "tp_recurrentgemma":
+                       tp_launches["recurrentgemma"]["rglru_scan"]}
+    ssd_paths = {"mamba2": dense_m["launches"]["ssd_scan"],
+                 "tp_mamba2": tp_launches["mamba2"]["ssd_scan"]}
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",
@@ -3852,7 +3942,8 @@ def main(device: str = "cuda") -> int:
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:25",
-        "launches": dense_r["launches"]["rglru_scan"],
+        "launches": sum(rglru_paths.values()),
+        "launches_by_path": rglru_paths,
         "max_abs_err": scan_errs[torch.bfloat16],
         "ms": scan_t["ms"], "plain_ms": scan_t["plain_ms"],
         "bound_ms": scan_t["bound_ms"], "bound_by": scan_t["bound_by"],
@@ -3862,7 +3953,8 @@ def main(device: str = "cuda") -> int:
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:24",
-        "launches": dense_m["launches"]["ssd_scan"],
+        "launches": sum(ssd_paths.values()),
+        "launches_by_path": ssd_paths,
         "route_launches": dense_m["route_launches"]["ssd_scan"],
         "max_abs_err": ssd_errs[torch.bfloat16],
         "ms": ssd_t["ms"], "plain_ms": ssd_t["plain_ms"],
@@ -3896,12 +3988,14 @@ def main(device: str = "cuda") -> int:
         f"{flash_errs[torch.bfloat16]:.3g}")
     log(f"kernels: rglru_scan launches={kernels[2]['launches']} "
         f"({dense_r['prefills']} prefills x {cfg_r.n_layers - n_attn} "
-        f"layers); "
+        f"layers + {rglru_paths['tp_recurrentgemma']} on tensor-parallel "
+        f"rank 0's channels); "
         f"f32 max abs err {scan_errs[torch.float32]:.3g}, bf16 "
         f"{scan_errs[torch.bfloat16]:.3g}")
     log(f"kernels: ssd_scan launches={kernels[3]['launches']} "
-        f"({dense_m['prefills']} prefills x {cfg_m.n_layers} layers; by "
-        f"route {kernels[3]['route_launches']}); f32 "
+        f"({dense_m['prefills']} prefills x {cfg_m.n_layers} layers, by "
+        f"route {kernels[3]['route_launches']}; + {ssd_paths['tp_mamba2']} "
+        f"on tensor-parallel rank 0's heads); f32 "
         f"max abs err {ssd_errs[torch.float32]:.3g}, bf16 "
         f"{ssd_errs[torch.bfloat16]:.3g}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -2,10 +2,9 @@
 `repro.launch.distributed`): params and optimizer state laid out on a
 DeviceMesh by the rule engine's specs, per-process batch feeding, and the
 train step on DTensor leaves (`sharding.spmd`): data parallel over "pod" x
-"data", and over "model" tensor parallel for the families whose layers
-are all attention (the dense and MoE decoders, the encoder-decoder:
-`sharding.tp`) or, for the recurrent families, storage only (the params
-gathered for each step).
+"data", and over "model" tensor parallel for every family (the dense and
+MoE decoders, the encoder-decoder, the RG-LRU hybrid and Mamba2:
+`sharding.tp`) when the axis is larger than 1.
 
 Every process calls ``initialize(coordinator, num_processes, process_id)``
 (NCCL on the card; ``device="cpu"`` gives gloo), builds a mesh
@@ -82,9 +81,9 @@ def shard_model(cfg, mesh, params, opt_state):
 def make_sharded_step(cfg, mesh, opt_update, p_specs, o_specs, batch_example,
                       *, microbatches: int = 1):
     """(step on DTensor leaves, the batch specs of `batch_example`). The
-    step is tensor parallel over "model" (`sharding.tp`) for an arch in
-    its scope when the axis is larger than 1, else data parallel with the
-    params gathered (`sharding.spmd`)."""
+    step is tensor parallel over "model" (`sharding.tp`) when the axis is
+    larger than 1, else data parallel with the params gathered
+    (`sharding.spmd`)."""
     b_specs = R.batch_specs(cfg, batch_example, mesh)
     step = build_lm_train_step(cfg, opt_update, microbatches=microbatches,
                                tp=TensorParallel.build(cfg, mesh))

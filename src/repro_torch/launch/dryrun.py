@@ -7,12 +7,12 @@ Each case runs as rank 0 of a fake process group as large as the mesh (4,
 nothing) under `FakeTensorMode`: params, optimizer state, batches and
 caches are fake DTensors laid out by the rule engine's specs
 (`launch.shapes.make_case`), and the step runs as it runs on a real mesh:
-data parallel over "pod" x "data"; over "model", a train step of an arch
-whose layers are all attention (the dense and MoE decoders, the
-encoder-decoder) runs tensor parallel (`sharding.tp`: each rank its
-heads, FFN columns or experts and vocabulary rows, explicit all-reduces),
-every other step on params gathered over "model" (`sharding.spmd`: the
-axis shards storage only, and its ranks repeat the same compute).
+data parallel over "pod" x "data"; over "model", a train step runs
+tensor parallel (`sharding.tp`: each rank its heads, FFN columns or
+experts, RG-LRU channels or Mamba2 heads and vocabulary rows, explicit
+all-reduces), every serving step on params gathered over "model"
+(`sharding.spmd`: the axis shards storage only, and its ranks repeat the
+same compute).
 Counters:
 
   flops_per_device          FlopCounterMode over the rank's local compute
@@ -25,9 +25,12 @@ Counters:
                             operators' all-reduces over "model" (per
                             microbatch: 4 a dense layer, 5 an MoE layer,
                             6 a decoder layer with cross-attention, 1
-                            for the encoder output, one for the
-                            embedding, four for the logits and the loss;
-                            remat one more per recomputed attention),
+                            for the encoder output, 6 an RG-LRU layer, 4
+                            a Mamba2 layer, one for the embedding, four
+                            for the logits and the loss, two for each
+                            leaf stored split and taken whole; remat one
+                            more per recomputed mixer output, gather or
+                            norm),
                             `gathered_leaves` the leaves stored split over
                             "model" whose compute is gathered
   memory                    MemTracker's peak over the step (the rank's),

@@ -8,8 +8,7 @@ engine. The numbers are the reference's.
 
 Shape semantics:
   train_4k    -> train_step (fwd+bwd+AdamW), grad accumulation per arch;
-                 tensor parallel over "model" for the families whose
-                 layers are all attention (dense, MoE, encoder-decoder)
+                 tensor parallel over "model" (every family)
   prefill_32k -> serve_prefill (full forward + cache emit)
   decode_32k  -> serve_decode: ONE token, KV state of 32,768 positions
   long_500k   -> serve_decode at position 524,287; sub-quadratic state
@@ -144,10 +143,9 @@ def make_case(arch_cfg, shape_name: str, mesh, *, microbatches=None,
               remat=None):
     """Returns dict(fn, args, in_specs, out_specs, donate, meta, tp,
     gathered_leaves); args are meta tensors (the optimizer's step counter
-    a CPU scalar). A train case of an arch whose layers are all attention
-    (the dense and MoE decoders, the encoder-decoder: `tp.in_scope`) on a
-    mesh whose "model" axis is larger than 1 runs tensor parallel (`tp`, a
-    `sharding.tp.TensorParallel` counting its all-reduces; else None);
+    a CPU scalar). A train case on a mesh whose "model" axis is larger
+    than 1 runs tensor parallel (`tp`, a `sharding.tp.TensorParallel`
+    counting its all-reduces; else None);
     `gathered_leaves` names the leaves stored split over "model" whose
     compute is gathered."""
     case = SHAPES[shape_name]

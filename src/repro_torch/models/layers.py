@@ -49,10 +49,19 @@ def dense_init(gen, d_in, d_out, dtype, scale=None):
 
 # ----------------------------------------------------------------------------- norms
 
-def rms_norm(x, weight, eps=1e-6):
+def rms_norm(x, weight, eps=1e-6, tp=None):
+    """With a tensor-parallel context (`sharding.tp`) x and weight hold
+    this rank's 1/tp of the normalised dim: the sum of squares is summed
+    over the model ranks (`sum_over_model`) and divided by the full
+    width."""
     dt = x.dtype
     x = x.float()
-    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    if tp is None:
+        ms = (x * x).mean(dim=-1, keepdim=True)
+    else:
+        ms = TP.sum_over_model((x * x).sum(dim=-1, keepdim=True), tp) \
+            / (x.shape[-1] * tp.size)
+    x = x * torch.rsqrt(ms + eps)
     return (x * (1.0 + weight.float())).to(dt)
 
 

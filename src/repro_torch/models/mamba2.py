@@ -13,6 +13,10 @@ carried state). Decode is a one-step update of the state.
 
 `A_log` and `dt_bias` are float32 whatever the parameter dtype, as in the
 reference (`init_mamba2`); the SSM state is float32.
+
+With a tensor-parallel context (`sharding.tp`, `mamba2_forward(...,
+tp=)`) the block runs this rank's heads (`_rank_params`); the gated
+RMSNorm sums its squares over the model ranks.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.sharding import tp as TP
 
 # float32 leaves whatever cfg.param_dtype (the weight bridge reads this)
 F32_LEAVES = ("A_log", "dt_bias")
@@ -165,25 +170,62 @@ def _split_proj(cfg, proj):
                               - 2 * gn], dim=-1)
 
 
-def mamba2_forward(params, cfg, u):
+def _rank_params(params, cfg, tp):
+    """The leaves as this rank's heads use them, and its group count:
+    `in_proj`'s columns of its heads' z, x and dt and of the B/C of the
+    groups they read (`tp.head_groups`), `conv_w`/`conv_b` on its x, B and
+    C channels, its heads' `A_log`, `dt_bias`, `D` and channels of
+    `norm_scale`; `out_proj` is already its rows."""
+    s = cfg.ssm
+    di, nh, n = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model), s.d_state
+    gn = s.n_groups * n
+    nh_l = nh // tp.size
+    first = tp.rank * nh_l
+    groups = TP.head_groups(first, nh_l, nh // s.n_groups)
+    x = (first * s.head_dim, (first + nh_l) * s.head_dim)
+    xbc = [x] + [(di + off + k * n, di + off + (k + 1) * n)
+                 for off in (0, gn) for k in groups]     # in [x | B | C]
+    dt = (2 * di + 2 * gn + first, 2 * di + 2 * gn + first + nh_l)
+
+    def cols(w, ranges):
+        return torch.cat([w[..., a:b] for a, b in ranges], dim=-1)
+    return {"in_proj": cols(params["in_proj"], [x] + [
+                (a + di, b + di) for a, b in xbc] + [dt]),
+            **{k: cols(params[k], xbc) for k in ("conv_w", "conv_b")},
+            **{k: tp.shard(params[k]) for k in ("A_log", "dt_bias", "D",
+                                                 "norm_scale")},
+            "out_proj": params["out_proj"]}, len(groups)
+
+
+def mamba2_forward(params, cfg, u, tp=None):
     """u: (B, S, d) -> (y, final_state_dict) full-sequence (train/prefill).
     The cache's conv history is the last d_conv-1 pre-activation conv
     inputs, zero-filled on the left for a sequence shorter than that (the
     reference returns fewer rows there, which its decode step cannot take:
-    ROADMAP.md Queue 3)."""
+    ROADMAP.md Queue 3).
+
+    With a tensor-parallel context (`sharding.tp`) params hold this rank's
+    rows of `out_proj` and every other leaf gathered: u enters through
+    `copy_to_model`, the block runs the rank's heads (`_rank_params`: the
+    conv on their channels, the SSD on the heads, the gated RMSNorm over
+    the whole d_inner), the cache is the rank's, and the row-parallel
+    output leaves through `reduce_from_model`."""
     s = cfg.ssm
     B_, S, d = u.shape
-    di = s.d_inner(d)
-    nh = s.n_heads(d)
-    gn = s.n_groups * s.d_state
+    di, nh, g = s.d_inner(d), s.n_heads(d), s.n_groups
+    if tp is not None:
+        u = TP.copy_to_model(u, tp)
+        params, g = _rank_params(params, cfg, tp)
+        di, nh = di // tp.size, nh // tp.size
+    gn = g * s.d_state
     proj = u @ params["in_proj"]
-    z, xBC_raw, dt = _split_proj(cfg, proj)
+    z, xBC_raw, dt = torch.split(proj, [di, di + 2 * gn, nh], dim=-1)
     xBC = _causal_conv(xBC_raw, params["conv_w"], params["conv_b"])
     x, Bm, Cm = torch.split(xBC, [di, gn, gn], dim=-1)
     # views of xBC: the kernel reads them through their strides
     x = x.reshape(B_, S, nh, s.head_dim)
-    Bm = Bm.reshape(B_, S, s.n_groups, s.d_state)
-    Cm = Cm.reshape(B_, S, s.n_groups, s.d_state)
+    Bm = Bm.reshape(B_, S, g, s.d_state)
+    Cm = Cm.reshape(B_, S, g, s.d_state)
     dt = F.softplus(dt.float() + params["dt_bias"][None, None, :])
     A = -torch.exp(params["A_log"])
     if cfg.attention_impl == "pallas":
@@ -193,8 +235,10 @@ def mamba2_forward(params, cfg, u):
         y, state = ssd_chunked(x, dt, A, Bm, Cm, s.chunk_size)
     y = y + x * params["D"][None, None, :, None]
     y = y.reshape(B_, S, di)
-    y = rms_norm(y * F.silu(z), params["norm_scale"], cfg.norm_eps)
+    y = rms_norm(y * F.silu(z), params["norm_scale"], cfg.norm_eps, tp)
     out = y @ params["out_proj"]
+    if tp is not None:
+        out = TP.reduce_from_model(out, tp)
     hist = s.d_conv - 1
     conv = F.pad(xBC_raw, (0, 0, max(hist - S, 0), 0))[:, -hist:, :]
     return out, {"ssm": state, "conv": conv}

@@ -17,6 +17,10 @@ linear branches, conv1d(4) + RG-LRU on one, GeLU gate on the other.
 
 The gate biases and Lambda are float32 whatever the parameter dtype, as in
 the reference (`init_rglru_block`); the recurrent state `h` is float32.
+
+With a tensor-parallel context (`sharding.tp`, `rglru_block_forward(...,
+tp=)`) the block runs this rank's w/tp channels; the gates contract over
+the whole width, so they read the gathered conv output.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import ACTIVATIONS, dense_init
+from repro_torch.sharding import tp as TP
 
 # float32 leaves whatever cfg.param_dtype (the weight bridge reads this)
 F32_LEAVES = ("b_r", "b_i", "Lambda")
@@ -61,10 +66,12 @@ def param_shapes(cfg) -> dict:
             "out_proj": (w, d)}
 
 
-def _gates(params, cfg, x):
-    """(a, gated_x), both f32, from x (..., S, w)."""
-    r = torch.sigmoid((x @ params["w_r"]).float() + params["b_r"])
-    i = torch.sigmoid((x @ params["w_i"]).float() + params["b_i"])
+def _gates(params, cfg, x, full=None):
+    """(a, gated_x), both f32, from x (..., S, w); the gate products read
+    `full`, the whole width, where x is a rank's channels of it."""
+    full = x if full is None else full
+    r = torch.sigmoid((full @ params["w_r"]).float() + params["b_r"])
+    i = torch.sigmoid((full @ params["w_i"]).float() + params["b_i"])
     log_a = -cfg.rglru.c_exponent * F.softplus(params["Lambda"]) * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
@@ -86,12 +93,14 @@ def _linear_scan(a, b):
     return b
 
 
-def rglru_scan(params, cfg, x, h0=None):
+def rglru_scan(params, cfg, x, h0=None, tp=None):
     """x: (B, S, w) -> (y in x's dtype, h_final (B, w) f32). The Pallas
     route (`kernels/rglru_scan`) runs only without an initial state, as in
     the reference; with `h0` the state is folded in as a virtual step 0
-    with a = 1."""
-    a, gx = _gates(params, cfg, x)                              # (B,S,w) f32
+    with a = 1. With `tp` x is this rank's channels, the scan runs on them
+    alone, and the gates read x gathered over the model ranks."""
+    full = None if tp is None else TP.gather_from_model(x, tp)
+    a, gx = _gates(params, cfg, x, full)                        # (B,S,w) f32
     if cfg.attention_impl == "pallas" and h0 is None:
         from repro_torch.kernels.rglru_scan import ops as rg_ops
         y, h_fin = rg_ops.rglru_scan(a, gx)
@@ -122,15 +131,28 @@ def _conv_full(x, w, b):
     return out + b[None, None, :]
 
 
-def rglru_block_forward(params, cfg, x):
+def rglru_block_forward(params, cfg, x, tp=None):
     """Griffin recurrent block, full sequence. x: (B, S, d). Returns (out,
-    cache {"h": (B, w) f32, "conv": (B, d_conv-1, w)})."""
+    cache {"h": (B, w) f32, "conv": (B, d_conv-1, w)}).
+
+    With a tensor-parallel context (`sharding.tp`) params hold this rank's
+    column shards of `w_x`, `w_gate_branch`, `conv_w`, `w_r`, `w_i` and
+    its rows of `out_proj`, and the gathered vectors: x enters through
+    `copy_to_model`, the branches, conv and scan run on the rank's w/tp
+    channels (the cache is the rank's), and the row-parallel output leaves
+    through `reduce_from_model`."""
     gelu = ACTIVATIONS["gelu"]                 # jax.nn.gelu: the tanh form
+    if tp is not None:
+        x = TP.copy_to_model(x, tp)
+        params = {**params, **{k: tp.shard(params[k]) for k in
+                               ("conv_b", "b_r", "b_i", "Lambda")}}
     branch = x @ params["w_x"]                                  # (B,S,w)
     gate = gelu(x @ params["w_gate_branch"])
     conv_out = _conv_full(branch, params["conv_w"], params["conv_b"])
-    y, h_fin = rglru_scan(params, cfg, conv_out)
+    y, h_fin = rglru_scan(params, cfg, conv_out, tp=tp)
     out = (y * gate) @ params["out_proj"]
+    if tp is not None:
+        out = TP.reduce_from_model(out, tp)
     # the conv window's history: the last d_conv-1 branch rows, zero-
     # filled on the left for a sequence shorter than that (the reference
     # returns fewer rows there, which its decode step cannot take)

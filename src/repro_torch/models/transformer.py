@@ -169,9 +169,9 @@ def init_lm(gen: torch.Generator, cfg) -> dict:
 
 
 def _split(tp, part: str):
-    """`tp` where the layer part ("heads", "ffn", "vocab", "experts")
-    splits over "model" (`sharding.tp`), else None: the part runs
-    whole."""
+    """`tp` where the layer part ("heads", "ffn", "vocab", "experts",
+    "lru", "ssm") splits over "model" (`sharding.tp`), else None: the
+    part runs whole."""
     return None if tp is None else tp.part(part)
 
 
@@ -213,12 +213,14 @@ def _layer_full(lp, cfg, ltype, x, positions, window, enc=None,
     for an encoder-decoder's decoder, else None. Returns (x, cache at
     natural length, aux or None); `want_cache` (the prefill) puts the
     emitted k/v in the prefill-cache layout on a mesh. `tp`: tensor
-    parallel over "model" (`sharding.tp`; attention layers only; `enc`'s
-    output then already inside the head split, `_stack_inputs`).
+    parallel over "model" (`sharding.tp`; each mixer and the FFN take it
+    where their part splits; `enc`'s output then already inside the head
+    split, `_stack_inputs`).
     `batch_groups`: the MoE's, `_ffn_apply`."""
     h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
     if ltype == "ssm":
-        out, cache = M2.mamba2_forward(lp["mamba"], cfg, h)
+        out, cache = M2.mamba2_forward(lp["mamba"], cfg, h,
+                                       tp=_split(tp, "ssm"))
         return x + out, cache, None
     if ltype == "attn":
         att, (k, v) = L.attention(lp["attn"], cfg, h, positions,
@@ -229,7 +231,8 @@ def _layer_full(lp, cfg, ltype, x, positions, window, enc=None,
                  "pos": torch.broadcast_to(positions, x.shape[:2])
                  .to(torch.int32)}
     else:
-        att, cache = RG.rglru_block_forward(lp["rglru"], cfg, h)
+        att, cache = RG.rglru_block_forward(lp["rglru"], cfg, h,
+                                            tp=_split(tp, "lru"))
     x = x + att
     if ltype == "attn" and enc is not None:
         h = L.apply_rms_norm(lp["norm_cross"], x, cfg.norm_eps)
@@ -366,15 +369,16 @@ def forward_train(params, cfg, batch, window=None, tp=None, batch_groups=()):
     backward through them raises (`kernels.refuse_grad`), as the
     reference's does.
 
-    With a tensor-parallel context `tp` (`sharding.tp`; the families
-    whose layers are all attention, `tp.in_scope`) params hold this
-    rank's shards of the leaves the "model" axis splits, each layer runs
-    its heads and its FFN columns or experts (the encoder's layers and
-    the cross-attention too), and the logits are the rank's vocabulary
-    slice (the loss: `tp.vocab_parallel_xent`). Under remat the
-    recomputed forward repeats the all-reduces the backward needs (each
-    layer's attention output's; torch's checkpoint stops before the
-    FFN's).
+    With a tensor-parallel context `tp` (`sharding.tp`; every family,
+    `tp.in_scope`) params hold this rank's shards of the leaves the
+    "model" axis splits, each layer runs its heads and its FFN columns or
+    experts (the encoder's layers and the cross-attention too), its
+    RG-LRU channels or its Mamba2 heads, and the logits are the rank's
+    vocabulary slice (the loss: `tp.vocab_parallel_xent`). Under remat
+    the recomputed forward repeats the all-reduces the backward needs:
+    torch's checkpoint stops after the last value a block's backward
+    reads, so an output only added to the residual stream at a block's
+    end (the last layer's FFN or mixer) is not recomputed.
 
     `batch_groups` (`sharding.spmd.batch_groups`: `batch` is this rank's
     rows of a batch split over them) makes the MoE load balance the

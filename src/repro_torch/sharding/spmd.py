@@ -12,12 +12,12 @@ as on one device:
   backward all-reduces it over those dims and slices it back to the
   parameter's own placements (ZeRO-3 style over "model": the model axis
   shards storage, and every rank of it runs the same rows), except under
-  tensor parallelism (`sharding.tp`, the train step of the families whose
-  layers are all attention, `split_params`): there a leaf the "model"
-  axis splits is used as its local shard, whose gradient is already the
-  shard's, each rank of the axis computes only its heads, FFN columns or
-  experts and vocabulary rows, and the model's explicit all-reduces carry
-  the residual stream across the split;
+  tensor parallelism (`sharding.tp`, the train step, `split_params`):
+  there a leaf the "model" axis splits is used as its local shard, whose
+  gradient is already the shard's, each rank of the axis computes only
+  its heads, FFN columns or experts, RG-LRU channels or Mamba2 heads and
+  vocabulary rows, and the model's explicit all-reduces carry the
+  residual stream across the split;
 - each rank runs the model on its own rows of the batch (`to_local`);
 - the loss a rank differentiates is its mean over its rows divided by the
   number of batch shards, so the summed gradient is the global mean's;
@@ -159,9 +159,14 @@ def split_params(leaves: List, paths: List, grad_placements, tp) -> List:
     path. A split leaf is its local shard, its gradient already the
     shard's (Shard over "model"); any other leaf is gathered, its gradient
     Partial over "model" where it is used inside the head split and
-    Replicate where every rank uses it whole. Over the batch axes every
-    gradient is read as `grad_placements` gives."""
+    Replicate where every rank uses it whole. A leaf stored split over
+    "model" is gathered by `tp.gather_from_model` (all-reduces, as every
+    collective of the split: gloo runs no other on CUDA tensors), whose
+    backward reduces a partial gradient and hands the rank its shard's.
+    Over the batch axes every gradient is read as `grad_placements`
+    gives."""
     from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.sharding.tp import gather_from_model
     out = []
     for p, path in zip(leaves, paths):
         if not is_dtensor(p):
@@ -171,12 +176,18 @@ def split_params(leaves: List, paths: List, grad_placements, tp) -> List:
         m = mesh.mesh_dim_names.index("model")
         role = tp.role(path)
         pl = list(grad_placements)
+        stored = p.placements[m]
         if role[0] == "shard":
-            if p.placements[m] != Shard(role[1]):
+            if stored != Shard(role[1]):
                 raise ValueError(f"{'/'.join(map(str, path))} is stored as "
-                                 f"{p.placements[m]} over 'model', computed "
-                                 f"as Shard({role[1]})")
+                                 f"{stored} over 'model', computed as "
+                                 f"Shard({role[1]})")
             pl[m] = Shard(role[1])
+        elif isinstance(stored, Shard):
+            pl[m] = stored
+            out.append(gather_from_model(p.to_local(grad_placements=pl), tp,
+                                         stored.dim, role[0] == "partial"))
+            continue
         else:
             p = p.redistribute(mesh, [Replicate()] * mesh.ndim)
             pl[m] = Partial() if role[0] == "partial" else Replicate()

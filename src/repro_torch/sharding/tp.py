@@ -1,7 +1,8 @@
-"""Tensor parallelism over the mesh's "model" axis for every family whose
-layers are all attention (the dense and MoE decoders, the encoder-decoder):
-Megatron-LM's column/row split with explicit collectives, the port's
-counterpart of GSPMD partitioning the reference's step over "model".
+"""Tensor parallelism over the mesh's "model" axis for every family (the
+dense and MoE decoders, the encoder-decoder, the RG-LRU hybrid and
+Mamba2): Megatron-LM's column/row split with explicit collectives, the
+port's counterpart of GSPMD partitioning the reference's step over
+"model".
 
 A rank of the model axis computes only its share, in the layouts the rule
 engine stores (`rules.param_specs`): its query heads (`wq`/`wk`/`wv`
@@ -23,6 +24,21 @@ model group in one direction and the identity in the other:
                         the target logit each all-reduced (the mean over V
                         too under label smoothing); the full (..., V)
                         logits never exist
+
+Two more serve the recurrent mixers:
+
+  gather_from_model     a rank's channels (..., n) as the full (...,
+                        n * tp): forward, the channels placed in a zeroed
+                        buffer and all-reduced; backward, the full
+                        gradient all-reduced and the rank's slice taken
+                        (Megatron's all-gather, written with all_reduce;
+                        also how the step gathers a leaf stored split
+                        over "model" that it takes whole,
+                        `spmd.split_params`)
+  sum_over_model        all-reduce forward and backward: a sum whose
+                        every summand feeds split compute afterwards (the
+                        gated RMSNorm's sum of squares), so each rank's
+                        gradient of it is only its own share
 
 All of them use `all_reduce` alone (the one collective gloo also runs on
 CUDA tensors). A split the heads, the FFN width or the vocabulary does not
@@ -46,9 +62,35 @@ all-to-all is needed. An encoder-decoder's encoder output enters the
 split once (`copy_to_model` before the decoder stack), and every
 cross-attention projects its kv heads' keys and values from it.
 
-The families in scope (`in_scope`) are those whose layers are all
-attention; the recurrent ones keep the gathered step
-(`spmd.gather_params`).
+An RG-LRU block (`models.rglru`, where the model axis divides
+`lru_width`: `TensorParallel.lru`) runs its branches, depthwise conv and
+scan on the rank's w/tp channels (`w_x`, `w_gate_branch`, `conv_w`
+columns, the reference's storage split; the recurrence is per channel).
+Its gates `w_r`/`w_i` are column-split too but contract over the whole
+width, so the conv output is gathered for them (`gather_from_model`);
+`out_proj` is row-split. The per-channel vectors (`conv_b`, `b_r`, `b_i`,
+`Lambda`) are stored replicated and taken gathered, a rank reading its
+slice.
+
+A Mamba2 block (`models.mamba2`, where the model axis divides the SSM
+heads: `TensorParallel.ssm`) runs its heads' channels: its z, x and dt
+columns of `in_proj`, the B/C columns of the groups its heads read (all
+of them for one group), the conv on those channels, the SSD on its heads,
+and the gated RMSNorm with its sum of squares over the whole `d_inner`
+(`sum_over_model`); `out_proj` is row-split (its rows are exactly the
+rank's heads' channels). Unlike `wq`'s columns, the reference stores
+`in_proj` and `conv_w` split by contiguous columns of the fused
+[z | x | B | C | dt] and [x | B | C] layouts, which do not follow the
+segments (on reduced mamba2, rank 0 of 2 holds z and 40 columns of x),
+so both are taken gathered and sliced per segment on the rank: their
+gradients are partial sums over "model", and the B/C columns' sums, to
+which every rank contributes, are the cross-rank totals. The B/C
+projection and conv run whole on every rank (no collective to share
+them): the one replicated product of the split, d x 2 g n a token.
+
+`in_scope` admits every layer type the port has; a part the axis does
+not divide (the RG-LRU width, the SSM heads) runs whole on gathered
+leaves, as the attention's do.
 """
 from __future__ import annotations
 
@@ -62,13 +104,16 @@ from repro_torch.sharding import rules as R
 
 COLUMN = ("wq", "wk", "wv", "w_gate", "w_up")    # split on dim 1; wo and
                                                  # w_down on dim 0
+RGLRU_COLUMN = ("w_x", "w_gate_branch", "w_r", "w_i", "conv_w")  # dim 1
+LAYER_TYPES = ("attn", "rglru", "ssm")
 
 
 def in_scope(cfg) -> bool:
-    """Families whose layers are all attention, with a dense or an MoE FFN
-    (a modality prefix only changes the inputs; an encoder-decoder's
-    encoder layers are the dense decoder's)."""
-    return all(t == "attn" for t in cfg.layer_types())
+    """Families whose layers the split knows: attention (with a dense or
+    an MoE FFN; a modality prefix only changes the inputs, an
+    encoder-decoder's encoder layers are the dense decoder's), RG-LRU and
+    Mamba2."""
+    return all(t in LAYER_TYPES for t in cfg.layer_types())
 
 
 def expert_split(cfg, size: int) -> Optional[str]:
@@ -101,6 +146,8 @@ class TensorParallel:
     ffn: bool            # the dense FFN's columns split
     vocab: bool
     experts: Optional[str] = None    # MoE: "expert", "d_ff" or None
+    lru: bool = False    # the RG-LRU width splits
+    ssm: bool = False    # the Mamba2 heads split
     all_reduces: int = field(default=0)
     all_reduce_bytes: int = field(default=0)
 
@@ -116,7 +163,11 @@ class TensorParallel:
                    kv=cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0,
                    ffn=cfg.moe is None and cfg.d_ff % tp == 0,
                    vocab=cfg.padded_vocab_size % tp == 0,
-                   experts=expert_split(cfg, tp))
+                   experts=expert_split(cfg, tp),
+                   lru=cfg.rglru is not None
+                   and (cfg.rglru.lru_width or cfg.d_model) % tp == 0,
+                   ssm=cfg.ssm is not None
+                   and cfg.ssm.n_heads(cfg.d_model) % tp == 0)
 
     @cached_property
     def group(self):
@@ -127,9 +178,9 @@ class TensorParallel:
         return self.mesh.get_local_rank("model")
 
     def part(self, name: str) -> Optional["TensorParallel"]:
-        """self where `name` ("heads", "ffn", "vocab", "experts") splits,
-        else None (the part runs the one-device code on gathered
-        leaves)."""
+        """self where `name` ("heads", "ffn", "vocab", "experts", "lru",
+        "ssm") splits, else None (the part runs the one-device code on
+        gathered leaves)."""
         return self if getattr(self, name) else None
 
     def all_reduce(self, x, op: str = "sum"):
@@ -137,6 +188,12 @@ class TensorParallel:
         self.all_reduces += 1
         self.all_reduce_bytes += x.numel() * x.element_size()
         return funcol.wait_tensor(funcol.all_reduce(x, op, self.group))
+
+    def shard(self, x, dim: int = -1):
+        """This rank's 1/size of `x` along `dim`, a contiguous block (a
+        view)."""
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.rank * n, n)
 
     # ------------------------------------------------------- attention
 
@@ -158,13 +215,8 @@ class TensorParallel:
         whole groups, one shared group, or one kv head per query head
         where the groups straddle ranks."""
         nh_l = self.local_heads(cfg)
-        rep = cfg.n_heads // cfg.n_kv_heads
-        first = self.rank * nh_l
-        if nh_l % rep == 0:
-            return list(range(first // rep, (first + nh_l) // rep))
-        if rep % nh_l == 0:
-            return [first // rep]
-        return [(first + j) // rep for j in range(nh_l)]
+        return head_groups(self.rank * nh_l, nh_l,
+                           cfg.n_heads // cfg.n_kv_heads)
 
     # ------------------------------------------------------- leaf roles
 
@@ -176,7 +228,11 @@ class TensorParallel:
         gathered or replicated and used whole on every rank (the residual
         stream's norms, the MoE router, a part that does not split), the
         same gradient on every rank. The encoder's layers and the
-        cross-attention take the decoder's roles."""
+        cross-attention take the decoder's roles. Of an RG-LRU block the
+        column leaves are split as stored and `out_proj` by rows, its
+        vectors partial; of a Mamba2 block `out_proj` is split by rows
+        and every other leaf partial (`in_proj` and `conv_w` too: their
+        stored split does not follow the segments)."""
         name = path[-2] if path[-1] == "scale" else path[-1]
         parent = path[-2] if len(path) >= 2 else None
         if name == "table":
@@ -201,7 +257,27 @@ class TensorParallel:
             if not self.ffn:
                 return ("replicate",)
             return ("shard", 1) if name in COLUMN else ("shard", 0)
+        if parent in ("rglru", "mamba"):
+            if not (self.lru if parent == "rglru" else self.ssm):
+                return ("replicate",)
+            if name == "out_proj":
+                return ("shard", 0)
+            if parent == "rglru" and name in RGLRU_COLUMN:
+                return ("shard", 1)
+            return ("partial",)
         return ("replicate",)
+
+
+def head_groups(first: int, n_local: int, rep: int) -> List[int]:
+    """The groups (of `rep` consecutive heads each) that heads first ..
+    first + n_local - 1 read, one entry per local group as the callers
+    index them: whole groups in order, the one group they share, or one
+    group per head where the groups straddle the ranks."""
+    if n_local % rep == 0:
+        return list(range(first // rep, (first + n_local) // rep))
+    if rep % n_local == 0:
+        return [first // rep]
+    return [(first + j) // rep for j in range(n_local)]
 
 
 # ------------------------------------------------------------ operators
@@ -227,6 +303,35 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim, partial):
+        ctx.tp, ctx.dim, ctx.partial = tp, dim, partial
+        shape = list(x.shape)
+        shape[dim] *= tp.size
+        full = x.new_zeros(shape)
+        tp.shard(full, dim).copy_(x)
+        return tp.all_reduce(full)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        if ctx.partial:
+            g = tp.all_reduce(g.contiguous())
+        return tp.shard(g, ctx.dim).contiguous(), None, None, None
+
+
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp.all_reduce(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce(g.contiguous()), None
+
+
 def copy_to_model(x, tp: TensorParallel):
     """Identity forward, all-reduce backward (Megatron's f)."""
     return _CopyToModel.apply(x, tp)
@@ -235,6 +340,24 @@ def copy_to_model(x, tp: TensorParallel):
 def reduce_from_model(x, tp: TensorParallel):
     """All-reduce forward, identity backward (Megatron's g)."""
     return _ReduceFromModel.apply(x, tp)
+
+
+def gather_from_model(x, tp: TensorParallel, dim: int = -1,
+                      partial: bool = True):
+    """This rank's block of `dim` (the rank-th of tp equal blocks) as the
+    whole over the model ranks (Megatron's all-gather): all-reduce of the
+    zero-padded block forward; backward, the rank's slice of the
+    gradient, all-reduced first where it is `partial` (each rank's
+    products read the whole, so each holds a share of its gradient), not
+    where every rank's gradient is the whole one."""
+    return _GatherFromModel.apply(x, tp, dim, partial)
+
+
+def sum_over_model(x, tp: TensorParallel):
+    """The sum of `x` over the model ranks, all-reduced forward and
+    backward: the summands' gradients lie on every rank, each rank's
+    result feeding only its own split compute."""
+    return _SumOverModel.apply(x, tp)
 
 
 def _vocab_local(ids, rows: int, tp: TensorParallel):
@@ -277,6 +400,23 @@ def vocab_parallel_xent(logits, labels, mask=None,
         denom = torch.clamp(mask.sum(), min=1.0)
         return (nll * mask).sum() / denom
     return nll.mean()
+
+
+def leaf_gather_all_reduces(cfg, params, mesh, tp: TensorParallel) -> int:
+    """The all-reduces a microbatch of the tensor-parallel step spends on
+    the leaves stored split over "model" that it takes whole
+    (`spmd.split_params`): two for a leaf used inside the split (its
+    gather, its gradient's reduction), one for a leaf every rank uses
+    whole (its gather)."""
+    specs = R.spec_leaves(R.param_specs(cfg, params, mesh))
+    n = 0
+    for path, spec in zip(R.leaf_paths(params), specs):
+        role = tp.role(path)[0]
+        if role != "shard" and any(
+                e == "model" or (isinstance(e, tuple) and "model" in e)
+                for e in spec):
+            n += 2 if role == "partial" else 1
+    return n
 
 
 def gathered_leaves(cfg, params, mesh, tp: Optional[TensorParallel]):

@@ -1,6 +1,7 @@
 """Rank functions for the tensor-parallel tests
-(tests/test_torch_tensor_parallel.py and
-tests/test_torch_tensor_parallel_families.py), run on gloo ranks by
+(tests/test_torch_tensor_parallel.py,
+tests/test_torch_tensor_parallel_families.py and
+tests/test_torch_tensor_parallel_recurrent.py), run on gloo ranks by
 `_torch_dist.spawn`, and the inputs they share with the one-device
 references (numpy draws from a seed)."""
 import contextlib
@@ -264,6 +265,158 @@ def moe_ranks(rank, world, cases):
     return {case: run_moe(case, moe_inputs(case),
                           TensorParallel.build(family_config(case), mesh))
             for case in cases}
+
+
+# ------------------------------------------------------------ recurrent
+
+RECURRENT_CASES = ("gather", "gather_rows", "norm", "rglru", "mamba2",
+                   "mamba2_g2")
+
+
+def recurrent_config(case: str):
+    """Reduced recurrentgemma-9b (lru width 256) for "rglru", reduced
+    mamba2-130m (16 heads of 32, d_state 32, one group) for "mamba2" and
+    the norm, and its 2-group variant for "mamba2_g2" (8 heads a group: on
+    2 ranks each rank's heads read one whole group, on 4 two ranks share
+    one)."""
+    from repro_torch.configs import registry
+    if case == "rglru":
+        return registry.get("recurrentgemma-9b", reduced=True)
+    cfg = registry.get("mamba2-130m", reduced=True)
+    if case == "mamba2_g2":
+        cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm, n_groups=2))
+    return cfg
+
+
+def recurrent_inputs(case: str, seed: int = 2) -> dict:
+    """Full weights and inputs of one recurrent case, as numpy arrays
+    (gates and decays near the init's ranges, the norm's input well away
+    from zero)."""
+    rng = np.random.default_rng(seed)
+
+    def n(*shape, scale=1.0, shift=0.0):
+        return (rng.standard_normal(shape) * scale + shift).astype(
+            np.float32)
+    if case == "gather":
+        return {"x": n(B, S, 64), "g": n(B, S, 64)}
+    if case == "gather_rows":       # a leaf stored split by rows
+        return {"x": n(16, 32), "g": n(16, 32)}
+    cfg = recurrent_config(case)
+    d = cfg.d_model
+    if case == "norm":
+        di = cfg.ssm.d_inner(d)
+        return {"y": n(B, S, di), "w": n(di, scale=0.1), "g": n(B, S, di)}
+    if case == "rglru":
+        w, k = cfg.rglru.lru_width, cfg.rglru.d_conv
+        u = rng.uniform(0.9, 0.999, w)
+        lam = np.log(np.expm1(-np.log(u) / cfg.rglru.c_exponent))
+        return {"w_x": n(d, w, scale=d ** -0.5),
+                "w_gate_branch": n(d, w, scale=d ** -0.5),
+                "conv_w": n(k, w, scale=1.0 / k), "conv_b": n(w, scale=0.1),
+                "w_r": n(w, w, scale=w ** -0.5), "b_r": n(w, scale=0.1),
+                "w_i": n(w, w, scale=w ** -0.5), "b_i": n(w, scale=0.1),
+                "Lambda": lam.astype(np.float32),
+                "out_proj": n(w, d, scale=w ** -0.5),
+                "x": n(B, S, d), "g": n(B, S, d)}
+    s = cfg.ssm
+    di, nh = s.d_inner(d), s.n_heads(d)
+    cd = di + 2 * s.n_groups * s.d_state
+    return {"in_proj": n(d, di + cd + nh, scale=d ** -0.5),
+            "conv_w": n(s.d_conv, cd, scale=1.0 / s.d_conv),
+            "conv_b": n(cd, scale=0.1),
+            "A_log": np.log(rng.uniform(1, 16, nh)).astype(np.float32),
+            "dt_bias": n(nh, scale=0.5, shift=-3.0), "D": n(nh, shift=1.0),
+            "norm_scale": n(di, scale=0.1),
+            "out_proj": n(di, d, scale=di ** -0.5),
+            "x": n(B, S, d), "g": n(B, S, d)}
+
+
+# how each leaf of a recurrent case lies on a rank: "cols"/"rows" its
+# shard (its gradient the shard's), "full" whole (its gradient the whole
+# one's), "partial" whole, its gradient a share of the sum over the ranks
+RECURRENT_LAYOUT = {
+    "gather": {"x": "cols"},
+    "gather_rows": {"x": "rows"},
+    "norm": {"y": "cols", "w": "cols"},
+    "rglru": {"w_x": "cols", "w_gate_branch": "cols", "conv_w": "cols",
+              "conv_b": "partial", "w_r": "cols", "b_r": "partial",
+              "w_i": "cols", "b_i": "partial", "Lambda": "partial",
+              "out_proj": "rows", "x": "full"},
+    "mamba2": {"in_proj": "partial", "conv_w": "partial",
+               "conv_b": "partial", "A_log": "partial", "dt_bias": "partial",
+               "D": "partial", "norm_scale": "partial", "out_proj": "rows",
+               "x": "full"},
+}
+RECURRENT_LAYOUT["mamba2_g2"] = RECURRENT_LAYOUT["mamba2"]
+RECURRENT_OUT = {"norm": "cols"}     # the others: whole on every rank
+
+
+def lay(t, how, r, k):
+    """`t` as rank r of k holds it under `how` (RECURRENT_LAYOUT)."""
+    if how == "cols":
+        n = t.shape[-1] // k
+        return t[..., r * n:(r + 1) * n]
+    if how == "rows":
+        n = t.shape[0] // k
+        return t[r * n:(r + 1) * n]
+    return t
+
+
+def run_recurrent(case: str, inp: dict, tp=None) -> dict:
+    """One recurrent case's forward and the gradients of (out * g).sum()
+    with `tp` on this rank's leaves (RECURRENT_LAYOUT), or on one device
+    with tp=None; "gather" takes (gather_from_model(x) * g_r).sum(), a g
+    of each rank's own (g rolled by the rank: the one-device gradient of
+    their sum over the ranks is the sum of the rolls), on one device
+    (x * g).sum(); "gather_rows" gathers x's rows as `spmd.split_params`
+    gathers a leaf stored split that every rank uses whole (partial=
+    False: the same g on every rank, so no reduction). Returns the output
+    and every leaf's gradient."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models import rglru as RG
+    from repro_torch.sharding import tp as TP
+    t = {k: torch.from_numpy(np.ascontiguousarray(v))
+         for k, v in inp.items()}
+    r, k = (0, 1) if tp is None else (tp.rank, tp.size)
+    leaves = {name: lay(t[name], how, r, k)
+              for name, how in RECURRENT_LAYOUT[case].items()}
+    _track(leaves)
+    if case == "gather":
+        out = leaves["x"] * 1.0 if tp is None \
+            else TP.gather_from_model(leaves["x"], tp)
+        g = torch.roll(t["g"], r, dims=-1)
+    elif case == "gather_rows":
+        out = leaves["x"] * 1.0 if tp is None else TP.gather_from_model(
+            leaves["x"], tp, dim=0, partial=False)
+        g = t["g"]
+    elif case == "norm":
+        out = L.rms_norm(leaves["y"], leaves["w"], 1e-6, tp)
+        g = lay(t["g"], "cols", r, k)
+    else:
+        cfg = recurrent_config(case)
+        p = {n: v for n, v in leaves.items() if n != "x"}
+        block = RG.rglru_block_forward if case == "rglru" \
+            else M2.mamba2_forward
+        out, _ = block(p, cfg, leaves["x"], tp=tp)
+        g = t["g"]
+    (out * g).sum().backward()
+    return {"out": out.detach(),
+            **{f"d_{n}": v.grad for n, v in leaves.items()}}
+
+
+def recurrent_ranks(rank, world, cases):
+    """Every recurrent case on this rank's leaves, on a ("model",) mesh
+    of all the ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.sharding.tp import TensorParallel
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("model",))
+    out = {}
+    for case in cases:
+        tp = TensorParallel.build(recurrent_config(case), mesh)
+        out[case] = run_recurrent(case, recurrent_inputs(case), tp)
+        out[case]["split"] = (tp.lru, tp.ssm)
+    return out
 
 
 # ------------------------------------------------------------ training

@@ -5,27 +5,37 @@ meshes (the reference's tests/test_sharding_rules.py reduced cases and
 tests/test_dryrun_small.py CLI cases). `constrain` on a fake (2, 2) mesh.
 
 Flops: the mesh step is data parallel over "pod" x "data". A train step
-of a family whose layers are all attention (the dense and MoE decoders,
-the encoder-decoder) is tensor parallel over "model" (`sharding.tp`):
-each rank computes its heads, FFN columns or experts and vocabulary rows,
-so a case's per-device flops times the ranks equal the one-rank count of
-the same step within 1% (the replicated remainder counts few flops:
-FlopCounterMode counts products only, and of them only the MoE router's
-runs on every rank; measured: the dense decoders equal, granite-moe 0.03%
-above). Every other step (the recurrent families' training, every
-serving step) runs the same rows on every rank of the "model" axis
-(`sharding.spmd`): flops times ranks equal the one-rank count times the
-model axis size (the replication factor, 2 on the debug meshes), within
-1%. The tensor-parallel step's all-reduces over "model", per microbatch:
-4 per dense layer (two forward, two backward), 5 per MoE layer (the
-attention's 2; the experts' output forward, their input and the gate
-weights backward), 6 per encoder-decoder decoder layer (the
-cross-attention adds its output forward and its query's input backward),
-1 for the encoder output (its keys' and values' input, once for all
-cross-attentions), one for the embedding and four for the logits and the
-loss (the max, the sum of exps, the target logit, and the logits' input
-in the backward).
+is tensor parallel over "model" (`sharding.tp`; every family): each rank
+computes its heads, FFN columns or experts, RG-LRU channels or Mamba2
+heads, and vocabulary rows, so a case's per-device flops times the ranks
+equal the one-rank count of the same step plus what the model ranks
+repeat, within 1% (FlopCounterMode counts products only). They repeat
+the kv projections where the kv heads do not divide the axis (each rank
+projects the kv heads its query heads read: recurrentgemma's one),
+Mamba2's B/C projection (one group, read by every head), the MoE router,
+and a part the axis does not divide, whole (measured on reduced configs:
+the dense decoders and seamless equal, granite-moe 0.08%, recurrentgemma
+1.5% and mamba2 3.1% above the one-rank count, each exactly its repeated
+products: the residual is 0). Every serving step runs the same rows on
+every rank of the "model" axis (`sharding.spmd`): flops times ranks
+equal the one-rank count times the model axis size (the replication
+factor, 2 on the debug meshes), within 1%. The tensor-parallel step's all-reduces over "model",
+per microbatch: 4 per dense layer (two forward, two backward), 5 per MoE
+layer (the attention's 2; the experts' output forward, their input and
+the gate weights backward), 6 per encoder-decoder decoder layer (the
+cross-attention adds its output forward and its query's input
+backward), 1 for the encoder output (its keys' and values' input, once
+for all cross-attentions), 6 per RG-LRU layer (the mixer's input
+backward, its conv output's gather forward and backward, its output
+forward; the MLP's 2), 4 per Mamba2 layer (its input backward, the
+norm's sum of squares forward and backward, its output forward), one for
+the embedding and four for the logits and the loss (the max, the sum of
+exps, the target logit, and the logits' input in the backward), and two
+for each leaf stored split over "model" that the step takes whole (its
+gather and its gradient's reduction: the gathered kv heads' wk/wv,
+Mamba2's in_proj and conv_w).
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -41,6 +51,7 @@ from repro_torch.launch import dryrun as DR
 from repro_torch.launch import mesh as M
 from repro_torch.launch import shapes as S
 from repro_torch.sharding import rules as R
+from repro_torch.sharding import tp as TP
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLOPS_REL = 0.01
@@ -121,32 +132,92 @@ def test_flops_per_device_times_ranks_is_one_rank_times_replication(
         <= FLOPS_REL * one * replication
 
 
+def repeated_flops(cfg, mesh, tokens) -> int:
+    """The flops of a train step on `tokens` tokens that the model ranks
+    repeat beyond their 1/tp shares, summed over the ranks: the kv
+    projections where the query heads split and the kv heads do not
+    (each rank projects the kv heads its query heads read), the MoE
+    router (whole on every rank) and Mamba2's B/C projection where its
+    heads split (each rank projects the groups its heads read). 6 flops a
+    multiply-add and token: the forward product and the backward's
+    two."""
+    ctx = TP.TensorParallel.build(cfg, mesh)
+    tp, d, cols = ctx.size, cfg.d_model, 0
+    for t in cfg.layer_types():
+        if t == "attn" and ctx.heads and not ctx.kv:
+            cols += (tp * len(ctx.kv_heads(cfg)) - cfg.n_kv_heads) \
+                * cfg.resolved_head_dim * 2
+        if t == "attn" and cfg.moe:
+            cols += (tp - 1) * cfg.moe.n_experts
+        if t == "ssm" and ctx.ssm:
+            s = cfg.ssm
+            nh = s.n_heads(d)
+            mine = len(TP.head_groups(0, nh // tp, nh // s.n_groups))
+            cols += (tp * mine - s.n_groups) * s.d_state * 2
+    return 6 * tokens * d * cols
+
+
 @pytest.mark.parametrize("arch", ["starcoder2-7b", "pixtral-12b",
                                   "granite-moe-1b-a400m",
-                                  "seamless-m4t-large-v2"])
+                                  "seamless-m4t-large-v2",
+                                  "recurrentgemma-9b", "mamba2-130m"])
 def test_tensor_parallel_train_flops_times_ranks_is_one_rank(
         debug_mesh, small, arch):
+    """Plus what the ranks repeat (`repeated_flops`): nothing for the
+    dense decoders and seamless, the router for granite-moe (0.08%),
+    recurrentgemma's one kv head (1.5%) and mamba2's B/C projection
+    (3.1%) on every rank."""
     cfg = reduced(arch, "train_4k")
     case, m = DR.measure_case(cfg, "train_4k", debug_mesh, microbatches=2)
     assert case["tp"] is not None
     one = one_rank_flops(cfg, "train_4k", 2)
-    assert abs(m["flops"] * debug_mesh.size() - one) <= FLOPS_REL * one
+    c = S.SHAPES["train_4k"]
+    want = one + repeated_flops(cfg, debug_mesh, c.global_batch * c.seq_len)
+    assert abs(m["flops"] * debug_mesh.size() - want) <= FLOPS_REL * one
+
+
+def gathered_part_config(arch):
+    """Reduced mamba2 with 15 SSM heads (d_model 240) or reduced
+    recurrentgemma with an RG-LRU width of 255: the model axis of 2
+    divides neither, so that part runs whole on every model rank."""
+    cfg = reduced(arch, "train_4k")
+    if cfg.ssm:
+        return cfg.replace(d_model=240)
+    return cfg.replace(rglru=dataclasses.replace(cfg.rglru, lru_width=255))
+
+
+def whole_part_flops(cfg, tokens, one) -> int:
+    """A train step's flops of the part `gathered_part_config` leaves
+    whole (6 a multiply-add and token): every Mamba2 layer's, the
+    one-rank count `one` less the tied logits' (the embedding lookup and
+    the loss count none), or the RG-LRU layers' five products."""
+    d = cfg.d_model
+    if cfg.ssm:
+        return one - 6 * tokens * d * cfg.padded_vocab_size
+    w = cfg.rglru.lru_width
+    n = cfg.layer_types().count("rglru")
+    return 6 * tokens * n * (3 * d * w + 2 * w * w)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b"])
 def test_gathered_train_flops_times_ranks_is_one_rank_times_replication(
         debug_mesh, small, arch):
-    """The families out of the tensor-parallel scope (the recurrent ones)
-    keep the gathered step: every rank of the model axis repeats the
-    compute."""
-    cfg = reduced(arch, "train_4k")
+    """A part the model axis does not divide (15 SSM heads, an RG-LRU
+    width of 255 on 2 ranks) is computed whole on gathered leaves: every
+    rank of the model axis repeats its compute, the rest splits."""
+    cfg = gathered_part_config(arch)
     case, m = DR.measure_case(cfg, "train_4k", debug_mesh, microbatches=2)
-    assert case["tp"] is None
-    assert m["model_axis_all_reduces"] is None
+    tp = case["tp"]
+    assert tp is not None and not tp.ssm and not tp.lru
+    assert m["model_axis_all_reduces"]["count"] > 0
     one = one_rank_flops(cfg, "train_4k", 2)
+    c = S.SHAPES["train_4k"]
+    tokens = c.global_batch * c.seq_len
+    whole = whole_part_flops(cfg, tokens, one)
     replication = R.mesh_axis_size(debug_mesh, "model")
-    assert abs(m["flops"] * debug_mesh.size() - one * replication) \
-        <= FLOPS_REL * one * replication
+    want = one + (replication - 1) * (
+        whole + repeated_flops(cfg, debug_mesh, tokens))
+    assert abs(m["flops"] * debug_mesh.size() - want) <= FLOPS_REL * one
 
 
 @pytest.mark.parametrize("microbatches,remat", [(1, False), (2, False),
@@ -200,12 +271,47 @@ def test_family_model_axis_all_reduces(debug_mesh, small, arch,
     assert m["colls"]["all-reduce"]["count"] > tp["count"]
 
 
+@pytest.mark.parametrize("microbatches,remat", [(1, False), (2, False),
+                                                (1, True)])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-130m"])
+def test_recurrent_model_axis_all_reduces(debug_mesh, small, arch,
+                                          microbatches, remat):
+    """Per microbatch: recurrentgemma (r, r, a) 6 per RG-LRU layer + 4 for
+    the attention layer + 5 = 21; mamba2 4 per layer + 5 = 13; plus two
+    for each leaf stored split over "model" and taken whole (gathered,
+    its gradient reduced: recurrentgemma's wk and wv, each Mamba2
+    layer's in_proj and conv_w), 25 and 21. Remat
+    recomputes each pattern block up to the last value its backward
+    reads: recurrentgemma's block (r, r, a) the two RG-LRU layers' gather
+    and output and their MLPs' outputs (read by the next layer's norm),
+    and the attention's output, 7 more; a Mamba2 block (one layer) its
+    norm's sum of squares, not its output (only added to the residual
+    stream), one more a layer."""
+    cfg = reduced(arch, "train_4k")
+    case, m = DR.measure_case(cfg, "train_4k", debug_mesh,
+                              microbatches=microbatches, remat=remat)
+    types = cfg.layer_types()
+    per_mb = 6 * types.count("rglru") + 4 * types.count("attn") \
+        + 4 * types.count("ssm") + 5
+    if remat:
+        per_mb += 7 if cfg.rglru else cfg.n_layers
+    gathers = TP.leaf_gather_all_reduces(cfg, S.params_shapes(cfg),
+                                         debug_mesh, case["tp"])
+    assert gathers == (4 if cfg.rglru else 4 * cfg.n_layers)
+    per_mb += gathers
+    tp = m["model_axis_all_reduces"]
+    assert case["tp"] is not None
+    assert tp["count"] == microbatches * per_mb
+    assert m["colls"]["all-reduce"]["count"] > tp["count"]
+
+
 @pytest.mark.parametrize("arch,shape,tensor_parallel,wq", [
     ("qwen3-1.7b", "train_4k", True, None),
     ("qwen3-1.7b", "decode_32k", False, "blocks/0/attn/wq"),
     ("granite-moe-1b-a400m", "train_4k", True, None),
-    # ("rglru", "rglru", "attn"): the first attention block is the third
-    ("recurrentgemma-9b", "train_4k", False, "blocks/2/attn/wq"),
+    # ("rglru", "rglru", "attn"): the first attention block is the third;
+    # its one kv head is gathered
+    ("recurrentgemma-9b", "train_4k", True, "blocks/2/attn/wq"),
 ])
 def test_record_says_tensor_parallel_and_gathered_leaves(
         debug_mesh, small, monkeypatch, arch, shape, tensor_parallel, wq):
@@ -214,7 +320,9 @@ def test_record_says_tensor_parallel_and_gathered_leaves(
     rec = DR.run_case(arch, shape, debug_mesh, "pod1", verbose=False)
     assert rec["tensor_parallel"] is tensor_parallel
     if tensor_parallel:
-        assert rec["gathered_leaves"] == []     # 4/2 heads, 2/2 kv heads
+        # 4/2 heads, 2/2 kv heads; recurrentgemma's 1 kv head: wk, wv
+        assert rec["gathered_leaves"] == ([] if wq is None else [
+            wq.replace("wq", "wk"), wq.replace("wq", "wv")])
         assert rec["model_axis_all_reduces"]["count"] > 0
     else:
         assert "embed/table" in rec["gathered_leaves"]

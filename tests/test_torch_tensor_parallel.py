@@ -190,12 +190,19 @@ def test_split_plan_follows_divisibility(arch, tp, want):
         assert gathered == []
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", registry.ARCH_IDS)
 def test_out_of_scope_families_stay_gathered(arch):
+    """No family is out of scope since the recurrent ones split (RG-LRU
+    channels, Mamba2 heads): every arch builds a context on a model axis
+    of 2, and none without a model axis larger than 1."""
     cfg = registry.get(arch, reduced=True)
-    assert not TP.in_scope(cfg)
+    assert TP.in_scope(cfg)
     assert TP.TensorParallel.build(cfg, R.mesh_like((2, 2), ("data",
-                                                             "model"))) is None
+                                                             "model"))) \
+        is not None
+    assert TP.TensorParallel.build(cfg, R.mesh_like((4, 1), ("data",
+                                                             "model"))) \
+        is None
 
 
 @pytest.mark.parametrize("rank,tp,nh,nkv,want", [

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's tensor-parallel phases (29-31) driven alone on one card,
-phase 29 against its own unsharded run (the same seeded weights, batches
-and schedule as phase 20's) instead of phase 20's, and with `--dp` phase
-32 (the MoE load balance on a data-parallel mesh under remat):
+"""chip_smoke.py's tensor-parallel phases (29-31, 33-34) driven alone on
+one card, phase 29 against its own unsharded run (the same seeded
+weights, batches and schedule as phase 20's) instead of phase 20's, and
+with `--dp` phase 32 (the MoE load balance on a data-parallel mesh under
+remat):
 
-    python3 tools/probe_tp.py [--phases 29,30,31] [--dp] [--out FILE]
+    python3 tools/probe_tp.py [--phases 29,30,31,33,34] [--dp] [--out FILE]
 
 Builds the kernels (the "pallas" forward runs the flash kernel on each
-rank's heads), then runs `chip_smoke.family_tp_phases` (each phase's
+rank's heads, the RG-LRU scan on its channels and SSD on its SSM heads),
+then runs `chip_smoke.family_tp_phases` (each phase's
 unsharded baseline in this process and its two tensor-parallel ranks,
 processes on the one card over gloo, with chip_smoke.py's checks and log
 lines); `--out` writes the results as JSON. Needs a CUDA device.
@@ -31,7 +33,7 @@ import chip_smoke as C  # noqa: E402
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="29,30,31")
+    ap.add_argument("--phases", default="29,30,31,33,34")
     ap.add_argument("--dp", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
