@@ -254,27 +254,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    step's device busy share beside phase 20's. Then phase 23's 256-member
    block with `mesh=` (population_axes ("data",)) against phase 23's
    results: the same statuses, losses within 1e-5 relative, accuracies
-   within one test row. Then the dry-run CLI as subprocesses: qwen3-1.7b
-   decode_32k on the (16, 16) production mesh and granite-moe-1b-a400m
-   train_4k on (2, 16, 16) (fake process groups of 256 and 512 ranks on
-   the host, nothing allocated): exit 0 and flops_per_device > 0. The
-   process group is destroyed at the end.
+   within one test row. Then the dry-run CLI as two subprocesses, started
+   together: qwen3-1.7b decode_32k on the (16, 16) production mesh and
+   granite-moe-1b-a400m train_4k on (2, 16, 16) (fake process groups of
+   256 and 512 ranks on the host, nothing allocated): exit 0 and
+   flops_per_device > 0. The process group is destroyed at the end.
 29. Tensor parallelism, after phase 28: two model ranks, each a process
    of its own on the one card (NCCL refuses two ranks on one device;
    gloo all-reduces CUDA tensors, first probed), joined by
    `tcp://127.0.0.1:<free port>` on a (1, 1, 2) ("pod", "data", "model")
-   mesh: `train_sharded` on phase 20's model, weights, batches, schedule
-   and rate, f32 with TF32 off, runs tensor parallel (`sharding.tp`: each
-   rank its 8 of 16 query heads and 4 of 8 kv heads, half the FFN columns
-   and half the vocabulary; the batch axes have size 1, so every
-   collective is an all-reduce and every shard is cut locally from the
-   same seeded init). Both ranks' losses within 1e-4 relative of phase
-   20's, exactly 4 x 28 + 5 model-axis all-reduces a step, and under
-   no_grad each rank's attention_impl="pallas" forward on its local heads
-   (28 flash launches a rank) within 1e-3 of "xla", the logits (B, S,
-   V/2). Logs each rank's step ms, per-rank peak memory (the set-up's and
-   the steps') and rank 0's profiled step beside phase 20's. The ranks
-   are joined with a timeout and killed if still alive.
+   mesh: `train_sharded` on phase 20's model, weights and rate, 4 steps
+   of 8 x 256 tokens, f32 with TF32 off, runs tensor parallel
+   (`sharding.tp`: each rank its 8 of 16 query heads and 4 of 8 kv heads,
+   half the FFN columns and half the vocabulary; the batch axes have size
+   1, so every collective is an all-reduce and every shard is cut locally
+   from the same seeded init). The oracle is the unsharded step on the
+   same weights, batches and 4-step schedule, run first in this process
+   (as in phases 30-34). Both ranks' losses within 1e-4 relative of its,
+   exactly 4 x 28 + 5 model-axis all-reduces a step, and under no_grad
+   each rank's attention_impl="pallas" forward on its local heads (28
+   flash launches a rank) within 1e-3 of "xla", the logits (B, S, V/2).
+   Logs each rank's step ms, per-rank peak memory (the set-up's and the
+   steps') and rank 0's profiled step beside the unsharded run's. The
+   ranks are joined with a timeout and killed if still alive.
 30. Tensor parallelism for the MoE decoder, after phase 29, on phase 29's
    machinery (two ranks, gloo, (1, 1, 2), f32 with TF32 off, "xla"):
    granite-moe-1b-a400m at full width and depth (24 layers, d_model 1024,
@@ -333,6 +335,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    = 197 all-reduces a step (in_proj and conv_w, stored split by
    contiguous columns, gathered and their gradients reduced in every
    layer), the "pallas" forward with 24 SSD launches a rank on 12 heads.
+35. The serving steps tensor parallel, after phase 34, on phase 29's
+   machinery (two model ranks, gloo, (1, 1, 2), f32 with TF32 off, the
+   unsharded steps run first in this process as the oracle): qwen3-1.7b
+   at full width and depth, 4 prompts of 256 tokens prefilled with
+   attention_impl="pallas" (28 flash launches a rank, on its 8 query / 4
+   kv heads) by `spmd.call_split` (the caches moved from the rank's kv
+   heads to head_dim over "model" by all-reduce: gloo runs no all-to-all
+   on CUDA tensors), handed into a 1,024-slot decode cache whose sequence
+   is split 512/512 over the ranks (`serve.step.prefill_into_cache_split`),
+   then 32 greedy decode steps on the unsharded run's tokens (each rank
+   reads all heads over its slots, the partials merged). The tokens equal
+   the unsharded run's except where its top-2 gap is below 1e-3, the
+   logits of the prefill's last position, of every 8th step and of the
+   last within 1e-3 (a second call on the same inputs: gloo stages every
+   all-reduce of a CUDA tensor through the host, a few hundred ms a
+   call), exactly 58 + 56 all-reduces in the
+   prefill, 56 in the handoff and 4 x 28 + 2 a decode step, each rank's
+   cache bytes exactly half the unsharded run's. Logs step ms and rank
+   0's profiled step.
+36. The same, 8 greedy steps each, for granite-moe-1b-a400m (its
+   vocabulary padded to 49,408; expert parallel, the routing whole on
+   each rank; 98 all-reduces a decode step) and seamless-m4t-large-v2
+   (400 encoder frames a row, the cross caches split 200/200; 7 x 24 + 2
+   a decode step). Phases 35 and 36 share one pair of rank processes.
+   `tools/probe_tp.py --phases 35,36` runs 35-36 alone.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; above it
 stand the card's name and power limit and one JSON line with each
@@ -2773,28 +2800,53 @@ def sharded_population(device, pop) -> dict:
 
 
 def run_dryrun_cli() -> list:
-    """Phase 28, part 3: the dry-run CLI in processes of their own."""
+    """Phase 28, part 3: the dry-run CLI, each case in a process of its
+    own, all started together (each is one host thread of Python); their
+    output goes to build/chip_smoke_dryrun/<arch>__<shape>.log. A case
+    still running at DRYRUN_TIMEOUT_S, or after another failed, is
+    killed."""
+    dest = Path("build") / "chip_smoke_dryrun"
+    dest.mkdir(parents=True, exist_ok=True)
+    procs, logs, ends = [], [], {}
+    t0 = time.perf_counter()
+    try:
+        for arch, shape, extra in DRYRUN_CASES:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, *extra, "--out",
+                   str(dest)]
+            logs.append(open(dest / f"{arch}__{shape}.log", "w"))
+            procs.append(subprocess.Popen(
+                cmd, stdout=logs[-1], stderr=subprocess.STDOUT,
+                env={**os.environ, "PYTHONPATH": str(SRC)}))
+        while len(ends) < len(procs):
+            for i, p in enumerate(procs):
+                if i not in ends and p.poll() is not None:
+                    ends[i] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > DRYRUN_TIMEOUT_S:
+                raise AssertionError(f"dryrun: {len(procs) - len(ends)} "
+                                     f"case(s) still running after "
+                                     f"{DRYRUN_TIMEOUT_S} s")
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
     out = []
-    for arch, shape, extra in DRYRUN_CASES:
-        dest = Path("build") / "chip_smoke_dryrun"
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               arch, "--shape", shape, *extra, "--out", str(dest)]
-        t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, text=True,
-                           timeout=DRYRUN_TIMEOUT_S,
-                           env={**os.environ, "PYTHONPATH": str(SRC)})
-        wall = time.perf_counter() - t0
-        if r.returncode != 0:
+    for i, (arch, shape, extra) in enumerate(DRYRUN_CASES):
+        if procs[i].returncode != 0:
+            text = (dest / f"{arch}__{shape}.log").read_text()
             raise AssertionError(f"dryrun {arch} {shape} exit "
-                                 f"{r.returncode}: {r.stdout[-2000:]}"
-                                 f"{r.stderr[-2000:]}")
+                                 f"{procs[i].returncode}: {text[-4000:]}")
         tag = "pod2" if "--multi-pod-only" in extra else "pod1"
         rec = json.loads((dest / f"{arch}__{shape}__{tag}.json").read_text())
         if not rec["flops_per_device"] > 0:
             raise AssertionError(f"dryrun {arch} {shape}: flops_per_device "
                                  f"{rec['flops_per_device']}")
         out.append({"arch": arch, "shape": shape, "mesh": tag,
-                    "n_devices": rec["n_devices"], "wall_s": wall,
+                    "n_devices": rec["n_devices"], "wall_s": ends[i],
                     "flops_per_device": rec["flops_per_device"],
                     "collective_bytes_per_device":
                         rec["collective_bytes_per_device"],
@@ -2854,7 +2906,7 @@ def distribution_phase(device, card: str, tr: dict, pop: dict):
 TP_RANKS = 2                       # phases 29-34: two model ranks
 TP_REL = 1e-4                      # their losses against one process's
 TP_TIMEOUT_S = 600
-TP_FAMILY_STEPS = 4                # phases 30-31, 33-34: AdamW steps
+TP_FAMILY_STEPS = 4                # phases 29-31, 33-34: AdamW steps
 TP_MAMBA_SEQ = 512                 # phase 34: two 256-token chunks a row
 TP_VOCAB_PAD = 256                 # phase 30: 49155 -> 49408, as the
                                    # dry-run pads it (two ranks divide it)
@@ -2862,6 +2914,17 @@ SEAMLESS_ROWS, SEAMLESS_FRAMES, SEAMLESS_TOKENS = 4, 400, 256   # phase 31
 DP_LAYERS = 4                      # phase 32: granite-moe-1b's depth cut
 DP_GRAD_TOL = 1e-5                 # each leaf's gradient, of its max
 DP_LB_REL = 1e-6                   # the load balance against one device's
+SERVE_TP_ROWS, SERVE_TP_PROMPT = 4, 256    # phases 35-36: the prompts
+SERVE_TP_SLOTS = 1024              # phases 35-36: decode slots, 512 a rank
+SERVE_TP_FRAMES = 400              # phase 36: seamless' frames (200 a rank)
+SERVE_TP_STEPS = {"qwen3-1.7b": 32, "granite-moe-1b-a400m": 8,
+                  "seamless-m4t-large-v2": 8}       # greedy decode steps
+SERVE_TP_LOGITS_EVERY = 8          # a step's logits checked every 8th step
+SERVE_TP_ARCHS = {35: ("qwen3-1.7b",),
+                  36: ("granite-moe-1b-a400m", "seamless-m4t-large-v2")}
+SERVE_TP_PATHS = {"qwen3-1.7b": "tp_serve_qwen3",        # the kernels line's
+                  "granite-moe-1b-a400m": "tp_serve_granite_1b",
+                  "seamless-m4t-large-v2": "tp_serve_seamless"}
 
 
 class peak_batches(timed_batches):
@@ -2938,8 +3001,7 @@ def tp_batches(phase: int, cfg, device, n=None, rows=None, seq=None,
                 (rows, SEAMLESS_FRAMES, cfg.d_model), generator=gen,
                 device=device)
         return out
-    return token_batches(cfg, n or (TRAIN_STEPS if phase == 29 else
-                                    TP_FAMILY_STEPS),
+    return token_batches(cfg, n or TP_FAMILY_STEPS,
                          rows or TRAIN_BATCH,
                          seq or (TP_MAMBA_SEQ if phase == 34 else TRAIN_SEQ),
                          device, seed=seed)
@@ -3020,12 +3082,14 @@ def tp_baseline(device, phase: int) -> dict:
 
 def tp_rank(rank: int, port: int, out_dir: str, device_type: str,
             phase: int = 29):
-    """Phases 29-34, one rank, in a process of its own (`tp_rank_run`;
-    phase 32: `dp_rank_run`). Writes rank<r>.json (its "error" on a
+    """Phases 29-36, one rank, in a process of its own (`tp_rank_run`;
+    phase 32: `dp_rank_run`; a tuple of the serving phases 35-36:
+    `serve_rank_run`). Writes rank<r>.json (its "error" on a
     failure) and exits non-zero on a failure."""
     import traceback
     out = {"rank": rank}
-    run = dp_rank_run if phase == 32 else tp_rank_run
+    run = dp_rank_run if phase == 32 else (
+        serve_rank_run if isinstance(phase, tuple) else tp_rank_run)
     try:
         out.update(run(rank, port, torch.device(device_type), phase))
     except Exception:
@@ -3201,11 +3265,11 @@ def run_ranks(device, phase: int):
     return ranks, wall
 
 
-def tp_phase(device, card: str, base: dict, phase: int = 29) -> dict:
+def tp_phase(device, card: str, base: dict, phase: int) -> dict:
     """Phases 29-31 and 33-34: two model ranks, each a process on the one
     card, train the phase's model tensor parallel; returns both ranks'
-    results after the checks against `base` (the unsharded run's losses:
-    phase 20's, or `tp_baseline`'s)."""
+    results after the checks against `base` (`tp_baseline`'s: the
+    unsharded run's losses)."""
     cfg = tp_config(phase)
     ranks, wall = run_ranks(device, phase)
     want_launches = tp_want_launches(cfg)
@@ -3368,7 +3432,7 @@ def dp_phase(device, card: str) -> dict:
     return {"ranks": ranks, "wall_s": wall}
 
 
-def log_tp_phase(tp: dict, base: dict, base_name: str = "phase 20"):
+def log_tp_phase(tp: dict, base: dict):
     """A tensor-parallel phase's lines."""
     card, phase = tp["card"], tp["phase"]
     for res in tp["ranks"]:
@@ -3379,10 +3443,10 @@ def log_tp_phase(tp: dict, base: dict, base_name: str = "phase 20"):
         log(f"  rank {res['rank']}: loss "
             f"{' '.join(f'{x:.6f}' for x in res['losses'])}")
         log(f"    step ms {' '.join(f'{x:.3f}' for x in ms)}; median of "
-            f"steps 2-{len(ms) + 1} {step_ms:.3f} ({base_name}, one process: "
+            f"steps 2-{len(ms) + 1} {step_ms:.3f} (unsharded, one process: "
             f"{base['step_ms']:.3f}); peak memory "
             f"{max(res['peaks_gib'][1:]):.2f} GiB over the steps, "
-            f"{res['peaks_gib'][0]:.2f} GiB in the set-up ({base_name}: "
+            f"{res['peaks_gib'][0]:.2f} GiB in the set-up (unsharded: "
             f"{base['peak_gib']:.2f} GiB); card: {card}")
         log(f"    {res['all_reduces_per_step']:.0f} model-axis all-reduces "
             f"a step (expected {tp['want_reduces']}; "
@@ -3409,16 +3473,370 @@ def log_tp_phase(tp: dict, base: dict, base_name: str = "phase 20"):
     log(f"  phase {phase} took {tp['wall_s']:.1f} s")
 
 
-def family_tp_phases(device, card: str, phases=(30, 31)) -> dict:
-    """Tensor-parallel phases (30-31, 33-34; 29 against its own unsharded
-    run, as tools/probe_tp.py drives it), logged as they run: each model's
-    unsharded baseline in this process, then its two tensor-parallel
-    ranks. Returns {phase: tp_phase's result with its "base"}."""
+# ------------------------------------------ tensor-parallel serving (35-36)
+
+def serve_tp_config(arch: str):
+    """Phases 35-36's f32 model at full width and depth, prefilled through
+    the flash kernel ("pallas"); granite-moe-1b's vocabulary padded to a
+    multiple of TP_VOCAB_PAD, as phase 30's (two ranks split it)."""
+    kw = {"vocab_pad_to": TP_VOCAB_PAD} if arch.startswith("granite") else {}
+    return family_config(arch, "float32", attention_impl="pallas", **kw)
+
+
+def serve_tp_batch(cfg, device) -> dict:
+    """SERVE_TP_ROWS prompts of SERVE_TP_PROMPT tokens (and seamless'
+    SERVE_TP_FRAMES stub encoder frames a row), drawn from numpy's
+    generator: the same in every process."""
+    rng = np.random.default_rng(SEED + 35)
+    out = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SERVE_TP_ROWS, SERVE_TP_PROMPT)).astype(
+            np.int32)).to(device)}
+    if cfg.is_encdec:
+        out["enc_embeds"] = torch.from_numpy((rng.standard_normal(
+            (SERVE_TP_ROWS, SERVE_TP_FRAMES, cfg.d_model)) * 0.5).astype(
+                np.float32)).to(device)
+    return out
+
+
+def serve_tp_cache(cfg, device, cache_len=None):
+    """An empty decode cache of SERVE_TP_SLOTS slots (or `cache_len`)."""
+    from repro_torch.models import transformer as T
+    return T.init_cache(cfg, SERVE_TP_ROWS, cache_len or SERVE_TP_SLOTS,
+                        device=device,
+                        enc_len=SERVE_TP_FRAMES if cfg.is_encdec else 0)
+
+
+def serve_tp_file(arch: str) -> Path:
+    return ROOT / "build" / "chip_smoke_tp" / f"serve_{arch}.pt"
+
+
+def tree_bytes(tree) -> int:
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.sharding import spmd
+    return sum(spmd.local(t).numel() * spmd.local(t).element_size()
+               for t in tree_leaves(tree))
+
+
+def serve_tp_oracle(device, arch: str) -> dict:
+    """Phases 35-36's oracle: the unsharded steps in this process on the
+    card on the ranks' seeded weights and prompts: the prefill through
+    flash and its logits, `prefill_into_cache` into SERVE_TP_SLOTS slots,
+    SERVE_TP_STEPS[arch] greedy decode steps and their logits. The tokens and
+    logits go to a file for the ranks, whose steps take the oracle's
+    tokens (so every step's logits compare)."""
+    from repro_torch.serve import step as ST
+    cfg = serve_tp_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = make_model(cfg, device)
+    n_params = numel(params)
+    batch = serve_tp_batch(cfg, device)
+    with torch.no_grad():
+        logits, nat = ST.build_prefill(cfg, return_logits=True)(params,
+                                                                batch)
+        cache = ST.prefill_into_cache(
+            cfg, nat, serve_tp_cache(cfg, device),
+            torch.full((SERVE_TP_ROWS,), SERVE_TP_PROMPT, device=device))
+        del nat
+        decode = ST.build_decode(cfg, return_logits=True)
+        rows, ms = [logits], []
+        for i in range(SERVE_TP_STEPS[arch]):
+            pos = torch.full((SERVE_TP_ROWS,), SERVE_TP_PROMPT + i,
+                             dtype=torch.int32, device=device)
+            tok = rows[-1].argmax(-1).to(torch.int32)[:, None]
+            sync_device(device)
+            t0 = time.perf_counter()
+            lg, cache = decode(params, tok, pos, cache)
+            sync_device(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append(lg)
+    every = torch.stack(rows).cpu()                     # (steps + 1, B, V)
+    top2 = every.topk(2, dim=-1).values
+    serve_tp_file(arch).parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"tokens": every.argmax(-1).to(torch.int32),
+                "logits": every}, serve_tp_file(arch))
+    out = {"tokens": every.argmax(-1).tolist(),
+           "gaps": (top2[..., 0] - top2[..., 1]).tolist(),
+           "cache_bytes": tree_bytes(cache), "ms": ms,
+           "step_ms": float(np.median(ms[1:])), "params": n_params}
+    del params, cache, every, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_want_reduces(cfg, device) -> dict:
+    """The model-axis collectives of phases 35-36's calls on two ranks
+    (the kv heads and the vocabulary split, so no leaf is gathered): the
+    prefill (2 + c) L + 2 Le + 2 all-reduces (the row-parallel outputs,
+    the embedding, the greedy token) and 2 (1 + c) L moving its caches
+    from the rank's kv heads to head_dim: on the card all-reduces (gloo
+    runs no all-to-all on CUDA tensors), on the CPU all-to-alls
+    ("prefill_moves"); the handoff TP_RANKS (1 + c) L; a decode step
+    (4 + 3 c) L + 2 (c = 1 with cross-attention)."""
+    L, c = cfg.n_layers, int(cfg.is_encdec)
+    Le = cfg.n_enc_layers if c else 0
+    moves = 2 * (1 + c) * L
+    card = device.type == "cuda"
+    return {"prefill": (2 + c) * L + 2 * Le + 2 + moves * card,
+            "prefill_moves": 0 if card else moves,
+            "handoff": TP_RANKS * (1 + c) * L,
+            "decode": (4 + 3 * c) * L + 2}
+
+
+def serve_rank_run(rank: int, port: int, device, phases: tuple) -> dict:
+    """Phases 35-36, one rank of a (1, 1, 2) mesh, for each arch of the
+    `phases`: the seeded weights laid out by the rules, the tensor-parallel
+    greedy prefill through flash (its launches and all-reduces counted),
+    `prefill_into_cache_split` into the sequence-split decode cache, then
+    SERVE_TP_STEPS[arch] greedy steps on the oracle's tokens (timed,
+    all-reduces counted), the logits of the prefill's last position, of
+    every SERVE_TP_LOGITS_EVERY-th step and of the last from a second call
+    on the same inputs against
+    the oracle's (gloo stages every all-reduce of a CUDA tensor through
+    the host, so each call costs a few hundred ms), and a profiled step
+    on rank 0."""
+    import torch.distributed as dist
+    mesh = init_ranks(rank, port, device, (1, 1, TP_RANKS))
+    from repro_torch.launch import distributed as D
+    from repro_torch.serve import step as ST
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding import tp as TP
+    out = {}
+    try:
+        for arch in [a for ph in phases for a in SERVE_TP_ARCHS[ph]]:
+            cfg = serve_tp_config(arch)
+            oracle = torch.load(serve_tp_file(arch))
+            tp = TP.TensorParallel.build(cfg, mesh)
+            stamps = [time.perf_counter()]
+            full = make_model(cfg, device)
+            params = R.distribute(mesh, full, R.param_specs(cfg, full, mesh))
+            del full
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            batch = serve_tp_batch(cfg, device)
+            dbatch = D.put_batch(mesh, R.batch_specs(cfg, batch, mesh), batch)
+            nat_like = serve_tp_cache(cfg, "meta", SERVE_TP_PROMPT)
+            for c in nat_like:
+                c.pop("cross_pos", None)
+            out_p = (R.P(R.batch_axes(mesh)),
+                     R.prefill_cache_specs(cfg, nat_like, mesh))
+            local_p = TP.prefill_local_specs(out_p, tp)
+            fns = counters()
+            for fn in fns.values():
+                fn.launches = 0
+            sync_device(device)
+            stamps.append(time.perf_counter())
+            with torch.no_grad():
+                r0, m0 = tp.all_reduces, tp.all_to_alls
+                first, nat = spmd.call_split(ST.build_prefill(cfg, tp=tp),
+                                             (params, dbatch), out_p, tp,
+                                             local_p)
+                sync_device(device)
+                prefill_reduces = tp.all_reduces - r0
+                prefill_moves = tp.all_to_alls - m0
+                flash = fns["flash_attention"].launches
+                stamps.append(time.perf_counter())
+                lg, _ = spmd.call_split(
+                    ST.build_prefill(cfg, return_logits=True, tp=tp),
+                    (params, dbatch), out_p, tp, local_p)
+                errs = {0: float((spmd.local(lg).cpu()
+                                  - oracle["logits"][0]).abs().max())}
+                del lg, _
+                stamps.append(time.perf_counter())
+                cache_g = serve_tp_cache(cfg, device)
+                c_specs = R.cache_specs(cfg, cache_g, mesh)
+                cache = R.distribute(mesh, cache_g, c_specs)
+                del cache_g
+                r0 = tp.all_reduces
+                ST.prefill_into_cache_split(
+                    cfg, nat, cache, torch.full((SERVE_TP_ROWS,),
+                                                SERVE_TP_PROMPT), tp)
+                handoff_reduces = tp.all_reduces - r0
+                sync_device(device)
+                stamps.append(time.perf_counter())
+                del nat
+                split = TP.cache_split(c_specs)
+                greedy = ST.build_decode(cfg, tp=tp, split=split)
+                with_logits = ST.build_decode(cfg, return_logits=True, tp=tp,
+                                              split=split)
+                pspec = R.P(R.batch_specs(cfg, {"t": batch["tokens"]},
+                                          mesh)["t"][0])
+                tokens, ms, reduces = [spmd.local(first).tolist()], [], set()
+                steps = SERVE_TP_STEPS[arch]
+                for i in range(steps):
+                    t_in, pos = (D.put_batch(mesh, {"x": spec}, {"x": x})["x"]
+                                 for spec, x in (
+                        (R.P(pspec[0], None),
+                         oracle["tokens"][i][:, None].to(device)),
+                        (pspec, torch.full((SERVE_TP_ROWS,),
+                                           SERVE_TP_PROMPT + i,
+                                           dtype=torch.int32))))
+                    args = (params, t_in, pos, cache)
+                    r0 = tp.all_reduces
+                    sync_device(device)
+                    t0 = time.perf_counter()
+                    tok, cache = spmd.call_split(greedy, args,
+                                                 (pspec, c_specs), tp)
+                    sync_device(device)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    reduces.add(tp.all_reduces - r0)
+                    tokens.append(spmd.local(tok).tolist())
+                    if i % SERVE_TP_LOGITS_EVERY and i != steps - 1:
+                        continue
+                    lg, cache = spmd.call_split(with_logits,
+                                                (params, t_in, pos, cache),
+                                                (pspec, c_specs), tp)
+                    errs[i + 1] = float((spmd.local(lg).cpu()
+                                         - oracle["logits"][i + 1]).abs().max())
+
+                def one_step():
+                    spmd.call_split(greedy, (params, t_in, pos, cache),
+                                    (pspec, c_specs), tp)
+                # rank 0 profiles (two calls), rank 1 steps alongside
+                stamps.append(time.perf_counter())
+                prof = None
+                if device.type == "cuda" and rank == 0:
+                    prof = profile_steps(one_step, 1)
+                else:
+                    one_step()
+                    one_step()
+                stamps.append(time.perf_counter())
+            out[arch] = {
+                "seconds": dict(zip(("set-up", "prefill", "prefill logits",
+                                     "handoff", "decode", "profile"),
+                                    np.diff(stamps).tolist())),
+                "tokens": tokens, "logit_errs": errs, "ms": ms,
+                "step_ms": float(np.median(ms[1:])),
+                "reduces": {"prefill": prefill_reduces,
+                            "prefill_moves": prefill_moves,
+                            "handoff": handoff_reduces,
+                            "decode": sorted(reduces)},
+                "flash_launches": flash,
+                "cache_bytes": tree_bytes(cache),
+                "local_slots": [spmd.local(cache[0][k]).shape[1] for k in
+                                ("k", "cross_k") if k in cache[0]],
+                "profile": None if prof is None else {
+                    k: prof[k] for k in ("step_ms", "device_ms",
+                                         "busy_share", "top")}}
+            del params, cache, oracle
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        return {"archs": out}
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_tp_phases(device, card: str, phases=(35, 36)) -> dict:
+    """Phases 35-36: each arch's unsharded oracle in this process, then two
+    model ranks (processes on the one card over gloo, (1, 1, 2)) serve
+    every arch of the phases tensor parallel, in one pair of processes;
+    the checks against the oracles, and the log lines."""
+    t0 = time.perf_counter()
+    phases = tuple(phases)
+    bases = {}
+    for phase in phases:
+        archs = SERVE_TP_ARCHS[phase]
+        log(f"[{phase}] tensor-parallel serving: {', '.join(archs)} at full "
+            f"width and depth, f32 (TF32 off), {TP_RANKS} model ranks "
+            f"(processes on the one card, gloo), a (1, 1, {TP_RANKS}) mesh; "
+            f"{SERVE_TP_ROWS} prompts of {SERVE_TP_PROMPT} tokens"
+            + (f" (seamless over {SERVE_TP_FRAMES} frames)"
+               if phase == 36 else "")
+            + f" prefilled through flash ('pallas') on each rank's heads, "
+            f"handed into {SERVE_TP_SLOTS} decode slots split "
+            f"{SERVE_TP_SLOTS // TP_RANKS}/{SERVE_TP_SLOTS // TP_RANKS} over "
+            f"the ranks, {', '.join(str(SERVE_TP_STEPS[a]) for a in archs)} "
+            f"greedy steps on the unsharded run's tokens, the logits of "
+            f"the prefill, every {SERVE_TP_LOGITS_EVERY}th step and the "
+            f"last; card: {card}")
+        for arch in archs:
+            bases[arch] = b = serve_tp_oracle(device, arch)
+            log(f"  {arch} unsharded, one process: {b['params'] / 1e9:.3f} B "
+                f"parameters; decode step {b['step_ms']:.3f} ms (median of "
+                f"steps 2-{SERVE_TP_STEPS[arch]}); cache {b['cache_bytes']} "
+                f"bytes")
+    ranks, wall = run_ranks(device, phases)
+    for phase in phases:
+        for arch in SERVE_TP_ARCHS[phase]:
+            cfg = serve_tp_config(arch)
+            base = bases[arch]
+            want = serve_want_reduces(cfg, device)
+            for res in ranks:
+                r, got = res["rank"], res["archs"][arch]
+                serve_tp_check(phase, arch, r, cfg, got, base, want)
+                busy = (got["profile"] or {}).get("busy_share")
+                log(f"  [{phase}] {arch} rank {r}: tokens as the unsharded "
+                    f"run's (the prefill's and {SERVE_TP_STEPS[arch]} "
+                    f"steps'); logits of steps "
+                    f"{sorted(got['logit_errs'], key=int)} (0: the "
+                    f"prefill's last position) within "
+                    f"{max(got['logit_errs'].values()):.3g} (tol "
+                    f"{LOGIT_TOL}); all-reduces: prefill "
+                    f"{got['reduces']['prefill']}, handoff "
+                    f"{got['reduces']['handoff']}, a decode step "
+                    f"{got['reduces']['decode']} (expected {want}); flash "
+                    f"launches {got['flash_launches']}; cache "
+                    f"{got['cache_bytes']} bytes a rank (unsharded "
+                    f"{base['cache_bytes']}), slots a rank "
+                    f"{got['local_slots']}")
+                log("    seconds: " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in got["seconds"].items()))
+                log(f"    decode step ms {' '.join(f'{x:.3f}' for x in got['ms'])}"
+                    f"; median of steps 2-{SERVE_TP_STEPS[arch]} "
+                    f"{got['step_ms']:.3f} (unsharded {base['step_ms']:.3f})"
+                    + ("" if got["profile"] is None else
+                       f"; a profiled step {got['profile']['step_ms']:.3f} ms,"
+                       f" device busy share {round(busy, 4)}"))
+                for name, t, n in (got["profile"] or {}).get("top", [])[:5]:
+                    log(f"      {t:9.3f} ms  x{n:<5d} {name}")
+            serve_tp_file(arch).unlink()
+    log(f"  phases {', '.join(map(str, phases))} took "
+        f"{time.perf_counter() - t0:.1f} s (ranks {wall:.1f} s); card: {card}")
+    return {"ranks": ranks, "bases": bases, "wall_s": wall}
+
+
+def serve_tp_check(phase, arch, rank, cfg, got, base, want):
+    """A rank's tokens against the unsharded run's (a token may differ
+    only at a step whose unsharded top-2 gap is below LOGIT_TOL), its
+    logits within LOGIT_TOL, its all-reduces exactly, half the cache
+    bytes, one flash launch a decoder layer."""
+    where = f"phase {phase} {arch} rank {rank}"
+    if len(got["tokens"]) != len(base["tokens"]):
+        raise AssertionError(f"{where}: {len(got['tokens'])} tokens a row")
+    for i, (row, want_row) in enumerate(zip(got["tokens"], base["tokens"])):
+        for b, (t, w) in enumerate(zip(row, want_row)):
+            if t != w and not base["gaps"][i][b] < LOGIT_TOL:
+                raise AssertionError(f"{where}: step {i} row {b} token {t}, "
+                                     f"the unsharded run's {w} (top-2 gap "
+                                     f"{base['gaps'][i][b]:.3g})")
+    if not max(got["logit_errs"].values()) <= LOGIT_TOL:
+        raise AssertionError(f"{where}: logits {got['logit_errs']} from the "
+                             f"unsharded run's, beyond {LOGIT_TOL}")
+    if got["reduces"] != dict(want, decode=[want["decode"]]):
+        raise AssertionError(f"{where}: all-reduces {got['reduces']}, "
+                             f"expected {want} (a decode step)")
+    if got["cache_bytes"] * TP_RANKS != base["cache_bytes"]:
+        raise AssertionError(f"{where}: {got['cache_bytes']} cache bytes a "
+                             f"rank, unsharded {base['cache_bytes']}")
+    if got["flash_launches"] != cfg.n_layers:
+        raise AssertionError(f"{where}: {got['flash_launches']} flash "
+                             f"launches, expected {cfg.n_layers}")
+
+
+def family_tp_phases(device, card: str, phases) -> dict:
+    """Tensor-parallel phases (29-31, 33-34), logged as they run: each
+    model's unsharded baseline in this process, then its two
+    tensor-parallel ranks. Returns {phase: tp_phase's result with its
+    "base"}."""
     out = {}
     what = {
-        29: f"qwen3-1.7b at full width and depth, phase 20's weights, "
-            f"batches and schedule, {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
-            f"{TRAIN_SEQ} tokens",
+        29: f"qwen3-1.7b at full width and depth, phase 20's weights and "
+            f"rate, {TP_FAMILY_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+            f"tokens",
         30: f"granite-moe-1b-a400m at full width and depth (vocabulary "
             f"padded to a multiple of {TP_VOCAB_PAD}), expert parallel, "
             f"{TP_FAMILY_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens",
@@ -3444,7 +3862,7 @@ def family_tp_phases(device, card: str, phases=(30, 31)) -> dict:
             f"{base['peak_gib']:.2f} GiB; dropped_frac "
             f"{' '.join(f'{x:.6f}' for x in base['dropped_frac'])}")
         tp = tp_phase(device, card, base, phase)
-        log_tp_phase(tp, base, "unsharded")
+        log_tp_phase(tp, base)
         log(f"  phase {phase} with its baseline took "
             f"{time.perf_counter() - t0:.1f} s")
         out[phase] = {**tp, "base": base}
@@ -3868,17 +4286,10 @@ def main(device: str = "cuda") -> int:
     pop = sweep_phase(device, card)
     fam = family_phases(device, card)
     distribution_phase(device, card, tr, pop)
-    log(f"[29] tensor parallelism: {TP_RANKS} model ranks (processes on the "
-        f"one card, gloo), a (1, 1, {TP_RANKS}) ('pod', 'data', 'model') mesh:"
-        f" full-width, full-depth qwen3-1.7b in f32 (TF32 off), phase 20's "
-        f"weights, batches and schedule, {TRAIN_STEPS} steps of "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens; losses within {TP_REL} "
-        f"relative of phase 20's; card: {card}")
-    tp29 = tp_phase(device, card, tr)
-    log_tp_phase(tp29, tr)
-    tps = {29: tp29, **family_tp_phases(device, card)}
+    tps = family_tp_phases(device, card, (29, 30, 31))
     dp_phase(device, card)
     tps.update(family_tp_phases(device, card, (33, 34)))
+    served_tp = serve_tp_phases(device, card)
     g1, g3 = fam["granite"], fam["granite3b"]
     fam_flash = {"granite_dense": g1["dense"]["launches"]["flash_attention"],
                  "seamless": fam["encdec"]["run"]["launches"][
@@ -3893,6 +4304,9 @@ def main(device: str = "cuda") -> int:
     fam_flash.update({f"tp_{name}": n["flash_attention"]
                       for name, n in tp_launches.items()
                       if n["flash_attention"]})
+    # each tensor-parallel serving prefill: rank 0's launches
+    fam_flash.update({SERVE_TP_PATHS[arch]: n["flash_launches"]
+                      for arch, n in served_tp["ranks"][0]["archs"].items()})
     rglru_paths = {"recurrentgemma": dense_r["launches"]["rglru_scan"],
                    "tp_recurrentgemma":
                        tp_launches["recurrentgemma"]["rglru_scan"]}

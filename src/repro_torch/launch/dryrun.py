@@ -10,9 +10,14 @@ caches are fake DTensors laid out by the rule engine's specs
 data parallel over "pod" x "data"; over "model", a train step runs
 tensor parallel (`sharding.tp`: each rank its heads, FFN columns or
 experts, RG-LRU channels or Mamba2 heads and vocabulary rows, explicit
-all-reduces), every serving step on params gathered over "model"
-(`sharding.spmd`: the axis shards storage only, and its ranks repeat the
-same compute).
+all-reduces), and so do the serving steps of the attention families
+(`spmd.call_split`: the decode caches hold the sequence over "model",
+every rank reads all heads over its slots and the partials are merged;
+the prefill caches move from the rank's kv heads to head_dim over
+"model" by an all-to-all). The serving steps of recurrentgemma-9b and
+mamba2-130m run on params and caches gathered over "model"
+(`spmd.call_local`: the axis shards storage only, and its ranks repeat
+the same compute).
 Counters:
 
   flops_per_device          FlopCounterMode over the rank's local compute
@@ -22,15 +27,23 @@ Counters:
                             the tensor-parallel all-reduces included
   tensor_parallel           whether the step ran tensor parallel;
                             `model_axis_all_reduces` {count, bytes} its
-                            operators' all-reduces over "model" (per
-                            microbatch: 4 a dense layer, 5 an MoE layer,
-                            6 a decoder layer with cross-attention, 1
-                            for the encoder output, 6 an RG-LRU layer, 4
-                            a Mamba2 layer, one for the embedding, four
-                            for the logits and the loss, two for each
-                            leaf stored split and taken whole; remat one
-                            more per recomputed mixer output, gather or
-                            norm),
+                            operators' all-reduces over "model" (a
+                            train step per microbatch: 4 a dense layer,
+                            5 an MoE layer, 6 a decoder layer with
+                            cross-attention, 1 for the encoder output, 6
+                            an RG-LRU layer, 4 a Mamba2 layer, one for
+                            the embedding, four for the logits and the
+                            loss, two for each leaf stored split and
+                            taken whole; remat one more per recomputed
+                            mixer output, gather or norm; a decode step:
+                            4 a dense or MoE layer, 7 a decoder layer
+                            with cross-attention, one for the embedding
+                            and one for the greedy token; a prefill: 2 a
+                            dense or MoE layer, 2 an encoder layer, 3 a
+                            decoder layer with cross-attention, the
+                            embedding's and the greedy token's; in
+                            serving one for each leaf stored split and
+                            taken whole),
                             `gathered_leaves` the leaves stored split over
                             "model" whose compute is gathered
   memory                    MemTracker's peak over the step (the rank's),
@@ -168,8 +181,13 @@ def measure_case(cfg, shape_name, mesh, *, microbatches=None, remat=None):
                 out = case["fn"](*args)
             else:
                 with torch.no_grad():
-                    out = spmd.call_local(case["fn"], args,
-                                          case["out_specs"])
+                    if case["tp"] is None:
+                        out = spmd.call_local(case["fn"], args,
+                                              case["out_specs"])
+                    else:
+                        out = spmd.call_split(case["fn"], args,
+                                              case["out_specs"], case["tp"],
+                                              case["local_specs"])
         out_bytes = _local_bytes(out)
         peak = sum(d.get("Total", 0) for d in
                    mem.get_tracker_snapshot("peak").values())

@@ -14,6 +14,10 @@ Shape semantics:
   long_500k   -> serve_decode at position 524,287; sub-quadratic state
                  (SSM state / RG-LRU + local window / sliding-window
                  variant for the full-attention archs)
+The serving shapes run tensor parallel over "model" for the attention
+families (`tp.serve_in_scope`; `spmd.call_split`: the decode caches'
+sequence split over "model"); recurrentgemma and Mamba2 serve on gathered
+params and caches (`spmd.call_local`).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch.optim.schedules import linear_warmup_cosine
 from repro_torch.params import F32_LEAVES
 from repro_torch.serve.step import build_decode, build_prefill
 from repro_torch.sharding import rules as R
+from repro_torch.sharding import tp as TP
 from repro_torch.sharding.tp import TensorParallel, gathered_leaves
 from repro_torch.train.step import build_lm_train_step
 
@@ -141,13 +146,15 @@ def params_shapes(cfg):
 
 def make_case(arch_cfg, shape_name: str, mesh, *, microbatches=None,
               remat=None):
-    """Returns dict(fn, args, in_specs, out_specs, donate, meta, tp,
-    gathered_leaves); args are meta tensors (the optimizer's step counter
-    a CPU scalar). A train case on a mesh whose "model" axis is larger
-    than 1 runs tensor parallel (`tp`, a `sharding.tp.TensorParallel`
-    counting its all-reduces; else None);
-    `gathered_leaves` names the leaves stored split over "model" whose
-    compute is gathered."""
+    """Returns dict(fn, args, in_specs, out_specs, local_specs, donate,
+    meta, tp, gathered_leaves); args are meta tensors (the optimizer's
+    step counter a CPU scalar). A case on a mesh whose "model" axis is
+    larger than 1 runs tensor parallel (`tp`, a
+    `sharding.tp.TensorParallel` counting its all-reduces; else None):
+    every train case, and the serving cases of the attention families
+    (run by `spmd.call_split`, their outputs on a rank laid out as
+    `local_specs`); `gathered_leaves` names the leaves stored split over
+    "model" whose compute is gathered."""
     case = SHAPES[shape_name]
     cfg = dryrun_config(arch_cfg)
     if remat is not None:
@@ -171,26 +178,29 @@ def make_case(arch_cfg, shape_name: str, mesh, *, microbatches=None,
         return dict(fn=step, args=(p_shapes, o_shapes, b_shapes),
                     in_specs=(p_specs, o_specs, b_specs),
                     out_specs=(p_specs, o_specs, metric_specs),
+                    local_specs=None,
                     donate=(0, 1), meta={"microbatches": mb, "cfg": cfg},
                     tp=tp, gathered_leaves=gathered_leaves(cfg, p_shapes,
                                                            mesh, tp))
 
+    tp = TensorParallel.build(cfg, mesh) if TP.serve_in_scope(cfg) else None
     if case.kind == "prefill":
         b_shapes = _prefill_batch_shapes(cfg, case)
         b_specs = R.batch_specs(cfg, b_shapes, mesh)
-        fn = build_prefill(cfg)
         # outputs: next_token (B,), caches (natural length), by running the
-        # forward on the meta tensors
+        # one-device forward on the meta tensors
         with torch.no_grad():
-            cache_shapes = fn(p_shapes, b_shapes)[1]
+            cache_shapes = build_prefill(cfg)(p_shapes, b_shapes)[1]
         c_specs = R.prefill_cache_specs(cfg, cache_shapes, mesh)
         tok_spec = R.P(R.batch_axes(mesh))
-        return dict(fn=fn, args=(p_shapes, b_shapes),
-                    in_specs=(p_specs, b_specs),
-                    out_specs=(tok_spec, c_specs),
-                    donate=(), meta={"cfg": cfg}, tp=None,
+        out_specs = (tok_spec, c_specs)
+        return dict(fn=build_prefill(cfg, tp=tp), args=(p_shapes, b_shapes),
+                    in_specs=(p_specs, b_specs), out_specs=out_specs,
+                    local_specs=None if tp is None
+                    else TP.prefill_local_specs(out_specs, tp),
+                    donate=(), meta={"cfg": cfg}, tp=tp,
                     gathered_leaves=gathered_leaves(cfg, p_shapes, mesh,
-                                                    None))
+                                                    tp))
 
     # decode
     B = case.global_batch
@@ -199,16 +209,17 @@ def make_case(arch_cfg, shape_name: str, mesh, *, microbatches=None,
     cache_shapes = T.init_cache(cfg, B, clen, device=META, enc_len=enc_len)
     c_specs = R.cache_specs(cfg, cache_shapes, mesh)
     win = decode_window(cfg, case)
-    fn = build_decode(cfg, window=win)
+    split = TP.cache_split(c_specs)
+    fn = build_decode(cfg, window=win, tp=tp, split=split)
     tok_shape = _meta((B, 1), torch.int32)
     pos_shape = _meta((B,), torch.int32)
     bspec = R.batch_specs(cfg, {"t": tok_shape}, mesh)["t"]
     pspec = R.P(bspec[0])
     return dict(fn=fn, args=(p_shapes, tok_shape, pos_shape, cache_shapes),
                 in_specs=(p_specs, bspec, pspec, c_specs),
-                out_specs=(pspec, c_specs),
+                out_specs=(pspec, c_specs), local_specs=None,
                 donate=(3,),
                 meta={"cache_len": clen, "window": win, "cfg": cfg,
                       "position": case.seq_len - 1},
-                tp=None,    # serving runs on gathered params (call_local)
-                gathered_leaves=gathered_leaves(cfg, p_shapes, mesh, None))
+                tp=tp, gathered_leaves=gathered_leaves(cfg, p_shapes, mesh,
+                                                       tp))

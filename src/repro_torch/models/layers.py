@@ -162,33 +162,39 @@ def _sdpa_xla(q, k, v, mask, scale):
     return out.reshape(B, Sq, nh, hd).to(q.dtype)
 
 
-def _project_qkv(params, cfg, x, src, tp=None):
-    """q (B, S, nh, hd), k and v (B, Sk, nkv, hd). With a tensor-parallel
-    context (`sharding.tp`): this rank's query heads (wq's local columns)
-    and the kv heads they read, from wk/wv's local columns where the kv
-    heads split, else from the gathered leaves' columns of `tp.kv_heads`."""
+def _project_qkv(params, cfg, x, src, tp=None, all_kv=False):
+    """q (B, S, nh, hd), k and v (B, Sk, nkv, hd); with `src` None (a
+    cross decode's read of its cache) q only, and k = v = None. With a
+    tensor-parallel context (`sharding.tp`): this rank's query heads (wq's
+    local columns) and the kv heads they read, from wk/wv's local columns
+    where the kv heads split, else from the gathered leaves' columns of
+    `tp.kv_heads` (with `all_kv`, every kv head: the prefill keeps them
+    all)."""
     B, S, _ = x.shape
     hd, nh, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     wk, wv = params["wk"], params["wv"]
     if tp is not None:
         nh = tp.local_heads(cfg)
-        if not tp.kv:
+        if not tp.kv and not all_kv:
             heads = tp.kv_heads(cfg)
             wk, wv = (w.reshape(w.shape[0], nkv, hd)[:, heads].flatten(1)
                       for w in (wk, wv))
         nkv = wk.shape[1] // hd
     q = (x @ params["wq"]).reshape(B, S, nh, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"]["scale"], cfg.norm_eps)
+    if src is None:
+        return q, None, None
     k = (src @ wk).reshape(B, src.shape[1], nkv, hd)
     v = (src @ wv).reshape(B, src.shape[1], nkv, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"]["scale"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"]["scale"], cfg.norm_eps)
     return q, k, v
 
 
 def attention(params, cfg, x, positions, *, kv=None, kv_positions=None,
               causal=True, window=None, rope=True, constrain_kv=False,
-              tp=None):
+              tp=None, all_kv=False):
     """Full-sequence attention (prefill / encoder / cross).
 
     x: (B, S, d). kv: optional (B, Sk, d) source for cross-attention.
@@ -209,7 +215,9 @@ def attention(params, cfg, x, positions, *, kv=None, kv_positions=None,
     are the rank's. A cross-attention's `kv` must already be inside the
     split (the caller sends the encoder output through `copy_to_model`
     once for every layer that reads it); its keys and values are the
-    rank's kv heads' projections of it.
+    rank's kv heads' projections of it. With `all_kv` (the prefill, whose
+    caches keep every kv head) a rank whose kv heads do not split projects
+    all of them and returns them all, reading those its query heads read.
     """
     B, S, d = x.shape
     hd, nh = cfg.resolved_head_dim, cfg.n_heads
@@ -218,21 +226,25 @@ def attention(params, cfg, x, positions, *, kv=None, kv_positions=None,
         nh = tp.local_heads(cfg)
         x = TP.copy_to_model(x, tp)
     src = x if kv is None else kv
-    q, k, v = _project_qkv(params, cfg, x, src, tp)
+    q, k, v = _project_qkv(params, cfg, x, src, tp, all_kv)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, kv_positions, cfg.rope_theta)
     if constrain_kv:
         k = constrain(k, ("batch", None, None, "model"))
         v = constrain(v, ("batch", None, None, "model"))
+    kr, vr = k, v
+    if tp is not None and not tp.kv and all_kv:
+        heads = tp.kv_heads(cfg)
+        kr, vr = k[:, :, heads], v[:, :, heads]
     if cfg.attention_impl == "pallas" and kv is None and causal:
         from repro_torch.kernels.flash_attention import ops as fa_ops
-        out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+        out = fa_ops.flash_attention(q, kr, vr, causal=True, window=window)
     else:
         mask = _attn_mask(torch.broadcast_to(positions, (B, S)),
                           torch.broadcast_to(kv_positions, (B, src.shape[1])),
                           causal, window)
-        out = _sdpa_xla(q, k, v, mask, 1.0 / math.sqrt(hd))
+        out = _sdpa_xla(q, kr, vr, mask, 1.0 / math.sqrt(hd))
     out = out.reshape(B, S, nh * hd) @ params["wo"]
     if tp is not None:
         out = TP.reduce_from_model(out, tp)
@@ -240,7 +252,8 @@ def attention(params, cfg, x, positions, *, kv=None, kv_positions=None,
 
 
 def attention_decode(params, cfg, x, pos, cache_k, cache_v, cache_pos, *,
-                     window=None, rope=True, rows=None, cross=False):
+                     window=None, rope=True, rows=None, cross=False,
+                     tp=None, split=False):
     """Single-token decode over a dense (ring) KV cache.
 
     x: (B, 1, d); pos: (B,) int32 absolute position of the new token;
@@ -256,31 +269,24 @@ def attention_decode(params, cfg, x, pos, cache_k, cache_v, cache_pos, *,
     with a window, positions at or before pos - window; masked logits take
     finfo(f32).min, as in the reference. Cross-attention (`cross`) reads
     the cache only: nothing is written, and only empty slots are masked.
+
+    With a tensor-parallel context (`sharding.tp`; `_attention_decode_tp`)
+    params hold this rank's shards, and with `split` the caches hold this
+    rank's slice of the sequence (`rules.cache_specs`).
     """
+    if tp is not None:
+        return _attention_decode_tp(params, cfg, x, pos, cache_k, cache_v,
+                                    cache_pos, window=window, rope=rope,
+                                    rows=rows, cross=cross, tp=tp,
+                                    split=split)
     B = x.shape[0]
     hd, nh, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    Sc = cache_k.shape[1]
+    q, k_new, v_new = _decode_qkv(params, cfg, x, pos, rope, cross)
     if cross:
-        q = (x @ params["wq"]).reshape(B, 1, nh, hd)
-        if cfg.qk_norm:
-            q = rms_norm(q, params["q_norm"]["scale"], cfg.norm_eps)
-        if rope:
-            q = apply_rope(q, pos[:, None], cfg.rope_theta)
         valid = cache_pos >= 0
     else:
-        q, k_new, v_new = _project_qkv(params, cfg, x, x)
-        if rope:
-            q = apply_rope(q, pos[:, None], cfg.rope_theta)
-            k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
-        if rows is None:
-            rows = torch.arange(B, device=x.device)
-        slot = (pos[rows] % Sc).long()
-        cache_k.index_put_((rows, slot), k_new[rows, 0])
-        cache_v.index_put_((rows, slot), v_new[rows, 0])
-        cache_pos.index_put_((rows, slot), pos[rows].to(cache_pos.dtype))
-        valid = (cache_pos >= 0) & (cache_pos <= pos[:, None])
-        if window is not None:
-            valid &= cache_pos > (pos[:, None] - window)
+        valid = _write_token(cache_k, cache_v, cache_pos, k_new, v_new, pos,
+                             rows, window)
     rep = nh // nkv
     qr = q.reshape(B, nkv, rep, hd)
     logits = torch.einsum("bkrh,bskh->bkrs", qr.float(),
@@ -291,6 +297,118 @@ def attention_decode(params, cfg, x, pos, cache_k, cache_v, cache_pos, *,
     out = torch.einsum("bkrs,bskh->bkrh", w, cache_v.float())
     out = out.reshape(B, 1, nh * hd).to(x.dtype) @ params["wo"]
     return out, cache_k, cache_v, cache_pos
+
+
+def _attention_decode_tp(params, cfg, x, pos, cache_k, cache_v, cache_pos,
+                         *, window, rope, rows, cross, tp, split):
+    """`attention_decode` over "model". Where the query heads split
+    (`tp.heads`) wq, wo hold the rank's heads and wk/wv its kv heads (or
+    every kv head, gathered, where those do not split: `tp.kv`); else
+    every leaf is whole. With `split` cache_k/v/pos are the rank's slots
+    [rank Sc/tp, (rank + 1) Sc/tp) of a cache of Sc: one all-reduce brings
+    the token's queries (and keys and values where the kv heads split) to
+    every rank, only the rank holding slot pos % Sc writes the new entry
+    (rows in `rows` only), every rank reads all heads over its slots and
+    the partials are merged (`tp.seq_split_read`, one all-reduce).
+    Without `split` every rank holds the whole cache: it writes every kv
+    head (gathered where they split) and reads its own heads. The rank's
+    heads leave through its rows of wo (one all-reduce; none where the
+    heads do not split). A cross read (`cross`) writes nothing."""
+    B = x.shape[0]
+    hd, nh, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    heads = tp.heads
+    nh_l = tp.local_heads(cfg) if heads else nh
+    q, k_new, v_new = _decode_qkv(params, cfg, x, pos, rope, cross,
+                                  tp if heads else None)
+    parts = [q] if heads and split else []
+    kv_split = heads and tp.kv and not cross
+    if kv_split:
+        parts += [k_new, v_new]
+    if parts:
+        # one all-reduce: every rank's block of the token's q (k, v)
+        sizes = [t.shape[2] * hd for t in parts]
+        mine = torch.cat([t.reshape(B, -1) for t in parts], dim=-1)
+        every = TP.gather_from_model(mine, tp, -1, False).reshape(
+            B, tp.size, -1).split(sizes, dim=-1)
+        every = [t.reshape(B, 1, -1, hd) for t in every]
+        if heads and split:
+            q_all = every.pop(0)
+        if kv_split:
+            k_new, v_new = every
+    if cross:
+        valid = cache_pos >= 0
+    else:
+        valid = _write_token(cache_k, cache_v, cache_pos, k_new, v_new, pos,
+                             rows, window, tp.size if split else 1, tp.rank)
+    scale = 1.0 / math.sqrt(hd)
+    rep = nh // nkv
+    if split:
+        q_read = q_all if heads else q
+        out = TP.seq_split_read(q_read.reshape(B, nkv, rep, hd).float(),
+                                cache_k, cache_v, valid, scale, tp)
+        out = out.reshape(B, nh, hd)
+        if heads:
+            out = tp.shard(out, 1)
+    else:
+        groups = tp.kv_heads(cfg) if heads else list(range(nkv))
+        g0 = groups[0]
+        if groups == list(range(g0, g0 + len(groups))):
+            k_r = cache_k.narrow(2, g0, len(groups))
+            v_r = cache_v.narrow(2, g0, len(groups))
+        else:
+            k_r, v_r = cache_k[:, :, groups], cache_v[:, :, groups]
+        m, l, o = TP.read_partials(
+            q.reshape(B, len(groups), -1, hd).float(), k_r, v_r, valid,
+            scale)
+        out = o / l[..., None]
+    out = out.reshape(B, 1, nh_l * hd).to(x.dtype) @ params["wo"]
+    if heads:
+        out = TP.reduce_from_model(out, tp)
+    return out, cache_k, cache_v, cache_pos
+
+
+def _decode_qkv(params, cfg, x, pos, rope, cross, tp=None):
+    """The decode token's q and, unless `cross`, its k_new and v_new
+    (`_project_qkv`; with `tp`, every kv head where those do not split),
+    roped at `pos`."""
+    q, k, v = _project_qkv(params, cfg, x, None if cross else x, tp,
+                           all_kv=True)
+    if rope:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        if k is not None:
+            k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    return q, k, v
+
+
+def _write_token(cache_k, cache_v, cache_pos, k_new, v_new, pos, rows,
+                 window, n_slices=1, index=0):
+    """Write the token's k_new/v_new (B, 1, nkv, hd) and `pos` to slot
+    pos % Sc, for the rows in `rows` (None = every row), and return the
+    read's mask (B, slots): filled slots at or before `pos` and, with a
+    window, after pos - window. The cache may be slice `index` of
+    `n_slices` equal slices of a cache of Sc slots (its sequence split over
+    "model"): only the slice holding the slot writes, the others write back
+    what is there (fixed shapes)."""
+    S = cache_k.shape[1]
+    if rows is None:
+        rows = torch.arange(pos.shape[0], device=pos.device)
+    slot = (pos[rows] % (S * n_slices)).long()
+    own = None
+    if n_slices > 1:
+        lo = index * S
+        own = (slot >= lo) & (slot < lo + S)
+        slot = (slot - lo).clamp(0, S - 1)
+    for cache, new in ((cache_k, k_new[rows, 0]), (cache_v, v_new[rows, 0]),
+                       (cache_pos, pos[rows])):
+        new = new.to(cache.dtype)
+        if own is not None:
+            keep = own.reshape(-1, *([1] * (new.dim() - 1)))
+            new = torch.where(keep, new, cache[rows, slot])
+        cache.index_put_((rows, slot), new)
+    valid = (cache_pos >= 0) & (cache_pos <= pos[:, None])
+    if window is not None:
+        valid &= cache_pos > (pos[:, None] - window)
+    return valid
 
 
 def attention_decode_paged(params, cfg, x, pos, kpool, vpool, table, *,

@@ -14,10 +14,11 @@ reference's tree into this layout.
 Entry points:
     init_lm(gen, cfg)                                     -> params
     forward_train(params, cfg, batch, window=None)        -> (logits, aux)
-    forward_prefill(params, cfg, batch, window=None)      -> (logits, caches)
+    forward_prefill(params, cfg, batch, window=None, tp=None)
+                                                          -> (logits, caches)
     init_cache(cfg, batch_size, cache_len, device, enc_len=0) -> cache
-    decode_step(params, cfg, tokens, pos, cache, window=None, rows=None)
-                                                          -> (logits, cache)
+    decode_step(params, cfg, tokens, pos, cache, window=None, rows=None,
+                tp=None, split=(False, False))            -> (logits, cache)
     init_paged_cache(cfg, n_pool_blocks, block_size, device) -> cache
     decode_step_paged(params, cfg, tokens, pos, cache, table) -> (logits, cache)
     forward_prefill_paged(params, cfg, tokens, start, n_tok, cache, table)
@@ -212,7 +213,9 @@ def _layer_full(lp, cfg, ltype, x, positions, window, enc=None,
     """One layer, full sequence. `enc` is (encoder output, its positions)
     for an encoder-decoder's decoder, else None. Returns (x, cache at
     natural length, aux or None); `want_cache` (the prefill) puts the
-    emitted k/v in the prefill-cache layout on a mesh. `tp`: tensor
+    emitted k/v in the prefill-cache layout on a mesh, and under `tp`
+    keeps every kv head the rank projects (all of them where the kv heads
+    do not split). `tp`: tensor
     parallel over "model" (`sharding.tp`; each mixer and the FFN take it
     where their part splits; `enc`'s output then already inside the head
     split, `_stack_inputs`).
@@ -226,7 +229,7 @@ def _layer_full(lp, cfg, ltype, x, positions, window, enc=None,
         att, (k, v) = L.attention(lp["attn"], cfg, h, positions,
                                   causal=True, window=window,
                                   constrain_kv=want_cache,
-                                  tp=_split(tp, "heads"))
+                                  tp=_split(tp, "heads"), all_kv=want_cache)
         cache = {"k": k, "v": v,
                  "pos": torch.broadcast_to(positions, x.shape[:2])
                  .to(torch.int32)}
@@ -240,7 +243,8 @@ def _layer_full(lp, cfg, ltype, x, positions, window, enc=None,
                                      kv=enc[0], kv_positions=enc[1],
                                      causal=False, rope=False,
                                      constrain_kv=want_cache,
-                                     tp=_split(tp, "heads"))
+                                     tp=_split(tp, "heads"),
+                                     all_kv=want_cache)
         x = x + catt
         cache["cross_k"], cache["cross_v"] = ck, cv
     h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
@@ -300,25 +304,34 @@ def _head(params, cfg, x, n_prefix, tp=None):
     return _logits(params, cfg, x[:, n_prefix:], tp)
 
 
-def forward_prefill(params, cfg, batch, window=None):
+def forward_prefill(params, cfg, batch, window=None, tp=None):
     """Full forward over batch["tokens"] (B, S), after batch["embeds"]
     where given and over the encoder's output of batch["enc_embeds"] in an
     encoder-decoder, that also returns each layer's cache at natural
     length (prefix positions included; the serving engine copies them into
     a fixed-size ring/linear cache with `serve.step.prefill_into_cache`).
     Returns (logits (B, S, V) over the token positions, caches); an
-    encoder-decoder's caches carry the cross K/V."""
+    encoder-decoder's caches carry the cross K/V.
+
+    With a tensor-parallel context `tp` (`sharding.tp`, the attention
+    families: `tp.serve_in_scope`) params hold this rank's shards, the
+    layers split as in `forward_train`, the logits are the rank's (..., V/
+    tp) slice, and each cache's k/v (cross k/v too) are the rank's kv
+    heads where those split, else every kv head."""
+    if tp is not None and not TP.serve_in_scope(cfg):
+        raise ValueError(f"{cfg.arch_id}: no tensor-parallel serving for "
+                         "this family")
     window = cfg.window if window is None else window
-    x, positions, n_prefix, enc = _stack_inputs(params, cfg, batch)
+    x, positions, n_prefix, enc = _stack_inputs(params, cfg, batch, tp)
     caches = []
     n_pat = len(cfg.block_pattern)
     for li, (lp, t) in enumerate(zip(params["layers"], cfg.layer_types())):
         x, c, _ = _layer_full(lp, cfg, t, x, positions, window, enc,
-                              want_cache=True)
+                              want_cache=True, tp=tp)
         caches.append(c)
         if li < cfg.n_blocks * n_pat and li % n_pat == n_pat - 1:
             x = _seq_parallel(cfg, x)
-    return _head(params, cfg, x, n_prefix), caches
+    return _head(params, cfg, x, n_prefix, tp), caches
 
 
 def _seq_parallel(cfg, x):
@@ -453,7 +466,8 @@ def _write_rows(cache, new, rows):
         cache[key][rows] = t[rows].to(cache[key].dtype)
 
 
-def _layer_decode(lp, cfg, ltype, x, pos, cache, window, rows):
+def _layer_decode(lp, cfg, ltype, x, pos, cache, window, rows, tp=None,
+                  split=(False, False)):
     h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
     if ltype == "ssm":
         out, new = M2.mamba2_decode(lp["mamba"], cfg, h, cache)
@@ -462,7 +476,7 @@ def _layer_decode(lp, cfg, ltype, x, pos, cache, window, rows):
     if ltype == "attn":
         att, _, _, _ = L.attention_decode(
             lp["attn"], cfg, h, pos, cache["k"], cache["v"], cache["pos"],
-            window=window, rows=rows)
+            window=window, rows=rows, tp=tp, split=split[0])
     else:
         att, new = RG.rglru_block_decode(lp["rglru"], cfg, h, cache)
         _write_rows(cache, new, rows)
@@ -471,28 +485,42 @@ def _layer_decode(lp, cfg, ltype, x, pos, cache, window, rows):
         h = L.apply_rms_norm(lp["norm_cross"], x, cfg.norm_eps)
         catt, _, _, _ = L.attention_decode(
             lp["cross_attn"], cfg, h, pos, cache["cross_k"],
-            cache["cross_v"], cache["cross_pos"], rope=False, cross=True)
+            cache["cross_v"], cache["cross_pos"], rope=False, cross=True,
+            tp=tp, split=split[1])
         x = x + catt
     h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
-    return x + _ffn_apply(lp, cfg, h)[0]
+    return x + _ffn_apply(lp, cfg, h, tp=tp)[0]
 
 
-def decode_step(params, cfg, tokens, pos, cache, window=None, rows=None):
+def decode_step(params, cfg, tokens, pos, cache, window=None, rows=None,
+                tp=None, split=(False, False)):
     """One decode token per slot over the dense cache. tokens: (B, 1); pos:
     (B,) int32 absolute position of the new token; rows: LongTensor of the
     batch rows whose cache this step writes (None = all). Rows left out
     keep their K/V, positions and recurrent state as they were; their
     logits are garbage. An encoder-decoder's layers also read their cross
     caches (no RoPE, every entry with cross_pos >= 0). Returns (logits (B,
-    1, V), cache), the cache updated in place."""
+    1, V), cache), the cache updated in place.
+
+    With a tensor-parallel context `tp` (`sharding.tp`, the attention
+    families) params hold this rank's shards: the vocab-parallel
+    embedding, each attention over its heads (`layers.attention_decode`;
+    `split` = (self, cross): whether the self- and cross-attention caches
+    hold this rank's slice of the sequence, `tp.cache_split`), the FFN's
+    columns or experts, and the rank's (B, 1, V/tp) slice of the logits.
+    `rows` index the rank's own rows of the batch."""
+    if tp is not None and not TP.serve_in_scope(cfg):
+        raise ValueError(f"{cfg.arch_id}: no tensor-parallel serving for "
+                         "this family")
     window = cfg.window if window is None else window
-    x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
+    x = L.embed(params["embed"], tokens, _split(tp, "vocab")).to(
+        cfg.activation_dtype)
     if rows is None:
         rows = torch.arange(x.shape[0], device=x.device)
     for lp, t, c in zip(params["layers"], cfg.layer_types(), cache):
-        x = _layer_decode(lp, cfg, t, x, pos, c, window, rows)
+        x = _layer_decode(lp, cfg, t, x, pos, c, window, rows, tp, split)
     x = L.apply_rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, x), cache
+    return _logits(params, cfg, x, tp), cache
 
 
 # ============================================================== paged cache

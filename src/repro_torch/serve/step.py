@@ -9,12 +9,21 @@ plain closures over the config with the reference's call contracts. One
 addition: the dense decode takes the batch rows it may write (`rows`),
 because the port updates the cache in place where the reference returns a
 new one and merges rows afterwards.
+
+On a mesh (`sharding.spmd.call_split`) the dense prefill and decode run
+tensor parallel over "model" with `tp` (`sharding.tp`, the attention
+families): the logits stay the rank's vocabulary slice, the greedy token
+is taken over the slices (`tp.vocab_parallel_argmax`) and returned logits
+are gathered for the last position only. `prefill_into_cache_split`
+moves a prefill's caches into the sequence-split decode caches.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.sharding import spmd
+from repro_torch.sharding import tp as TP
 
 
 def bucket_len(n: int, cap: int) -> int:
@@ -34,26 +43,46 @@ def _greedy(logits):
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def build_prefill(cfg, *, window=None, return_logits: bool = False):
+def _last_out(last, return_logits: bool, tp):
+    """The step's output from the last position's logits: the greedy token
+    or the logits; where the vocabulary splits over "model" `last` is the
+    rank's slice, and the token is taken over the slices, the logits
+    gathered (one all-reduce either way)."""
+    vocab = None if tp is None else tp.part("vocab")
+    if vocab is None:
+        return last if return_logits else _greedy(last)
+    if return_logits:
+        return TP.gather_from_model(last, vocab, -1, False)
+    return TP.vocab_parallel_argmax(last, vocab)
+
+
+def build_prefill(cfg, *, window=None, return_logits: bool = False,
+                  tp=None):
     """prefill(params, batch) -> (greedy next token (B,) int32 | last-
-    position logits (B, V), caches at natural length)."""
+    position logits (B, V), caches at natural length). With `tp`
+    (`sharding.tp`) the step runs tensor parallel on this rank's shards
+    (`spmd.call_split`; `transformer.forward_prefill`)."""
     def prefill(params, batch):
-        logits, caches = T.forward_prefill(params, cfg, batch, window=window)
-        last = logits[:, -1, :]
-        return (last if return_logits else _greedy(last)), caches
+        logits, caches = T.forward_prefill(params, cfg, batch, window=window,
+                                           tp=tp)
+        return _last_out(logits[:, -1, :], return_logits, tp), caches
     return prefill
 
 
-def build_decode(cfg, *, window=None, return_logits: bool = False):
+def build_decode(cfg, *, window=None, return_logits: bool = False, tp=None,
+                 split=(False, False)):
     """decode(params, tokens (B,1), pos (B,), cache, rows=None) ->
     (greedy tokens (B,) int32 | last-position logits (B,V), cache); only
     the cache rows in `rows` (None = all) are written
-    (`transformer.decode_step`)."""
+    (`transformer.decode_step`). With `tp` the step runs tensor parallel
+    on this rank's shards, `split` saying whether the self- and
+    cross-attention caches hold its slice of the sequence
+    (`tp.cache_split` of `rules.cache_specs`)."""
     def decode(params, tokens, pos, cache, rows=None):
         logits, cache = T.decode_step(params, cfg, tokens, pos, cache,
-                                      window=window, rows=rows)
-        last = logits[:, -1, :]
-        return (last if return_logits else _greedy(last)), cache
+                                      window=window, rows=rows, tp=tp,
+                                      split=split)
+        return _last_out(logits[:, -1, :], return_logits, tp), cache
     return decode
 
 
@@ -106,6 +135,89 @@ def prefill_into_cache(cfg, caches, cache, prompt_lens):
                              device=psrc.device), src["cross_k"].shape[:2])
         out.append(dst)
     return out
+
+
+def prefill_into_cache_split(cfg, caches, cache, prompt_lens, tp):
+    """`prefill_into_cache` on a mesh, run once per request. `caches`: a
+    prefill's caches as `spmd.call_split` lays them out
+    (`rules.prefill_cache_specs`: k/v with head_dim over "model"),
+    `cache`: the decode cache (`rules.cache_specs`: the sequence over
+    "model"), DTensors, written in place; `prompt_lens`: (B,) for the
+    global batch. Attention entries keep the last min(Sc, S_p) positions
+    at slot = pos % Sc, padding at pos -1, as on one device; each rank
+    writes only its slots. Where the prefill holds head_dim split, every
+    block of slots is assembled by one all-reduce of the ranks' head_dim
+    blocks (k and v together; tp of them a layer, and tp more for an
+    encoder-decoder's cross k/v, with cross_pos 0..Se-1): no rank holds a
+    layer's whole cache. Returns `cache`."""
+    lens = torch.as_tensor(prompt_lens,
+                           device=spmd.local(caches[0]["pos"]).device)
+    off = spmd.row_offset(caches[0]["pos"])
+    for src, dst in zip(caches, cache):
+        if "k" not in dst:
+            raise ValueError(f"{cfg.arch_id}: no split decode caches for "
+                             "recurrent layers")
+        p = spmd.local(src["pos"])
+        b = p.shape[0]
+        take = min(dst["k"].shape[1], p.shape[1])
+        psrc = p[:, -take:]
+        pvals = torch.where(psrc < lens[off:off + b, None], psrc, -1)
+        _write_slots(src["k"], src["v"], dst["k"], dst["v"], dst["pos"],
+                     psrc, pvals, take, tp)
+        if "cross_k" in src:
+            Se = src["cross_k"].shape[1]
+            if "cross_k" not in dst or dst["cross_k"].shape[1] != Se:
+                raise ValueError(f"the decode cache holds no {Se} cross "
+                                 "slots (init_cache(..., enc_len=))")
+            every = torch.arange(Se, dtype=p.dtype,
+                                 device=p.device).expand(b, Se)
+            _write_slots(src["cross_k"], src["cross_v"], dst["cross_k"],
+                         dst["cross_v"], dst["cross_pos"], every, every, Se,
+                         tp)
+    return cache
+
+
+def _write_slots(k, v, dk, dv, dpos, at, pvals, take: int, tp):
+    """Write the last `take` entries of prefill k/v (DTensors, head_dim
+    over "model" or whole) at absolute positions `at` (b, take) into this
+    rank's slots of decode leaves dk/dv/dpos (slot = position % Sc, the
+    sequence over "model" or whole); dpos takes `pvals`. Slots of the
+    other positions keep what they hold."""
+    kl, vl = spmd.local(k)[:, -take:], spmd.local(v)[:, -take:]
+    b, _, nkv, hd_l = kl.shape
+    hd = k.shape[-1]
+    Sc = dk.shape[1]
+    d_k, d_v, d_p = (spmd.local(x) for x in (dk, dv, dpos))
+    n = d_k.shape[1]
+    seq_split, hd_split = n != Sc, hd_l != hd
+    lo_hd = tp.rank * hd_l if hd_split else 0
+    slots = (at % Sc).long()
+    bidx = torch.arange(b, device=slots.device)[:, None]
+    # every block of slots where the ranks must sum their head_dim blocks,
+    # else this rank's own
+    blocks = range(tp.size) if seq_split and hd_split \
+        else [tp.rank if seq_split else 0]
+    for j in blocks:
+        lo = j * n
+        inside = (slots >= lo) & (slots < lo + n)
+        local = torch.where(inside, slots - lo, n)   # outside: a spare slot
+        buf = kl.new_zeros((2, b, n + 1, nkv, hd))
+        buf[:, bidx, local, :, lo_hd:lo_hd + hd_l] = torch.stack([kl, vl])
+        buf = buf[:, :, :n]
+        if hd_split:
+            buf = tp.all_reduce(buf.contiguous())
+        if j != (tp.rank if seq_split else 0):
+            continue
+        written = torch.zeros((b, n + 1), dtype=torch.bool,
+                              device=slots.device)
+        written[bidx, local] = True
+        written = written[:, :n]
+        pos = torch.full((b, n + 1), -1, dtype=d_p.dtype,
+                         device=slots.device)
+        pos[bidx, local] = pvals.to(d_p.dtype)
+        for d, new in ((d_k, buf[0]), (d_v, buf[1])):
+            d.copy_(torch.where(written[..., None, None], new.to(d.dtype), d))
+        d_p.copy_(torch.where(written, pos[:, :n], d_p))
 
 
 def build_decode_paged(cfg, *, window=None, return_logits: bool = False,

@@ -31,6 +31,14 @@ as on one device:
   (`local`), and the global norm sums each leaf's squares over the dims it
   is sharded on.
 
+A serving step (prefill, decode) of the attention families runs tensor
+parallel too (`call_split`): each split parameter as its local shard,
+the batch as the rank's rows, each decode cache as the rank's rows and
+slice of the sequence (`rules.cache_specs`), the outputs laid out by the
+rules (the prefill caches moved from the rank's kv heads to head_dim over
+"model"). The recurrent families' serving steps run on gathered params
+and caches (`call_local`).
+
 Without DTensors none of this runs: the one-device arithmetic is unchanged.
 """
 from __future__ import annotations
@@ -273,13 +281,17 @@ def host_scalars():
 
 
 def call_local(fn, args, out_specs):
-    """Run `fn` (a serving step: prefill or decode) on each rank's rows:
-    every DTensor argument is gathered over its non-batch mesh dims (it
-    keeps Shard(0) on the batch axes "pod"/"data", so a rank reads its own
-    rows of the batch and the caches and all of each parameter), `fn` runs
-    on the local tensors, and each output, batch-first, is laid out by
-    `out_specs` (a tree of specs, `rules`). Plain arguments pass as they
-    are; without DTensor arguments this is `fn(*args)`."""
+    """Run `fn` (a serving step of the recurrent families, recurrentgemma
+    and Mamba2, whose decode states lie batch-only while their compute
+    would split by channel or head; the attention families run
+    `call_split`) on each rank's rows: every DTensor argument is gathered
+    over its non-batch mesh dims (it keeps Shard(0) on the batch axes
+    "pod"/"data", so a rank reads its own rows of the batch and the caches
+    and all of each parameter), `fn` runs on the local tensors, and each
+    output, batch-first, is laid out by `out_specs` (a tree of specs,
+    `rules`): every rank of the model axis repeats the same compute. Plain
+    arguments pass as they are; without DTensor arguments this is
+    `fn(*args)`."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     leaves, tdef = tree_flatten(args)
     dts = [x for x in leaves if is_dtensor(x)]
@@ -305,3 +317,113 @@ def call_local(fn, args, out_specs):
     placed = [DTensor.from_local(o, mesh, out_pl).redistribute(
         mesh, R.to_placements(mesh, s)) for o, s in zip(o_leaves, specs)]
     return tree_unflatten(placed, o_def)
+
+
+def row_offset(x) -> int:
+    """The index in the global batch of this rank's first row of DTensor
+    `x` (dim 0 sharded over the mesh dims whose placement is Shard(0),
+    major first)."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    off, size = 0, x.shape[0]
+    for i, p in enumerate(x.placements):
+        if p == Shard(0):
+            size //= mesh.size(i)
+            off += coord[i] * size
+    return off
+
+
+def serve_params(leaves: List, paths: List, tp) -> List:
+    """The serving counterpart of `split_params`: each DTensor parameter
+    as the local tensor the rank computes with, by `tp.role` of its path
+    (no gradients): a split leaf its local shard; a leaf stored split over
+    "model" but taken whole gathered by `tp.gather_from_model` (one
+    all-reduce); a replicated leaf as it is. Parameters are laid out over
+    "model" only (`rules.param_specs`)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.sharding.tp import gather_from_model
+    out = []
+    for p, path in zip(leaves, paths):
+        if not is_dtensor(p):
+            out.append(p)
+            continue
+        m = p.device_mesh.mesh_dim_names.index("model")
+        if any(not isinstance(pl, Replicate)
+               for i, pl in enumerate(p.placements) if i != m):
+            raise ValueError(f"{'/'.join(map(str, path))} is split over "
+                             f"another axis than 'model': {p.placements}")
+        role, stored = tp.role(path), p.placements[m]
+        if role[0] == "shard":
+            if stored != Shard(role[1]):
+                raise ValueError(f"{'/'.join(map(str, path))} is stored as "
+                                 f"{stored} over 'model', computed as "
+                                 f"Shard({role[1]})")
+            out.append(p.to_local())
+        elif isinstance(stored, Shard):
+            out.append(gather_from_model(p.to_local(), tp, stored.dim,
+                                         False))
+        else:
+            out.append(p.to_local())
+    return out
+
+
+def call_split(fn, args, out_specs, tp, local_specs=None):
+    """Run `fn` (a serving step built with `tp`: `serve.step.build_prefill`
+    / `build_decode`) tensor parallel over "model" on each rank. `args[0]`
+    is the params (DTensors laid out by `rules.param_specs`), handed over
+    by `serve_params`: each split leaf as its local shard. Every other
+    DTensor argument is handed over as the rank's local tensor, as it is
+    laid out: the batch as the rank's rows, a decode cache as its rows and
+    slice of the sequence (`rules.cache_specs`), written in place. Each
+    output is laid out by `out_specs` from its layout on the rank,
+    `local_specs` (default: `out_specs`), which may differ over "model"
+    only: a dim held whole is sliced; a dim split over "model" is
+    gathered where `out_specs` holds it whole, and moved where it names
+    another dim (the prefill caches' kv heads to head_dim,
+    `tp.heads_to_head_dim`: an all-to-all where the model group runs one
+    on the tensors' device, else an all-reduce). Plain arguments pass as
+    they are."""
+    from torch.distributed.tensor import DTensor
+    mesh = tp.mesh
+    p_leaves, p_def = tree_flatten(args[0])
+    params = tree_unflatten(serve_params(p_leaves, R.leaf_paths(args[0]),
+                                         tp), p_def)
+    rest, r_def = tree_flatten(args[1:])
+    out = fn(params, *tree_unflatten([local(x) for x in rest], r_def))
+    o_leaves, o_def = tree_flatten(out)
+    specs = R.spec_leaves(out_specs)
+    have = specs if local_specs is None else R.spec_leaves(local_specs)
+    if not len(specs) == len(have) == len(o_leaves):
+        raise ValueError(f"{len(o_leaves)} outputs, {len(specs)} specs, "
+                         f"{len(have)} local specs")
+    placed = []
+    for o, spec, was in zip(o_leaves, specs, have):
+        o = _relayout(o, was, spec, tp)
+        placed.append(DTensor.from_local(o, mesh,
+                                         R.to_placements(mesh, spec)))
+    return tree_unflatten(placed, o_def)
+
+
+def _model_dim(spec):
+    for d, e in enumerate(spec):
+        if e == "model" or (isinstance(e, tuple) and "model" in e):
+            return d
+    return None
+
+
+def _relayout(o, was, spec, tp):
+    """Local output `o`, laid out by `was`, as `spec` lays it out (they
+    differ over "model" only)."""
+    from repro_torch.sharding import tp as TP
+    a, b = _model_dim(was), _model_dim(spec)
+    if a == b:
+        return o
+    if a is None:
+        return tp.shard(o, b).contiguous()
+    if b is None:
+        return TP.gather_from_model(o, tp, a, False)
+    if (a, b) != (2, 3):
+        raise ValueError(f"no move of a dim over 'model' from {was} to "
+                         f"{spec}")
+    return TP.heads_to_head_dim(o, tp, tp.runs_all_to_all(o))

@@ -91,6 +91,28 @@ them): the one replicated product of the split, d x 2 g n a token.
 `in_scope` admits every layer type the port has; a part the axis does
 not divide (the RG-LRU width, the SSM heads) runs whole on gathered
 leaves, as the attention's do.
+
+The serving steps (`serve.step.build_prefill` / `build_decode` with
+`tp`, run by `spmd.call_split`) split the same way for the archs whose
+mixers are all attention (`serve_in_scope`; the recurrent families'
+states are batch-only in `rules.cache_specs` while their compute splits
+by channel or head, and they keep `spmd.call_local`). The prefill is the
+training forward without its backward, and it emits every kv head's
+keys and values on the rank that projects them (where the kv heads do
+not divide, every rank projects all of them from the gathered wk/wv).
+The decode caches hold the sequence over "model", as the reference's
+flash-decoding layout (`rules.cache_specs`): a rank holds slots
+[r Sc/tp, (r + 1) Sc/tp) of every kv head. A decode step gathers the
+token's queries (and keys and values, where the kv heads split) to every
+rank, the owner of slot pos % Sc writes the new entry, every rank reads
+all heads over its slots (`read_partials`: an online softmax's max, sum
+and unnormalised output), the ranks' partials are gathered and merged
+(`combine_partials`), and each rank's heads go through its rows of `wo`.
+The greedy token over the vocabulary shards is the lowest index of the
+global max (`vocab_parallel_argmax`). Every collective is still an
+all-reduce, except the prefill caches' move from the rank's heads to the
+reference's head_dim layout (`heads_to_head_dim`), an all-to-all where
+the process group runs one on the tensors' device.
 """
 from __future__ import annotations
 
@@ -150,6 +172,7 @@ class TensorParallel:
     ssm: bool = False    # the Mamba2 heads split
     all_reduces: int = field(default=0)
     all_reduce_bytes: int = field(default=0)
+    all_to_alls: int = field(default=0)
 
     @classmethod
     def build(cls, cfg, mesh) -> Optional["TensorParallel"]:
@@ -188,6 +211,20 @@ class TensorParallel:
         self.all_reduces += 1
         self.all_reduce_bytes += x.numel() * x.element_size()
         return funcol.wait_tensor(funcol.all_reduce(x, op, self.group))
+
+    def all_to_all(self, x):
+        """`x`'s dim-0 blocks exchanged over the model ranks: block j goes
+        to rank j, and block i of the result came from rank i."""
+        import torch.distributed._functional_collectives as funcol
+        self.all_to_alls += 1
+        return funcol.wait_tensor(
+            funcol.all_to_all_single(x.contiguous(), None, None, self.group))
+
+    def runs_all_to_all(self, x) -> bool:
+        """Whether the model group runs an all-to-all on `x`'s device:
+        gloo runs only all-reduce (and broadcast) on CUDA tensors."""
+        import torch.distributed as dist
+        return not (x.is_cuda and dist.get_backend(self.group) == "gloo")
 
     def shard(self, x, dim: int = -1):
         """This rank's 1/size of `x` along `dim`, a contiguous block (a
@@ -402,12 +439,14 @@ def vocab_parallel_xent(logits, labels, mask=None,
     return nll.mean()
 
 
-def leaf_gather_all_reduces(cfg, params, mesh, tp: TensorParallel) -> int:
+def leaf_gather_all_reduces(cfg, params, mesh, tp: TensorParallel,
+                            backward: bool = True) -> int:
     """The all-reduces a microbatch of the tensor-parallel step spends on
     the leaves stored split over "model" that it takes whole
     (`spmd.split_params`): two for a leaf used inside the split (its
     gather, its gradient's reduction), one for a leaf every rank uses
-    whole (its gather)."""
+    whole (its gather). Without a `backward` (a serving step,
+    `spmd.call_split`) one for each such leaf."""
     specs = R.spec_leaves(R.param_specs(cfg, params, mesh))
     n = 0
     for path, spec in zip(R.leaf_paths(params), specs):
@@ -415,7 +454,7 @@ def leaf_gather_all_reduces(cfg, params, mesh, tp: TensorParallel) -> int:
         if role != "shard" and any(
                 e == "model" or (isinstance(e, tuple) and "model" in e)
                 for e in spec):
-            n += 2 if role == "partial" else 1
+            n += 2 if role == "partial" and backward else 1
     return n
 
 
@@ -436,3 +475,111 @@ def gathered_leaves(cfg, params, mesh, tp: Optional[TensorParallel]):
         if name not in out:
             out.append(name)
     return out
+
+
+# ------------------------------------------------------------ serving
+
+NEG = torch.finfo(torch.float32).min    # the reference's masked logit
+
+
+def serve_in_scope(cfg) -> bool:
+    """The archs whose serving steps split over "model": every mixer
+    attention (dense or MoE FFN, a modality prefix, an encoder-decoder).
+    The recurrent families' serving runs gathered (`spmd.call_local`)."""
+    return all(t == "attn" for t in cfg.layer_types())
+
+
+def cache_split(c_specs) -> tuple:
+    """(self, cross): whether the self-attention and the cross-attention
+    decode caches of `c_specs` (`rules.cache_specs`) hold the sequence
+    split over "model"; a length the axis does not divide stays whole."""
+    def split(name):
+        return any(name in layer and layer[name][1] == "model"
+                   for layer in c_specs)
+    return split("k"), split("cross_k")
+
+
+def read_partials(q, k, v, valid, scale: float):
+    """The partials of a decode read over one slice of the cache, as an
+    online softmax keeps them, in float32: q (B, nkv, rep, hd) (float32),
+    k/v (B, s, nkv, hd), valid (B, s) -> m, l (B, nkv, rep), o (B, nkv,
+    rep, hd): the max of the masked logits (masked ones take finfo(f32).min
+    as in the reference, so a slice with every slot masked has m = that
+    minimum and adds nothing beside any other), the sum of exp(logit - m)
+    and the unnormalised output."""
+    logits = torch.einsum("bkrh,bskh->bkrs", q, k.float()) * scale
+    logits = logits.masked_fill(~valid[:, None, None, :], NEG)
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    return m, p.sum(dim=-1), torch.einsum("bkrs,bskh->bkrh", p,
+                                          v.float())
+
+
+def combine_partials(m, l, o):
+    """The read over every slice from the slices' partials stacked on a
+    leading dim: o = sum_r e^(m_r - M) o_r / sum_r e^(m_r - M) l_r, with M
+    the max over the slices."""
+    w = torch.exp(m - m.amax(dim=0))
+    return (w[..., None] * o).sum(dim=0) / (w * l).sum(dim=0)[..., None]
+
+
+def seq_split_read(q, k, v, valid, scale: float, tp: TensorParallel):
+    """The decode read of every head over the cache whose sequence the
+    model ranks split: this rank's partials over its slots
+    (`read_partials`), gathered over the ranks (one all-reduce of the
+    zero-padded (m, l, o)) and merged (`combine_partials`). Returns (B,
+    nkv, rep, hd) float32, the same on every rank."""
+    m, l, o = read_partials(q, k, v, valid, scale)
+    packed = torch.cat([m[..., None], l[..., None], o], dim=-1)
+    every = gather_from_model(packed[None], tp, 0, False)
+    return combine_partials(every[..., 0], every[..., 1], every[..., 2:])
+
+
+def vocab_parallel_argmax(logits, tp: TensorParallel):
+    """torch.argmax over the full vocabulary, given this rank's (..., V/tp)
+    slice of the logits: each rank's (max, argmax + its offset) gathered
+    (one all-reduce), the lowest index of the global max taken (a tie goes
+    to the lower index, as torch.argmax and jnp.argmax break it; padded
+    rows hold -1e30, `transformer._logits`, and never win). int32."""
+    rows = logits.shape[-1]
+    i = torch.argmax(logits, dim=-1, keepdim=True)
+    m = torch.gather(logits, -1, i)[..., 0].double()
+    cand = torch.stack([m, (i[..., 0] + tp.rank * rows).double()], dim=-1)
+    every = gather_from_model(cand[None], tp, 0, False)
+    best = torch.argmax(every[..., 0], dim=0, keepdim=True)
+    return torch.gather(every[..., 1], 0, best)[0].to(torch.int32)
+
+
+def heads_to_head_dim(x, tp: TensorParallel, all_to_all: bool):
+    """(b, s, n/tp, hd): this rank's heads -> (b, s, n, hd/tp): its
+    head_dim slice of every head (the reference's prefill-cache layout).
+    An all-to-all of the head_dim blocks; with `all_to_all` False the
+    heads are gathered (one all-reduce of the zero-padded (b, s, n, hd))
+    and sliced."""
+    if not all_to_all:
+        return tp.shard(gather_from_model(x, tp, 2, False), 3).contiguous()
+    b, s, h, hd = x.shape
+    t = tp.size
+    send = x.reshape(b, s, h, t, hd // t).permute(3, 0, 1, 2, 4)
+    got = tp.all_to_all(send)                    # (t, b, s, h, hd / t)
+    return got.permute(1, 2, 0, 3, 4).reshape(b, s, t * h, hd // t)
+
+
+def prefill_local_specs(out_specs, tp: TensorParallel):
+    """How `serve.step.build_prefill(cfg, tp=tp)`'s outputs lie on a rank,
+    for `spmd.call_split`, given their layout `out_specs` (token, caches
+    by `rules.prefill_cache_specs`): each k/v (and cross k/v) holds the
+    rank's kv heads (dim 2 over "model") where the kv heads split, else
+    every kv head; the rest as `out_specs`."""
+    tok, caches = out_specs
+    heads = tp.heads and tp.kv
+
+    def local(name, spec):
+        if name not in ("k", "v", "cross_k", "cross_v"):
+            return spec
+        dims = list(spec)
+        dims[-1] = None
+        dims[2] = "model" if heads else None
+        return R.P(*dims)
+    return tok, [{k: local(k, s) for k, s in layer.items()}
+                 for layer in caches]

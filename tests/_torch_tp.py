@@ -572,3 +572,286 @@ def one_rank_grads(cfg, params, microbatches=1):
     _, _, m = build_lm_train_step(cfg, record, microbatches=microbatches)(
         params, None, batch)
     return got, float(m["loss"])
+
+
+# ------------------------------------------------------------ serving
+
+SERVE_ROWS, SERVE_PROMPT, SERVE_STEPS = 4, 12, 8
+SERVE_CACHE = 48         # decode slots: no other dim of the reduced
+                         # configs is 48, so a full-length cache shows
+SERVE_FRAMES, SERVE_PREFIX = 16, 8   # seamless' frames, pixtral's rows
+
+
+def serve_batch(cfg, seed: int = 3) -> dict:
+    """A prefill batch as numpy arrays: SERVE_ROWS prompts of SERVE_PROMPT
+    tokens, after an 8-row prefix (pixtral) or over 16 encoder frames
+    (seamless)."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size,
+                                  (SERVE_ROWS, SERVE_PROMPT)).astype(
+                                      np.int32)}
+    if cfg.is_encdec:
+        out["enc_embeds"] = (rng.standard_normal(
+            (SERVE_ROWS, SERVE_FRAMES, cfg.d_model)) * 0.5).astype(
+                np.float32)
+    elif cfg.embed_stub:
+        out["embeds"] = (rng.standard_normal(
+            (SERVE_ROWS, SERVE_PREFIX, cfg.d_model)) * 0.5).astype(
+                np.float32)
+    return out
+
+
+def serve_prompt_len(cfg) -> int:
+    return SERVE_PROMPT + (SERVE_PREFIX if cfg.embed_stub else 0)
+
+
+def serve_one_device(cfg, params, batch) -> dict:
+    """The port's unsharded serving steps: the greedy prefill, its logits
+    and natural caches, `prefill_into_cache` into SERVE_CACHE slots, then
+    SERVE_STEPS greedy decode steps (tokens and logits a step) and the
+    final caches."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import step as ST
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
+         batch.items()}
+    with torch.no_grad():
+        logits, nat = ST.build_prefill(cfg, return_logits=True)(params, t)
+        tok = ST.build_prefill(cfg)(params, t)[0]
+        n = serve_prompt_len(cfg)
+        cache = ST.prefill_into_cache(cfg, nat, T.init_cache(
+            cfg, SERVE_ROWS, SERVE_CACHE, device="cpu",
+            enc_len=SERVE_FRAMES if cfg.is_encdec else 0),
+            torch.full((SERVE_ROWS,), n))
+        handed = tree_map(torch.clone, cache)
+        greedy = ST.build_decode(cfg)
+        with_logits = ST.build_decode(cfg, return_logits=True)
+        toks, step_logits = [tok], [logits]
+        for i in range(SERVE_STEPS):
+            pos = torch.full((SERVE_ROWS,), n + i, dtype=torch.int32)
+            step_logits.append(with_logits(params, tok[:, None], pos,
+                                           cache)[0])
+            tok = greedy(params, tok[:, None], pos, cache)[0]
+            toks.append(tok)
+    return {"tokens": torch.stack(toks), "logits": torch.stack(step_logits),
+            "prefill_caches": nat, "handed": handed, "caches": cache}
+
+
+def serve_ranks(rank, world, params_path, archs, mesh_shape, names):
+    """On a mesh of `mesh_shape` / `names`, for each arch of `archs` (its
+    bridged params pickled at `params_path`): the tensor-parallel prefill
+    (greedy and with logits), `prefill_into_cache_split` into
+    SERVE_CACHE slots, SERVE_STEPS greedy decode steps from the ranks' own
+    tokens (each step's logits too, from a second call on the same
+    inputs); the all-reduces of every call, the shapes of every op output
+    of the greedy calls and the handoff, the local cache shapes, and (rank
+    0) every cache gathered."""
+    import pickle
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import registry
+    from repro_torch.launch import distributed as D
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import step as ST
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding import tp as TP
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = init_device_mesh("cpu", mesh_shape, mesh_dim_names=names)
+    with open(params_path, "rb") as f:
+        bridged = pickle.load(f)
+    logits_shapes, plain_logits = [], T._logits
+
+    def recorded_logits(*a, **k):       # the logits a rank computes
+        o = plain_logits(*a, **k)
+        logits_shapes.append(tuple(o.shape))
+        return o
+    T._logits = recorded_logits
+    out = {}
+    for arch in archs:
+        logits_shapes.clear()
+        cfg = registry.get(arch, reduced=True)
+        tp = TP.TensorParallel.build(cfg, mesh)
+        params = R.distribute(mesh, bridged[arch],
+                              R.param_specs(cfg, bridged[arch], mesh))
+        batch = serve_batch(cfg)
+        dbatch = D.put_batch(mesh, R.batch_specs(cfg, batch, mesh), batch)
+        n = serve_prompt_len(cfg)
+        tok_spec = R.P(R.batch_axes(mesh))
+        p_specs = R.prefill_cache_specs(cfg, prefill_cache_shapes(cfg), mesh)
+        out_p = (tok_spec, p_specs)
+        local_p = TP.prefill_local_specs(out_p, tp)
+        res = {"split": (tp.heads, tp.kv, tp.vocab, tp.experts)}
+        counts = {}
+
+        def run(name, fn, args, specs, local=None, shapes=None):
+            before = (tp.all_reduces, tp.all_to_alls)
+            with torch.no_grad(), ShapeRecorder(
+                    [] if shapes is None else shapes):
+                o = spmd.call_split(fn, args, specs, tp, local)
+            counts.setdefault(name, []).append(
+                (tp.all_reduces - before[0], tp.all_to_alls - before[1]))
+            return o
+        shapes = {"prefill": [], "decode": [], "handoff": []}
+        logits, nat = run("prefill_logits",
+                          ST.build_prefill(cfg, return_logits=True, tp=tp),
+                          (params, dbatch), out_p, local_p)
+        tok, nat = run("prefill", ST.build_prefill(cfg, tp=tp),
+                       (params, dbatch), out_p, local_p, shapes["prefill"])
+        # the caches' move to head_dim by the all-reduce route (the card
+        # rig's: gloo runs no all-to-all on CUDA tensors)
+        tp.runs_all_to_all = lambda x: False
+        _, nat_ar = run("prefill_all_reduce_route",
+                        ST.build_prefill(cfg, tp=tp), (params, dbatch),
+                        out_p, local_p)
+        del tp.runs_all_to_all
+        nat_ar = spmd_full(nat_ar)
+        cache_g = T.init_cache(cfg, SERVE_ROWS, SERVE_CACHE, device="cpu",
+                               enc_len=SERVE_FRAMES if cfg.is_encdec else 0)
+        c_specs = R.cache_specs(cfg, cache_g, mesh)
+        cache = R.distribute(mesh, cache_g, c_specs)
+        before = tp.all_reduces
+        with torch.no_grad(), ShapeRecorder(shapes["handoff"]):
+            ST.prefill_into_cache_split(cfg, nat, cache,
+                                        torch.full((SERVE_ROWS,), n), tp)
+        counts["handoff"] = [(tp.all_reduces - before, 0)]
+        full = spmd_full(nat), spmd_full(cache)   # collectives: every rank
+        res["prefill_caches"], res["handed"] = full if rank == 0 else (None,
+                                                                       None)
+        res["all_reduce_route_equal"] = all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(nat_ar),
+                                              tree_leaves(full[0])))
+        split = TP.cache_split(c_specs)
+        greedy = ST.build_decode(cfg, tp=tp, split=split)
+        with_logits = ST.build_decode(cfg, return_logits=True, tp=tp,
+                                      split=split)
+        pspec = R.P(R.batch_specs(cfg, {"t": tok[:, None]}, mesh)["t"][0])
+        toks, step_logits = [tok.full_tensor()], [logits.full_tensor()]
+        for i in range(SERVE_STEPS):
+            pos = D.put_batch(mesh, {"p": pspec}, {"p": torch.full(
+                (SERVE_ROWS,), n + i, dtype=torch.int32)})["p"]
+            t_in = D.put_batch(mesh, {"t": R.P(pspec[0], None)},
+                               {"t": toks[-1][:, None]})["t"]
+            lg, cache = run("decode_logits", with_logits,
+                            (params, t_in, pos, cache), (pspec, c_specs))
+            tok, cache = run("decode", greedy, (params, t_in, pos, cache),
+                             (pspec, c_specs), None,
+                             shapes["decode"] if i == 0 else None)
+            step_logits.append(lg.full_tensor())
+            toks.append(tok.full_tensor())
+        full = None, spmd_full(cache)
+        res.update({
+            "tokens": torch.stack(toks), "logits": torch.stack(step_logits),
+            "caches": full[1] if rank == 0 else None,
+            "counts": counts,
+            "shapes": {k: sorted(set(v)) for k, v in shapes.items()},
+            "logits_shapes": sorted(set(logits_shapes)),
+            "local_cache": [{k: tuple(spmd.local(x).shape) for k, x in
+                             c.items()} for c in cache],
+            "cache_split": split})
+        out[arch] = res
+    return out
+
+
+def prefill_cache_shapes(cfg) -> list:
+    """The prefill's natural-length caches of `serve_batch` as meta
+    tensors."""
+    from repro_torch.models import transformer as T
+    caches = T.init_cache(cfg, SERVE_ROWS, serve_prompt_len(cfg),
+                          device="meta",
+                          enc_len=SERVE_FRAMES if cfg.is_encdec else 0)
+    for c in caches:            # the prefill emits no cross positions
+        c.pop("cross_pos", None)
+    return caches
+
+
+def spmd_full(tree):
+    return tree_map(lambda x: x.full_tensor() if hasattr(x, "full_tensor")
+                    else x, tree)
+
+
+# ------------------------------------------------------------ decode read
+
+READ_CASES = ("full", "ring", "empty_rank", "rows", "whole", "cross")
+READ_ROWS = 4
+# (cache slots, each row's position, window): a linear cache filled below
+# each position; a ring of 16 under a window of 12, every slot holding one
+# of the last 16 positions; every slot past 8 empty (ranks 1.. of 2 and 4
+# hold nothing); only rows 0 and 2 written; 31 slots, which 2 and 4 do not
+# divide (the read runs whole); a cross cache, 16 frames with the rows'
+# first 16, 10, 5, 16 valid
+READ_SHAPES = {"full": (32, (5, 17, 31, 20), None),
+               "ring": (16, (40, 23, 57, 16), 12),
+               "empty_rank": (32, (3, 1, 6, 0), None),
+               "rows": (32, (5, 17, 31, 20), None),
+               "whole": (31, (5, 17, 30, 20), None),
+               "cross": (16, (16, 10, 5, 16), None)}
+
+
+def read_inputs(case: str, seed: int = 4) -> dict:
+    """Reduced qwen3-1.7b's attention weights (4 heads, 2 kv heads, qk-norm)
+    and a decode token with its cache, as numpy arrays: keys and values
+    drawn at every slot, positions per READ_SHAPES (-1 where empty)."""
+    cfg = attn_config("attention")
+    inp = operator_inputs("attention", seed)
+    rng = np.random.default_rng(seed + 1)
+    n, pos, _ = READ_SHAPES[case]
+    nkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    slot_pos = np.full((READ_ROWS, n), -1, np.int32)
+    for b, p in enumerate(pos):
+        if case == "cross":
+            slot_pos[b, :p] = np.arange(p)
+        elif case == "ring":
+            for q in range(p - n, p):
+                slot_pos[b, q % n] = q
+        else:
+            slot_pos[b, :p] = np.arange(p)
+    return {**{k: inp[k] for k in ("wq", "wk", "wv", "wo", "q_norm",
+                                    "k_norm")},
+            "x": rng.standard_normal((READ_ROWS, 1, cfg.d_model)).astype(
+                np.float32),
+            "k": rng.standard_normal((READ_ROWS, n, nkv, hd)).astype(
+                np.float32),
+            "v": rng.standard_normal((READ_ROWS, n, nkv, hd)).astype(
+                np.float32),
+            "cache_pos": slot_pos, "pos": np.asarray(pos, np.int32)}
+
+
+def run_read(case: str, inp: dict, tp=None) -> dict:
+    """`layers.attention_decode` of one case, on one device (tp=None) or
+    with `tp` on this rank's weights and, where the ranks divide the
+    slots, its slice of the cache. Returns the output, the cache (the
+    rank's slice) after the write, whether it was split and the
+    all-reduces."""
+    from repro_torch.models import layers as L
+    cfg = attn_config("attention")
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
+         inp.items()}
+    n, _, window = READ_SHAPES[case]
+    r, k = (0, 1) if tp is None else (tp.rank, tp.size)
+    split = tp is not None and n % k == 0
+    kv_split = tp is None or tp.kv
+    p = {"wq": _cols(t["wq"], r, k),
+         "wk": _cols(t["wk"], r, k) if kv_split else t["wk"],
+         "wv": _cols(t["wv"], r, k) if kv_split else t["wv"],
+         "wo": _rows(t["wo"], r, k),
+         "q_norm": {"scale": t["q_norm"]}, "k_norm": {"scale": t["k_norm"]}}
+    sl = slice(r * n // k, (r + 1) * n // k) if split else slice(None)
+    ck, cv, cp = (t[name][:, sl].clone() for name in ("k", "v", "cache_pos"))
+    rows = torch.tensor([0, 2]) if case == "rows" else None
+    before = 0 if tp is None else tp.all_reduces
+    with torch.no_grad():
+        out, ck, cv, cp = L.attention_decode(
+            p, cfg, t["x"], t["pos"], ck, cv, cp, window=window,
+            rope=case != "cross", rows=rows, cross=case == "cross", tp=tp,
+            split=split)
+    return {"out": out, "k": ck, "v": cv, "pos": cp, "split": split,
+            "all_reduces": 0 if tp is None else tp.all_reduces - before}
+
+
+def read_ranks(rank, world, cases):
+    """Every decode read case on a ("model",) mesh of all the ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.sharding.tp import TensorParallel
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("model",))
+    tp = TensorParallel.build(attn_config("attention"), mesh)
+    return {case: dict(run_read(case, read_inputs(case), tp), kv=tp.kv)
+            for case in cases}

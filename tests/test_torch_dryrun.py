@@ -16,10 +16,22 @@ Mamba2's B/C projection (one group, read by every head), the MoE router,
 and a part the axis does not divide, whole (measured on reduced configs:
 the dense decoders and seamless equal, granite-moe 0.08%, recurrentgemma
 1.5% and mamba2 3.1% above the one-rank count, each exactly its repeated
-products: the residual is 0). Every serving step runs the same rows on
-every rank of the "model" axis (`sharding.spmd`): flops times ranks
-equal the one-rank count times the model axis size (the replication
-factor, 2 on the debug meshes), within 1%. The tensor-parallel step's all-reduces over "model",
+products: the residual is 0). The serving steps of the attention
+families run tensor parallel too (`spmd.call_split`, the decode caches'
+sequence over "model"): flops times ranks equal the one-rank count plus
+what the model ranks repeat (the MoE router; the kv projections where
+the kv heads do not divide the axis), within 1%. The serving steps of
+recurrentgemma and Mamba2 run the same rows on every rank of the "model"
+axis (`spmd.call_local`): flops times ranks equal the one-rank count
+times the model axis size (the replication factor, 2 on the debug
+meshes), within 1%. Serving all-reduces over "model": a decode step 4 a
+layer (the token's q/k/v gathered, the partials merged, the attention
+output, the FFN's or MoE's output), 7 a decoder layer with
+cross-attention, one for the embedding and one for the greedy token; a
+prefill 2 a layer (3 with cross-attention, 2 an encoder layer), the
+embedding's and the greedy token's, and 2 all-to-alls a layer (4 with
+cross-attention) moving the caches' kv heads to head_dim; no
+all-gather. The tensor-parallel train step's all-reduces over "model",
 per microbatch: 4 per dense layer (two forward, two backward), 5 per MoE
 layer (the attention's 2; the experts' output forward, their input and
 the gate weights backward), 6 per encoder-decoder decoder layer (the
@@ -90,7 +102,15 @@ def test_reduced_case_runs_on_debug_mesh(debug_mesh, small, arch, shape):
     assert m["memory"]["peak_bytes"] > 0
     colls = m["colls"]
     assert set(DR.COLLECTIVES) <= set(colls)
-    assert colls["all-gather"]["count"] > 0     # batch rows, gathered params
+    if case["tp"] is None:      # gathered params and caches (call_local)
+        assert colls["all-gather"]["count"] > 0
+    else:                       # tensor parallel: all-reduces only
+        assert colls["all-reduce"]["count"] >= \
+            m["model_axis_all_reduces"]["count"] > 0
+        if kind != "train":
+            assert colls["all-gather"]["count"] == 0
+    assert (case["tp"] is None) == (kind != "train" and arch in
+                                    ("mamba2-130m", "recurrentgemma-9b"))
     if kind == "train":
         assert colls["all-reduce"]["count"] >= 1     # the gradients
         assert colls["all-reduce"]["bytes"] > 0
@@ -119,17 +139,121 @@ def one_rank_flops(cfg, shape, microbatches):
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
 def test_flops_per_device_times_ranks_is_one_rank_times_replication(
         debug_mesh, small, shape):
-    """qwen3-1.7b: tensor parallel in training (no replication), the model
-    axis replicating the serving steps."""
+    """qwen3-1.7b: tensor parallel in training and serving, so the model
+    axis replicates nothing (a replication of 1)."""
     cfg = reduced("qwen3-1.7b", shape)
     train = S.SHAPES[shape].kind == "train"
     mb = 2 if train else None
     case, m = DR.measure_case(cfg, shape, debug_mesh, microbatches=mb)
-    assert (case["tp"] is not None) == train
+    assert case["tp"] is not None
     one = one_rank_flops(cfg, shape, mb)
-    replication = 1 if train else R.mesh_axis_size(debug_mesh, "model")
+    assert abs(m["flops"] * debug_mesh.size() - one) <= FLOPS_REL * one
+
+
+SERVE_ARCHS = ["qwen3-1.7b", "qwen3-4b", "mistral-nemo-12b", "starcoder2-7b",
+               "pixtral-12b", "granite-moe-1b-a400m", "granite-moe-3b-a800m",
+               "seamless-m4t-large-v2"]
+
+
+def serve_repeated_flops(cfg, mesh, shape) -> int:
+    """The flops of a serving step that the model ranks repeat beyond
+    their 1/tp shares, summed over the ranks (2 a multiply-add): the MoE
+    router on every token, whole on every rank, and where the kv heads do
+    not divide the axis the kv projections: every rank projects all kv
+    heads for the caches (a prefill's cross-attention too, over the
+    encoder frames), and the kv heads its query heads read in the
+    encoder's self-attention, as in training."""
+    ctx = TP.TensorParallel.build(cfg, mesh)
+    c = S.SHAPES[shape]
+    prefill = c.kind == "prefill"
+    tokens = c.global_batch * (c.seq_len if prefill else 1)
+    if prefill and cfg.is_encdec:
+        tokens //= 2
+    kv = 0 if ctx.kv else 2 * cfg.n_kv_heads * cfg.resolved_head_dim
+    per_token = cfg.n_layers * ((ctx.size - 1) * kv + (
+        (ctx.size - 1) * cfg.moe.n_experts if cfg.moe else 0))
+    frames = tokens if prefill and cfg.is_encdec else 0
+    enc = 0 if ctx.kv else (ctx.size * len(ctx.kv_heads(cfg))
+                            - cfg.n_kv_heads) * cfg.resolved_head_dim * 2
+    cross = cfg.n_layers * (ctx.size - 1) * kv + cfg.n_enc_layers * enc
+    return 2 * cfg.d_model * (tokens * per_token + frames * cross)
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "long_500k"])
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serving_flops_times_ranks_is_one_rank_plus_repeated(
+        debug_mesh, small, arch, shape):
+    """The eight attention archs' serving steps split over "model": flops x
+    ranks = one rank + `serve_repeated_flops` (the MoE router here; the
+    reduced configs' 2 kv heads divide the axis of 2)."""
+    cfg = reduced(arch, shape)
+    case, m = DR.measure_case(cfg, shape, debug_mesh)
+    assert case["tp"] is not None
+    one = one_rank_flops(cfg, shape, None)
+    want = one + serve_repeated_flops(cfg, debug_mesh, shape)
+    assert abs(m["flops"] * debug_mesh.size() - want) <= FLOPS_REL * one
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "seamless-m4t-large-v2"])
+def test_gathered_kv_serving_flops_times_ranks_is_one_rank_plus_repeated(
+        debug_mesh, small, arch, shape):
+    """One kv head, which the model axis of 2 does not divide: wk and wv
+    are gathered and every rank projects the kv head (the prefill's cross
+    keys and values over the encoder frames too); each gathered leaf is
+    one more all-reduce."""
+    cfg = reduced(arch, shape).replace(n_kv_heads=1)
+    case, m = DR.measure_case(cfg, shape, debug_mesh)
+    assert case["tp"] is not None and not case["tp"].kv
+    one = one_rank_flops(cfg, shape, None)
+    want = one + serve_repeated_flops(cfg, debug_mesh, shape)
+    assert want > one
+    assert abs(m["flops"] * debug_mesh.size() - want) <= FLOPS_REL * one
+    gathered = TP.leaf_gather_all_reduces(cfg, S.params_shapes(cfg),
+                                          debug_mesh, case["tp"],
+                                          backward=False)
+    attns = cfg.n_layers * (2 if cfg.is_encdec else 1) + (
+        cfg.n_enc_layers if cfg.is_encdec else 0)
+    assert gathered == 2 * attns
+    assert len(case["gathered_leaves"]) == 2 * (1 + 2 * cfg.is_encdec)
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-130m"])
+def test_recurrent_serving_flops_times_ranks_is_one_rank_times_replication(
+        debug_mesh, small, arch, shape):
+    """The recurrent families keep the gathered serving step
+    (`spmd.call_local`): every model rank repeats the one-rank compute."""
+    cfg = reduced(arch, shape)
+    case, m = DR.measure_case(cfg, shape, debug_mesh)
+    assert case["tp"] is None
+    one = one_rank_flops(cfg, shape, None)
+    replication = R.mesh_axis_size(debug_mesh, "model")
     assert abs(m["flops"] * debug_mesh.size() - one * replication) \
         <= FLOPS_REL * one * replication
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "long_500k"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m",
+                                  "seamless-m4t-large-v2"])
+def test_serving_model_axis_all_reduces(debug_mesh, small, arch, shape):
+    """A decode step: 4 a layer (7 with cross-attention) + 2; a prefill:
+    2 a layer (3 with cross-attention, 2 an encoder layer) + 2, and the
+    caches' all-to-alls, 2 a layer (4 with cross-attention); no
+    all-gather (the step gathers nothing whole)."""
+    cfg = reduced(arch, shape)
+    case, m = DR.measure_case(cfg, shape, debug_mesh)
+    L, c = cfg.n_layers, int(cfg.is_encdec)
+    Le = cfg.n_enc_layers if c else 0
+    if S.SHAPES[shape].kind == "decode":
+        want, moves = (4 + 3 * c) * L + 2, 0
+    else:
+        want, moves = (2 + c) * L + 2 * Le + 2, 2 * (1 + c) * L
+    assert m["model_axis_all_reduces"]["count"] == want
+    assert case["tp"].all_to_alls == moves
+    assert m["colls"]["all-to-all"]["count"] == moves
+    assert m["colls"]["all-gather"]["count"] == 0
+    assert m["colls"]["all-reduce"]["count"] == want
 
 
 def repeated_flops(cfg, mesh, tokens) -> int:
@@ -307,11 +431,13 @@ def test_recurrent_model_axis_all_reduces(debug_mesh, small, arch,
 
 @pytest.mark.parametrize("arch,shape,tensor_parallel,wq", [
     ("qwen3-1.7b", "train_4k", True, None),
-    ("qwen3-1.7b", "decode_32k", False, "blocks/0/attn/wq"),
+    ("qwen3-1.7b", "decode_32k", True, None),
     ("granite-moe-1b-a400m", "train_4k", True, None),
     # ("rglru", "rglru", "attn"): the first attention block is the third;
     # its one kv head is gathered
     ("recurrentgemma-9b", "train_4k", True, "blocks/2/attn/wq"),
+    # its serving step stays gathered: every leaf split over "model"
+    ("recurrentgemma-9b", "decode_32k", False, "blocks/2/attn/wq"),
 ])
 def test_record_says_tensor_parallel_and_gathered_leaves(
         debug_mesh, small, monkeypatch, arch, shape, tensor_parallel, wq):

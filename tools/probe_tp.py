@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's tensor-parallel phases (29-31, 33-34) driven alone on
-one card, phase 29 against its own unsharded run (the same seeded
-weights, batches and schedule as phase 20's) instead of phase 20's, and
-with `--dp` phase 32 (the MoE load balance on a data-parallel mesh under
-remat):
+"""chip_smoke.py's tensor-parallel phases (29-31, 33-36) driven alone on
+one card, with `--dp` phase 32 (the MoE load balance on a data-parallel
+mesh under remat), and phases 35-36 (the serving steps tensor parallel,
+`chip_smoke.serve_tp_phases`):
 
-    python3 tools/probe_tp.py [--phases 29,30,31,33,34] [--dp] [--out FILE]
+    python3 tools/probe_tp.py [--phases 29,30,31,33,34,35,36] [--dp]
+                              [--out FILE]
 
 Builds the kernels (the "pallas" forward runs the flash kernel on each
 rank's heads, the RG-LRU scan on its channels and SSD on its SSM heads),
@@ -50,7 +50,11 @@ def main(argv=None) -> int:
     C.log(f"build {time.perf_counter() - t0:.1f} s")
     device = torch.device("cuda")
     phases = [int(p) for p in args.phases.split(",") if p]
-    out = {"card": card, **C.family_tp_phases(device, card, phases)}
+    out = {"card": card, **C.family_tp_phases(
+        device, card, [p for p in phases if p not in C.SERVE_TP_ARCHS])}
+    serving = [p for p in phases if p in C.SERVE_TP_ARCHS]
+    if serving:
+        out["serving"] = C.serve_tp_phases(device, card, serving)
     if args.dp:
         out[32] = C.dp_phase(device, card)
     if args.out:
