@@ -344,7 +344,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    heads to head_dim over "model" by all-reduce: gloo runs no all-to-all
    on CUDA tensors), handed into a 1,024-slot decode cache whose sequence
    is split 512/512 over the ranks (`serve.step.prefill_into_cache_split`),
-   then 32 greedy decode steps on the unsharded run's tokens (each rank
+   then 16 greedy decode steps on the unsharded run's tokens (each rank
    reads all heads over its slots, the partials merged). The tokens equal
    the unsharded run's except where its top-2 gap is below 1e-3, the
    logits of the prefill's last position, of every 8th step and of the
@@ -358,8 +358,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    vocabulary padded to 49,408; expert parallel, the routing whole on
    each rank; 98 all-reduces a decode step) and seamless-m4t-large-v2
    (400 encoder frames a row, the cross caches split 200/200; 7 x 24 + 2
-   a decode step). Phases 35 and 36 share one pair of rank processes.
-   `tools/probe_tp.py --phases 35,36` runs 35-36 alone.
+   a decode step).
+37. The same for the recurrent families, 8 greedy steps each:
+   recurrentgemma-9b at full width, one pattern block (r, r, a) deep as
+   phase 33 cuts it (its decode ring of 1,024 slots split 512/512; each
+   rank runs its 2,048 RG-LRU channels, 8 query heads and half the FFN
+   and vocabulary), and mamba2-130m at full width and depth (each rank
+   its 12 SSM heads). Each recurrent state stays whole on every rank
+   (the reference's batch-only layout): the prefill gathers it, the
+   handoff copies it, and a decode step cuts the rank's channels or heads
+   out of it, steps them and gathers the new state, one all-reduce a
+   layer. Exactly 14, 2 and 16 all-reduces (recurrentgemma: prefill,
+   handoff, a decode step; its wk and wv gathered) and 122, 0 and 122
+   (mamba2: in_proj and conv_w gathered in every layer); each rank's
+   cache bytes half the attention cache's plus the whole states; launches
+   a rank: flash 1 and the RG-LRU scan 2 (recurrentgemma), SSD 24 on the
+   CUDA-core route (mamba2, f32). Phases 35-37 share one pair of rank
+   processes. `tools/probe_tp.py --phases 35,36,37` runs 35-37 alone.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; above it
 stand the card's name and power limit and one JSON line with each
@@ -2914,17 +2929,21 @@ SEAMLESS_ROWS, SEAMLESS_FRAMES, SEAMLESS_TOKENS = 4, 400, 256   # phase 31
 DP_LAYERS = 4                      # phase 32: granite-moe-1b's depth cut
 DP_GRAD_TOL = 1e-5                 # each leaf's gradient, of its max
 DP_LB_REL = 1e-6                   # the load balance against one device's
-SERVE_TP_ROWS, SERVE_TP_PROMPT = 4, 256    # phases 35-36: the prompts
-SERVE_TP_SLOTS = 1024              # phases 35-36: decode slots, 512 a rank
+SERVE_TP_ROWS, SERVE_TP_PROMPT = 4, 256    # phases 35-37: the prompts
+SERVE_TP_SLOTS = 1024              # phases 35-37: decode slots, 512 a rank
 SERVE_TP_FRAMES = 400              # phase 36: seamless' frames (200 a rank)
-SERVE_TP_STEPS = {"qwen3-1.7b": 32, "granite-moe-1b-a400m": 8,
-                  "seamless-m4t-large-v2": 8}       # greedy decode steps
+SERVE_TP_STEPS = {"qwen3-1.7b": 16, "granite-moe-1b-a400m": 8,
+                  "seamless-m4t-large-v2": 8, "recurrentgemma-9b": 8,
+                  "mamba2-130m": 8}                 # greedy decode steps
 SERVE_TP_LOGITS_EVERY = 8          # a step's logits checked every 8th step
 SERVE_TP_ARCHS = {35: ("qwen3-1.7b",),
-                  36: ("granite-moe-1b-a400m", "seamless-m4t-large-v2")}
+                  36: ("granite-moe-1b-a400m", "seamless-m4t-large-v2"),
+                  37: ("recurrentgemma-9b", "mamba2-130m")}
 SERVE_TP_PATHS = {"qwen3-1.7b": "tp_serve_qwen3",        # the kernels line's
                   "granite-moe-1b-a400m": "tp_serve_granite_1b",
-                  "seamless-m4t-large-v2": "tp_serve_seamless"}
+                  "seamless-m4t-large-v2": "tp_serve_seamless",
+                  "recurrentgemma-9b": "tp_serve_rgemma",
+                  "mamba2-130m": "tp_serve_mamba2"}
 
 
 class peak_batches(timed_batches):
@@ -3082,8 +3101,8 @@ def tp_baseline(device, phase: int) -> dict:
 
 def tp_rank(rank: int, port: int, out_dir: str, device_type: str,
             phase: int = 29):
-    """Phases 29-36, one rank, in a process of its own (`tp_rank_run`;
-    phase 32: `dp_rank_run`; a tuple of the serving phases 35-36:
+    """Phases 29-37, one rank, in a process of its own (`tp_rank_run`;
+    phase 32: `dp_rank_run`; a tuple of the serving phases 35-37:
     `serve_rank_run`). Writes rank<r>.json (its "error" on a
     failure) and exits non-zero on a failure."""
     import traceback
@@ -3473,12 +3492,16 @@ def log_tp_phase(tp: dict, base: dict):
     log(f"  phase {phase} took {tp['wall_s']:.1f} s")
 
 
-# ------------------------------------------ tensor-parallel serving (35-36)
+# ------------------------------------------ tensor-parallel serving (35-37)
 
 def serve_tp_config(arch: str):
-    """Phases 35-36's f32 model at full width and depth, prefilled through
-    the flash kernel ("pallas"); granite-moe-1b's vocabulary padded to a
+    """Phases 35-37's f32 model at full width, prefilled through the
+    kernels ("pallas"); at full depth but recurrentgemma-9b, one pattern
+    block deep (phase 33's cut); granite-moe-1b's vocabulary padded to a
     multiple of TP_VOCAB_PAD, as phase 30's (two ranks split it)."""
+    if arch == "recurrentgemma-9b":
+        return rgemma_config("float32", n_layers=RGEMMA_TRAIN_LAYERS,
+                             tail_pattern=(), attention_impl="pallas")
     kw = {"vocab_pad_to": TP_VOCAB_PAD} if arch.startswith("granite") else {}
     return family_config(arch, "float32", attention_impl="pallas", **kw)
 
@@ -3517,8 +3540,14 @@ def tree_bytes(tree) -> int:
                for t in tree_leaves(tree))
 
 
+def state_bytes(cache) -> int:
+    """The bytes of a decode cache's recurrent states (RG-LRU, Mamba2
+    layers: no "k"), which stay whole on every rank."""
+    return tree_bytes([c for c in cache if "k" not in c])
+
+
 def serve_tp_oracle(device, arch: str) -> dict:
-    """Phases 35-36's oracle: the unsharded steps in this process on the
+    """Phases 35-37's oracle: the unsharded steps in this process on the
     card on the ranks' seeded weights and prompts: the prefill through
     flash and its logits, `prefill_into_cache` into SERVE_TP_SLOTS slots,
     SERVE_TP_STEPS[arch] greedy decode steps and their logits. The tokens and
@@ -3557,7 +3586,8 @@ def serve_tp_oracle(device, arch: str) -> dict:
                 "logits": every}, serve_tp_file(arch))
     out = {"tokens": every.argmax(-1).tolist(),
            "gaps": (top2[..., 0] - top2[..., 1]).tolist(),
-           "cache_bytes": tree_bytes(cache), "ms": ms,
+           "cache_bytes": tree_bytes(cache),
+           "state_bytes": state_bytes(cache), "ms": ms,
            "step_ms": float(np.median(ms[1:])), "params": n_params}
     del params, cache, every, rows
     gc.collect()
@@ -3566,37 +3596,53 @@ def serve_tp_oracle(device, arch: str) -> dict:
 
 
 def serve_want_reduces(cfg, device) -> dict:
-    """The model-axis collectives of phases 35-36's calls on two ranks
-    (the kv heads and the vocabulary split, so no leaf is gathered): the
-    prefill (2 + c) L + 2 Le + 2 all-reduces (the row-parallel outputs,
-    the embedding, the greedy token) and 2 (1 + c) L moving its caches
-    from the rank's kv heads to head_dim: on the card all-reduces (gloo
-    runs no all-to-all on CUDA tensors), on the CPU all-to-alls
-    ("prefill_moves"); the handoff TP_RANKS (1 + c) L; a decode step
-    (4 + 3 c) L + 2 (c = 1 with cross-attention)."""
-    L, c = cfg.n_layers, int(cfg.is_encdec)
+    """The model-axis collectives of phases 35-37's calls on two ranks (L
+    attention layers, Le encoder layers, Lr RG-LRU layers, Lm Mamba2
+    layers; c = 1 with cross-attention): the prefill (2 + c) L + 2 Le +
+    4 Lr + 3 Lm + 2 + g all-reduces (the row-parallel outputs, an RG-LRU
+    layer's conv gather and state gather, a Mamba2 layer's norm and state
+    gather, the embedding, the greedy token; g one for each leaf stored
+    split and taken whole: recurrentgemma's wk and wv, each Mamba2
+    layer's in_proj and conv_w, `tp.leaf_gather_all_reduces`) and, where
+    the kv heads split, 2 (1 + c) L moving its caches from the rank's kv
+    heads to head_dim: on the card all-reduces (gloo runs no all-to-all
+    on CUDA tensors), on the CPU all-to-alls ("prefill_moves"); the
+    handoff TP_RANKS (1 + c) L (a recurrent state is copied whole); a
+    decode step (4 + 3 c) L + 4 Lr + 3 Lm + 2 + g."""
+    from repro_torch.launch.shapes import params_shapes
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding import tp as TP
+    mesh = R.mesh_like((1, 1, TP_RANKS), ("pod", "data", "model"))
+    tp = TP.TensorParallel.build(cfg, mesh)
+    g = TP.leaf_gather_all_reduces(cfg, params_shapes(cfg), mesh, tp,
+                                   backward=False)
+    types = cfg.layer_types()
+    L, c = types.count("attn"), int(cfg.is_encdec)
     Le = cfg.n_enc_layers if c else 0
-    moves = 2 * (1 + c) * L
+    rec = 4 * types.count("rglru") + 3 * types.count("ssm")
+    moves = 2 * (1 + c) * L if tp.kv else 0
     card = device.type == "cuda"
-    return {"prefill": (2 + c) * L + 2 * Le + 2 + moves * card,
+    return {"prefill": (2 + c) * L + 2 * Le + rec + 2 + g + moves * card,
             "prefill_moves": 0 if card else moves,
             "handoff": TP_RANKS * (1 + c) * L,
-            "decode": (4 + 3 * c) * L + 2}
+            "decode": (4 + 3 * c) * L + rec + 2 + g}
 
 
 def serve_rank_run(rank: int, port: int, device, phases: tuple) -> dict:
-    """Phases 35-36, one rank of a (1, 1, 2) mesh, for each arch of the
+    """Phases 35-37, one rank of a (1, 1, 2) mesh, for each arch of the
     `phases`: the seeded weights laid out by the rules, the tensor-parallel
-    greedy prefill through flash (its launches and all-reduces counted),
-    `prefill_into_cache_split` into the sequence-split decode cache, then
+    greedy prefill through the kernels (their launches and all-reduces
+    counted), `prefill_into_cache_split` into the decode cache (the
+    attention caches' sequence split, a recurrent state whole), then
     SERVE_TP_STEPS[arch] greedy steps on the oracle's tokens (timed,
     all-reduces counted), the logits of the prefill's last position, of
     every SERVE_TP_LOGITS_EVERY-th step and of the last from a second call
-    on the same inputs against
-    the oracle's (gloo stages every all-reduce of a CUDA tensor through
-    the host, so each call costs a few hundred ms), and a profiled step
-    on rank 0."""
+    on the same inputs and a copy of the cache (a recurrent state steps
+    at every call) against the oracle's (gloo stages every all-reduce of
+    a CUDA tensor through the host, so each call costs a few hundred ms),
+    and a profiled step on rank 0."""
     import torch.distributed as dist
+    from torch.utils._pytree import tree_map
     mesh = init_ranks(rank, port, device, (1, 1, TP_RANKS))
     from repro_torch.launch import distributed as D
     from repro_torch.serve import step as ST
@@ -3637,7 +3683,8 @@ def serve_rank_run(rank: int, port: int, device, phases: tuple) -> dict:
                 sync_device(device)
                 prefill_reduces = tp.all_reduces - r0
                 prefill_moves = tp.all_to_alls - m0
-                flash = fns["flash_attention"].launches
+                launches = {k: fns[k].launches for k in
+                            ("flash_attention", "rglru_scan", "ssd_scan")}
                 stamps.append(time.perf_counter())
                 lg, _ = spmd.call_split(
                     ST.build_prefill(cfg, return_logits=True, tp=tp),
@@ -3674,6 +3721,15 @@ def serve_rank_run(rank: int, port: int, device, phases: tuple) -> dict:
                         (pspec, torch.full((SERVE_TP_ROWS,),
                                            SERVE_TP_PROMPT + i,
                                            dtype=torch.int32))))
+                    if not (i % SERVE_TP_LOGITS_EVERY and i != steps - 1):
+                        lg, _ = spmd.call_split(
+                            with_logits, (params, t_in, pos,
+                                          tree_map(torch.clone, cache)),
+                            (pspec, c_specs), tp)
+                        errs[i + 1] = float((spmd.local(lg).cpu()
+                                             - oracle["logits"][i + 1]
+                                             ).abs().max())
+                        del lg, _
                     args = (params, t_in, pos, cache)
                     r0 = tp.all_reduces
                     sync_device(device)
@@ -3684,13 +3740,6 @@ def serve_rank_run(rank: int, port: int, device, phases: tuple) -> dict:
                     ms.append((time.perf_counter() - t0) * 1e3)
                     reduces.add(tp.all_reduces - r0)
                     tokens.append(spmd.local(tok).tolist())
-                    if i % SERVE_TP_LOGITS_EVERY and i != steps - 1:
-                        continue
-                    lg, cache = spmd.call_split(with_logits,
-                                                (params, t_in, pos, cache),
-                                                (pspec, c_specs), tp)
-                    errs[i + 1] = float((spmd.local(lg).cpu()
-                                         - oracle["logits"][i + 1]).abs().max())
 
                 def one_step():
                     spmd.call_split(greedy, (params, t_in, pos, cache),
@@ -3704,6 +3753,7 @@ def serve_rank_run(rank: int, port: int, device, phases: tuple) -> dict:
                     one_step()
                     one_step()
                 stamps.append(time.perf_counter())
+            attn = next((c for c in cache if "k" in c), {})
             out[arch] = {
                 "seconds": dict(zip(("set-up", "prefill", "prefill logits",
                                      "handoff", "decode", "profile"),
@@ -3714,10 +3764,10 @@ def serve_rank_run(rank: int, port: int, device, phases: tuple) -> dict:
                             "prefill_moves": prefill_moves,
                             "handoff": handoff_reduces,
                             "decode": sorted(reduces)},
-                "flash_launches": flash,
+                "launches": launches,
                 "cache_bytes": tree_bytes(cache),
-                "local_slots": [spmd.local(cache[0][k]).shape[1] for k in
-                                ("k", "cross_k") if k in cache[0]],
+                "local_slots": [spmd.local(attn[k]).shape[1] for k in
+                                ("k", "cross_k") if k in attn],
                 "profile": None if prof is None else {
                     k: prof[k] for k in ("step_ms", "device_ms",
                                          "busy_share", "top")}}
@@ -3730,8 +3780,8 @@ def serve_rank_run(rank: int, port: int, device, phases: tuple) -> dict:
         dist.destroy_process_group()
 
 
-def serve_tp_phases(device, card: str, phases=(35, 36)) -> dict:
-    """Phases 35-36: each arch's unsharded oracle in this process, then two
+def serve_tp_phases(device, card: str, phases=(35, 36, 37)) -> dict:
+    """Phases 35-37: each arch's unsharded oracle in this process, then two
     model ranks (processes on the one card over gloo, (1, 1, 2)) serve
     every arch of the phases tensor parallel, in one pair of processes;
     the checks against the oracles, and the log lines."""
@@ -3741,13 +3791,18 @@ def serve_tp_phases(device, card: str, phases=(35, 36)) -> dict:
     for phase in phases:
         archs = SERVE_TP_ARCHS[phase]
         log(f"[{phase}] tensor-parallel serving: {', '.join(archs)} at full "
-            f"width and depth, f32 (TF32 off), {TP_RANKS} model ranks "
+            f"width and depth"
+            + (" (recurrentgemma one pattern block: r, r, a)"
+               if phase == 37 else "")
+            + f", f32 (TF32 off), {TP_RANKS} model ranks "
             f"(processes on the one card, gloo), a (1, 1, {TP_RANKS}) mesh; "
             f"{SERVE_TP_ROWS} prompts of {SERVE_TP_PROMPT} tokens"
             + (f" (seamless over {SERVE_TP_FRAMES} frames)"
                if phase == 36 else "")
-            + f" prefilled through flash ('pallas') on each rank's heads, "
-            f"handed into {SERVE_TP_SLOTS} decode slots split "
+            + " prefilled through the kernels ('pallas') on each rank's "
+            + ("heads, RG-LRU channels and SSM heads (each recurrent state "
+               "gathered whole)" if phase == 37 else "heads")
+            + f", handed into {SERVE_TP_SLOTS} decode slots split "
             f"{SERVE_TP_SLOTS // TP_RANKS}/{SERVE_TP_SLOTS // TP_RANKS} over "
             f"the ranks, {', '.join(str(SERVE_TP_STEPS[a]) for a in archs)} "
             f"greedy steps on the unsharded run's tokens, the logits of "
@@ -3778,10 +3833,11 @@ def serve_tp_phases(device, card: str, phases=(35, 36)) -> dict:
                     f"{LOGIT_TOL}); all-reduces: prefill "
                     f"{got['reduces']['prefill']}, handoff "
                     f"{got['reduces']['handoff']}, a decode step "
-                    f"{got['reduces']['decode']} (expected {want}); flash "
-                    f"launches {got['flash_launches']}; cache "
+                    f"{got['reduces']['decode']} (expected {want}); "
+                    f"launches {got['launches']}; cache "
                     f"{got['cache_bytes']} bytes a rank (unsharded "
-                    f"{base['cache_bytes']}), slots a rank "
+                    f"{base['cache_bytes']}, of it recurrent states "
+                    f"{base['state_bytes']}), slots a rank "
                     f"{got['local_slots']}")
                 log("    seconds: " + ", ".join(
                     f"{k} {v:.2f}" for k, v in got["seconds"].items()))
@@ -3802,8 +3858,11 @@ def serve_tp_phases(device, card: str, phases=(35, 36)) -> dict:
 def serve_tp_check(phase, arch, rank, cfg, got, base, want):
     """A rank's tokens against the unsharded run's (a token may differ
     only at a step whose unsharded top-2 gap is below LOGIT_TOL), its
-    logits within LOGIT_TOL, its all-reduces exactly, half the cache
-    bytes, one flash launch a decoder layer."""
+    logits within LOGIT_TOL, its all-reduces exactly, half the attention
+    caches' bytes and the whole recurrent states (the reference's
+    layout), and the prefill's launches: flash once a decoder attention
+    layer, the RG-LRU scan once an RG-LRU layer, SSD once a Mamba2
+    layer."""
     where = f"phase {phase} {arch} rank {rank}"
     if len(got["tokens"]) != len(base["tokens"]):
         raise AssertionError(f"{where}: {len(got['tokens'])} tokens a row")
@@ -3819,12 +3878,15 @@ def serve_tp_check(phase, arch, rank, cfg, got, base, want):
     if got["reduces"] != dict(want, decode=[want["decode"]]):
         raise AssertionError(f"{where}: all-reduces {got['reduces']}, "
                              f"expected {want} (a decode step)")
-    if got["cache_bytes"] * TP_RANKS != base["cache_bytes"]:
+    states = base["state_bytes"]
+    if (got["cache_bytes"] - states) * TP_RANKS \
+            != base["cache_bytes"] - states:
         raise AssertionError(f"{where}: {got['cache_bytes']} cache bytes a "
-                             f"rank, unsharded {base['cache_bytes']}")
-    if got["flash_launches"] != cfg.n_layers:
-        raise AssertionError(f"{where}: {got['flash_launches']} flash "
-                             f"launches, expected {cfg.n_layers}")
+                             f"rank, unsharded {base['cache_bytes']} (of it "
+                             f"recurrent states {states})")
+    if got["launches"] != tp_want_launches(cfg):
+        raise AssertionError(f"{where}: launches {got['launches']}, "
+                             f"expected {tp_want_launches(cfg)}")
 
 
 def family_tp_phases(device, card: str, phases) -> dict:
@@ -4304,14 +4366,19 @@ def main(device: str = "cuda") -> int:
     fam_flash.update({f"tp_{name}": n["flash_attention"]
                       for name, n in tp_launches.items()
                       if n["flash_attention"]})
-    # each tensor-parallel serving prefill: rank 0's launches
-    fam_flash.update({SERVE_TP_PATHS[arch]: n["flash_launches"]
-                      for arch, n in served_tp["ranks"][0]["archs"].items()})
+    # each tensor-parallel serving prefill: rank 0's launches, by kernel
+    served_paths = {k: {SERVE_TP_PATHS[arch]: n["launches"][k]
+                        for arch, n in served_tp["ranks"][0]["archs"].items()
+                        if n["launches"][k]}
+                    for k in ("flash_attention", "rglru_scan", "ssd_scan")}
+    fam_flash.update(served_paths["flash_attention"])
     rglru_paths = {"recurrentgemma": dense_r["launches"]["rglru_scan"],
                    "tp_recurrentgemma":
-                       tp_launches["recurrentgemma"]["rglru_scan"]}
+                       tp_launches["recurrentgemma"]["rglru_scan"],
+                   **served_paths["rglru_scan"]}
     ssd_paths = {"mamba2": dense_m["launches"]["ssd_scan"],
-                 "tp_mamba2": tp_launches["mamba2"]["ssd_scan"]}
+                 "tp_mamba2": tp_launches["mamba2"]["ssd_scan"],
+                 **served_paths["ssd_scan"]}
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",
@@ -4402,14 +4469,13 @@ def main(device: str = "cuda") -> int:
         f"{flash_errs[torch.bfloat16]:.3g}")
     log(f"kernels: rglru_scan launches={kernels[2]['launches']} "
         f"({dense_r['prefills']} prefills x {cfg_r.n_layers - n_attn} "
-        f"layers + {rglru_paths['tp_recurrentgemma']} on tensor-parallel "
-        f"rank 0's channels); "
+        f"layers + on tensor-parallel rank 0's channels {rglru_paths}); "
         f"f32 max abs err {scan_errs[torch.float32]:.3g}, bf16 "
         f"{scan_errs[torch.bfloat16]:.3g}")
     log(f"kernels: ssd_scan launches={kernels[3]['launches']} "
         f"({dense_m['prefills']} prefills x {cfg_m.n_layers} layers, by "
-        f"route {kernels[3]['route_launches']}; + {ssd_paths['tp_mamba2']} "
-        f"on tensor-parallel rank 0's heads); f32 "
+        f"route {kernels[3]['route_launches']}; + on tensor-parallel rank "
+        f"0's heads {ssd_paths}); f32 "
         f"max abs err {ssd_errs[torch.float32]:.3g}, bf16 "
         f"{ssd_errs[torch.bfloat16]:.3g}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -10,14 +10,13 @@ caches are fake DTensors laid out by the rule engine's specs
 data parallel over "pod" x "data"; over "model", a train step runs
 tensor parallel (`sharding.tp`: each rank its heads, FFN columns or
 experts, RG-LRU channels or Mamba2 heads and vocabulary rows, explicit
-all-reduces), and so do the serving steps of the attention families
+all-reduces), and so do the serving steps of every family
 (`spmd.call_split`: the decode caches hold the sequence over "model",
 every rank reads all heads over its slots and the partials are merged;
 the prefill caches move from the rank's kv heads to head_dim over
-"model" by an all-to-all). The serving steps of recurrentgemma-9b and
-mamba2-130m run on params and caches gathered over "model"
-(`spmd.call_local`: the axis shards storage only, and its ranks repeat
-the same compute).
+"model" by an all-to-all; a recurrent state stays whole on every rank,
+each rank steps its channels or heads and one all-reduce a layer makes
+the new state whole).
 Counters:
 
   flops_per_device          FlopCounterMode over the rank's local compute
@@ -37,10 +36,12 @@ Counters:
                             taken whole; remat one more per recomputed
                             mixer output, gather or norm; a decode step:
                             4 a dense or MoE layer, 7 a decoder layer
-                            with cross-attention, one for the embedding
-                            and one for the greedy token; a prefill: 2 a
+                            with cross-attention, 4 an RG-LRU layer, 3
+                            a Mamba2 layer, one for the embedding and
+                            one for the greedy token; a prefill: 2 a
                             dense or MoE layer, 2 an encoder layer, 3 a
-                            decoder layer with cross-attention, the
+                            decoder layer with cross-attention, 4 an
+                            RG-LRU layer, 3 a Mamba2 layer, the
                             embedding's and the greedy token's; in
                             serving one for each leaf stored split and
                             taken whole),
@@ -165,6 +166,10 @@ def measure_case(cfg, shape_name, mesh, *, microbatches=None, remat=None):
     case = make_case(cfg, shape_name, mesh, microbatches=microbatches,
                      remat=remat)
     kind = SHAPES[shape_name].kind
+    if kind != "train" and case["tp"] is None:
+        raise ValueError(f"{shape_name}: a serving step runs tensor "
+                         "parallel, and the mesh has no 'model' axis "
+                         "larger than 1")
     t0 = time.perf_counter()
     with FakeTensorMode(allow_non_fake_inputs=True), \
             R.mesh_context(mesh):
@@ -181,13 +186,9 @@ def measure_case(cfg, shape_name, mesh, *, microbatches=None, remat=None):
                 out = case["fn"](*args)
             else:
                 with torch.no_grad():
-                    if case["tp"] is None:
-                        out = spmd.call_local(case["fn"], args,
-                                              case["out_specs"])
-                    else:
-                        out = spmd.call_split(case["fn"], args,
-                                              case["out_specs"], case["tp"],
-                                              case["local_specs"])
+                    out = spmd.call_split(case["fn"], args,
+                                          case["out_specs"], case["tp"],
+                                          case["local_specs"])
         out_bytes = _local_bytes(out)
         peak = sum(d.get("Total", 0) for d in
                    mem.get_tracker_snapshot("peak").values())

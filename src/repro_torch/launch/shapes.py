@@ -14,10 +14,9 @@ Shape semantics:
   long_500k   -> serve_decode at position 524,287; sub-quadratic state
                  (SSM state / RG-LRU + local window / sliding-window
                  variant for the full-attention archs)
-The serving shapes run tensor parallel over "model" for the attention
-families (`tp.serve_in_scope`; `spmd.call_split`: the decode caches'
-sequence split over "model"); recurrentgemma and Mamba2 serve on gathered
-params and caches (`spmd.call_local`).
+The serving shapes run tensor parallel over "model" for every family
+(`spmd.call_split`: the decode caches' sequence split over "model", a
+recurrent state whole on every rank).
 """
 from __future__ import annotations
 
@@ -151,10 +150,9 @@ def make_case(arch_cfg, shape_name: str, mesh, *, microbatches=None,
     step counter a CPU scalar). A case on a mesh whose "model" axis is
     larger than 1 runs tensor parallel (`tp`, a
     `sharding.tp.TensorParallel` counting its all-reduces; else None):
-    every train case, and the serving cases of the attention families
-    (run by `spmd.call_split`, their outputs on a rank laid out as
-    `local_specs`); `gathered_leaves` names the leaves stored split over
-    "model" whose compute is gathered."""
+    every case (a serving case run by `spmd.call_split`, its outputs on a
+    rank laid out as `local_specs`); `gathered_leaves` names the leaves
+    stored split over "model" whose compute is gathered."""
     case = SHAPES[shape_name]
     cfg = dryrun_config(arch_cfg)
     if remat is not None:
@@ -183,7 +181,7 @@ def make_case(arch_cfg, shape_name: str, mesh, *, microbatches=None,
                     tp=tp, gathered_leaves=gathered_leaves(cfg, p_shapes,
                                                            mesh, tp))
 
-    tp = TensorParallel.build(cfg, mesh) if TP.serve_in_scope(cfg) else None
+    tp = TensorParallel.build(cfg, mesh)
     if case.kind == "prefill":
         b_shapes = _prefill_batch_shapes(cfg, case)
         b_specs = R.batch_specs(cfg, b_shapes, mesh)

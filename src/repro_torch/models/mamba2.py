@@ -15,8 +15,10 @@ carried state). Decode is a one-step update of the state.
 reference (`init_mamba2`); the SSM state is float32.
 
 With a tensor-parallel context (`sharding.tp`, `mamba2_forward(...,
-tp=)`) the block runs this rank's heads (`_rank_params`); the gated
-RMSNorm sums its squares over the model ranks.
+tp=)`, `mamba2_decode(..., tp=)`) the block runs this rank's heads
+(`_rank_params`); the gated RMSNorm sums its squares over the model
+ranks. A decode step takes and returns the whole state, the reference's
+layout (`rank_state`, `whole_state`).
 """
 from __future__ import annotations
 
@@ -162,39 +164,94 @@ def _causal_conv(xBC, w, b):
     return F.silu(out + b[None, None, :])
 
 
-def _split_proj(cfg, proj):
-    s = cfg.ssm
-    di = s.d_inner(cfg.d_model)
-    gn = s.n_groups * s.d_state
-    return torch.split(proj, [di, di + 2 * gn, proj.shape[-1] - 2 * di
-                              - 2 * gn], dim=-1)
-
-
-def _rank_params(params, cfg, tp):
-    """The leaves as this rank's heads use them, and its group count:
-    `in_proj`'s columns of its heads' z, x and dt and of the B/C of the
-    groups they read (`tp.head_groups`), `conv_w`/`conv_b` on its x, B and
-    C channels, its heads' `A_log`, `dt_bias`, `D` and channels of
-    `norm_scale`; `out_proj` is already its rows."""
+def _rank_columns(cfg, tp):
+    """Where this rank's heads lie in the block's fused layouts, the one
+    map the split forward, the split decode and the state's gather share:
+    its first head and head count, the groups its heads read
+    (`tp.head_groups`: one entry per local group), and its conv channels
+    as segments in local order, [its x | the B of its groups | their C],
+    each a range of the whole [x | B | C] with a flag: whether the rank
+    gives the segment to the gathered state. Its x always; a group's B or
+    C only on the lowest rank whose heads read the group, and there once
+    (the other readers hold the same columns)."""
     s = cfg.ssm
     di, nh, n = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model), s.d_state
     gn = s.n_groups * n
     nh_l = nh // tp.size
     first = tp.rank * nh_l
-    groups = TP.head_groups(first, nh_l, nh // s.n_groups)
-    x = (first * s.head_dim, (first + nh_l) * s.head_dim)
-    xbc = [x] + [(di + off + k * n, di + off + (k + 1) * n)
-                 for off in (0, gn) for k in groups]     # in [x | B | C]
-    dt = (2 * di + 2 * gn + first, 2 * di + 2 * gn + first + nh_l)
+    rep = nh // s.n_groups
+    groups = TP.head_groups(first, nh_l, rep)
+    segs = [((first * s.head_dim, (first + nh_l) * s.head_dim), True)]
+    for off in (di, di + gn):
+        seen = set()
+        for k in groups:
+            mine = k * rep // nh_l == tp.rank and k not in seen
+            seen.add(k)
+            segs.append(((off + k * n, off + (k + 1) * n), mine))
+    return {"first": first, "heads": nh_l, "groups": groups,
+            "segments": segs}
 
-    def cols(w, ranges):
-        return torch.cat([w[..., a:b] for a, b in ranges], dim=-1)
-    return {"in_proj": cols(params["in_proj"], [x] + [
-                (a + di, b + di) for a, b in xbc] + [dt]),
-            **{k: cols(params[k], xbc) for k in ("conv_w", "conv_b")},
+
+def _cols(w, ranges):
+    return torch.cat([w[..., a:b] for a, b in ranges], dim=-1)
+
+
+def _rank_params(params, cfg, tp):
+    """The leaves as this rank's heads use them, and its group count:
+    `in_proj`'s columns of its heads' z, x and dt and of the B/C of the
+    groups they read (`_rank_columns`), `conv_w`/`conv_b` on its x, B and
+    C channels, its heads' `A_log`, `dt_bias`, `D` and channels of
+    `norm_scale`; `out_proj` is already its rows."""
+    s = cfg.ssm
+    di = s.d_inner(cfg.d_model)
+    gn = s.n_groups * s.d_state
+    m = _rank_columns(cfg, tp)
+    xbc = [r for r, _ in m["segments"]]                  # in [x | B | C]
+    dt0 = 2 * di + 2 * gn + m["first"]
+    return {"in_proj": _cols(params["in_proj"], [xbc[0]] + [
+                (a + di, b + di) for a, b in xbc] + [(dt0, dt0 + m["heads"])]),
+            **{k: _cols(params[k], xbc) for k in ("conv_w", "conv_b")},
             **{k: tp.shard(params[k]) for k in ("A_log", "dt_bias", "D",
                                                  "norm_scale")},
-            "out_proj": params["out_proj"]}, len(groups)
+            "out_proj": params["out_proj"]}, len(m["groups"])
+
+
+def rank_state(cfg, state, tp):
+    """This rank's part of a whole decode state {"ssm": (B, h, p, n),
+    "conv": (B, d_conv-1, cd)}: its heads' states and its conv channels
+    (`_rank_columns`)."""
+    m = _rank_columns(cfg, tp)
+    return {"ssm": state["ssm"].narrow(1, m["first"], m["heads"]),
+            "conv": _cols(state["conv"], [r for r, _ in m["segments"]])}
+
+
+def whole_state(cfg, state, tp):
+    """The whole decode state from every rank's part (`rank_state`'s
+    layout): each rank writes its heads' states and the conv segments it
+    gives (`_rank_columns`) into a zeroed buffer of the whole, in float32,
+    and one all-reduce sums them. Every element has one nonzero summand,
+    so the sum is exact (the conv window returns to its dtype unchanged).
+    The same on every rank; no gradient (serving state)."""
+    s = cfg.ssm
+    ssm, conv = state["ssm"], state["conv"]
+    B_, nh, cd = ssm.shape[0], s.n_heads(cfg.d_model), conv_dim(cfg)
+    m = _rank_columns(cfg, tp)
+    ssm_shape = (B_, nh) + tuple(ssm.shape[2:])
+    conv_shape = (B_, conv.shape[1], cd)
+    n_ssm = ssm[0, 0].numel() * nh
+    with torch.no_grad():
+        packed = ssm.new_zeros((B_, n_ssm + conv_shape[1] * cd))
+        packed[:, :n_ssm].view(ssm_shape).narrow(
+            1, m["first"], m["heads"]).copy_(ssm)
+        full_conv = packed[:, n_ssm:].view(conv_shape)
+        at = 0
+        for (a, b), mine in m["segments"]:
+            if mine:
+                full_conv[..., a:b] = conv[..., at:at + b - a]
+            at += b - a
+        packed = tp.all_reduce(packed)
+    return {"ssm": packed[:, :n_ssm].reshape(ssm_shape),
+            "conv": packed[:, n_ssm:].reshape(conv_shape).to(conv.dtype)}
 
 
 def mamba2_forward(params, cfg, u, tp=None):
@@ -208,8 +265,9 @@ def mamba2_forward(params, cfg, u, tp=None):
     rows of `out_proj` and every other leaf gathered: u enters through
     `copy_to_model`, the block runs the rank's heads (`_rank_params`: the
     conv on their channels, the SSD on the heads, the gated RMSNorm over
-    the whole d_inner), the cache is the rank's, and the row-parallel
-    output leaves through `reduce_from_model`."""
+    the whole d_inner), the cache is the rank's part (`rank_state`'s
+    layout; `whole_state` gathers it), and the row-parallel output
+    leaves through `reduce_from_model`."""
     s = cfg.ssm
     B_, S, d = u.shape
     di, nh, g = s.d_inner(d), s.n_heads(d), s.n_groups
@@ -244,26 +302,42 @@ def mamba2_forward(params, cfg, u, tp=None):
     return out, {"ssm": state, "conv": conv}
 
 
-def mamba2_decode(params, cfg, u, cache):
+def mamba2_decode(params, cfg, u, cache, tp=None):
     """u: (B, 1, d); cache: {"ssm": (B,h,p,n) f32, "conv": (B, d_conv-1, cd)}.
-    Returns (out, new cache); the input cache is not modified."""
+    Returns (out, new cache); the input cache is not modified.
+
+    With a tensor-parallel context (`sharding.tp`) params are laid out as
+    for `mamba2_forward(..., tp=)` and the cache is the whole state (its
+    layout in `rules.cache_specs`): the rank steps its heads on its part
+    of it (`rank_state`), the gated RMSNorm sums its squares over the
+    ranks, the output leaves through `reduce_from_model`, and the new
+    state is made whole again (`whole_state`: one all-reduce)."""
     s = cfg.ssm
     B_, _, d = u.shape
-    di = s.d_inner(d)
-    nh = s.n_heads(d)
-    gn = s.n_groups * s.d_state
-    z, xBC_raw, dt = _split_proj(cfg, u @ params["in_proj"])
+    di, nh, g = s.d_inner(d), s.n_heads(d), s.n_groups
+    if tp is not None:
+        params, g = _rank_params(params, cfg, tp)
+        di, nh = di // tp.size, nh // tp.size
+        cache = rank_state(cfg, cache, tp)
+    gn = g * s.d_state
+    z, xBC_raw, dt = torch.split(u @ params["in_proj"], [di, di + 2 * gn, nh],
+                                 dim=-1)
     conv_buf = torch.cat([cache["conv"], xBC_raw], dim=1)  # (B, d_conv, cd)
     xBC = F.silu(torch.einsum("bwc,wc->bc", conv_buf, params["conv_w"])
                  + params["conv_b"])
     x, Bm, Cm = torch.split(xBC, [di, gn, gn], dim=-1)
     x = x.reshape(B_, nh, s.head_dim)
-    Bm = Bm.reshape(B_, s.n_groups, s.d_state)
-    Cm = Cm.reshape(B_, s.n_groups, s.d_state)
+    Bm = Bm.reshape(B_, g, s.d_state)
+    Cm = Cm.reshape(B_, g, s.d_state)
     dtv = F.softplus(dt[:, 0].float() + params["dt_bias"][None, :])
     A = -torch.exp(params["A_log"])
     y, state = ssd_decode_step(cache["ssm"], x, dtv, A, Bm, Cm)
     y = y + x * params["D"][None, :, None]
     y = y.reshape(B_, 1, di)
-    y = rms_norm(y * F.silu(z), params["norm_scale"], cfg.norm_eps)
-    return y @ params["out_proj"], {"ssm": state, "conv": conv_buf[:, 1:, :]}
+    y = rms_norm(y * F.silu(z), params["norm_scale"], cfg.norm_eps, tp)
+    out = y @ params["out_proj"]
+    new = {"ssm": state, "conv": conv_buf[:, 1:, :]}
+    if tp is not None:
+        out = TP.reduce_from_model(out, tp)
+        new = whole_state(cfg, new, tp)
+    return out, new

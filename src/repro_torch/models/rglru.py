@@ -19,8 +19,10 @@ The gate biases and Lambda are float32 whatever the parameter dtype, as in
 the reference (`init_rglru_block`); the recurrent state `h` is float32.
 
 With a tensor-parallel context (`sharding.tp`, `rglru_block_forward(...,
-tp=)`) the block runs this rank's w/tp channels; the gates contract over
-the whole width, so they read the gathered conv output.
+tp=)`, `rglru_block_decode(..., tp=)`) the block runs this rank's w/tp
+channels; the gates contract over the whole width, so they read the
+gathered conv output. A decode step takes and returns the whole state,
+the reference's layout (`rank_state`, `whole_state`).
 """
 from __future__ import annotations
 
@@ -114,9 +116,12 @@ def rglru_scan(params, cfg, x, h0=None, tp=None):
     return Y.to(x.dtype), Y[:, -1].float()
 
 
-def rglru_step(params, cfg, x, h):
-    """x: (B, w); h: (B, w) f32 -> (y, h_new)."""
-    a, gx = _gates(params, cfg, x[:, None, :])
+def rglru_step(params, cfg, x, h, tp=None):
+    """x: (B, w); h: (B, w) f32 -> (y, h_new). With `tp` x and h are this
+    rank's channels, and the gates read x gathered over the model ranks
+    (as `rglru_scan`'s do)."""
+    full = None if tp is None else TP.gather_from_model(x, tp)[:, None, :]
+    a, gx = _gates(params, cfg, x[:, None, :], full)
     h_new = a[:, 0] * h + gx[:, 0]
     return h_new.to(x.dtype), h_new
 
@@ -139,13 +144,13 @@ def rglru_block_forward(params, cfg, x, tp=None):
     column shards of `w_x`, `w_gate_branch`, `conv_w`, `w_r`, `w_i` and
     its rows of `out_proj`, and the gathered vectors: x enters through
     `copy_to_model`, the branches, conv and scan run on the rank's w/tp
-    channels (the cache is the rank's), and the row-parallel output leaves
-    through `reduce_from_model`."""
+    channels (the cache is the rank's channels; `whole_state` gathers
+    it), and the row-parallel output leaves through
+    `reduce_from_model`."""
     gelu = ACTIVATIONS["gelu"]                 # jax.nn.gelu: the tanh form
     if tp is not None:
         x = TP.copy_to_model(x, tp)
-        params = {**params, **{k: tp.shard(params[k]) for k in
-                               ("conv_b", "b_r", "b_i", "Lambda")}}
+        params = _rank_vectors(params, tp)
     branch = x @ params["w_x"]                                  # (B,S,w)
     gate = gelu(x @ params["w_gate_branch"])
     conv_out = _conv_full(branch, params["conv_w"], params["conv_b"])
@@ -163,15 +168,55 @@ def rglru_block_forward(params, cfg, x, tp=None):
     return out, cache
 
 
-def rglru_block_decode(params, cfg, x, cache):
+def _rank_vectors(params, tp):
+    """params with the per-channel vectors (stored replicated, taken
+    gathered) cut to this rank's channels."""
+    return {**params, **{k: tp.shard(params[k]) for k in
+                         ("conv_b", "b_r", "b_i", "Lambda")}}
+
+
+def rank_state(state, tp):
+    """This rank's channels of a whole decode state {"h": (B, w),
+    "conv": (B, d_conv-1, w)}."""
+    return {k: tp.shard(v) for k, v in state.items()}
+
+
+def whole_state(state, tp):
+    """The whole decode state from every rank's channels (`rank_state`'s
+    layout): h and the conv window packed in float32, zero-padded to the
+    whole width and summed by one all-reduce. Every element has one
+    nonzero summand, so the sum is exact (the window returns to its dtype
+    unchanged). The same on every rank; no gradient (serving state)."""
+    h, conv = state["h"], state["conv"]
+    with torch.no_grad():
+        packed = torch.cat([h[:, None, :].float(), conv.float()], dim=1)
+        full = TP.gather_from_model(packed, tp, -1, False)
+    return {"h": full[:, 0], "conv": full[:, 1:].to(conv.dtype)}
+
+
+def rglru_block_decode(params, cfg, x, cache, tp=None):
     """x: (B, 1, d); cache {"h": (B,w) f32, "conv": (B, d_conv-1, w)}.
-    Returns (out, new cache); the input cache is not modified."""
+    Returns (out, new cache); the input cache is not modified.
+
+    With a tensor-parallel context (`sharding.tp`) params are laid out as
+    for `rglru_block_forward(..., tp=)` and the cache is the whole state
+    (its layout in `rules.cache_specs`): the rank steps its channels of it
+    (`rank_state`), the gates read the conv output gathered, the output
+    leaves through `reduce_from_model`, and the new state is made whole
+    again (`whole_state`: one all-reduce)."""
     gelu = ACTIVATIONS["gelu"]
+    if tp is not None:
+        params = _rank_vectors(params, tp)
+        cache = rank_state(cache, tp)
     branch = x @ params["w_x"]                                  # (B,1,w)
     gate = gelu(x @ params["w_gate_branch"])
     buf = torch.cat([cache["conv"], branch], dim=1)             # (B,d_conv,w)
     conv_out = torch.einsum("bwc,wc->bc", buf, params["conv_w"]) \
         + params["conv_b"]
-    y, h_new = rglru_step(params, cfg, conv_out, cache["h"])
+    y, h_new = rglru_step(params, cfg, conv_out, cache["h"], tp)
     out = (y[:, None, :] * gate) @ params["out_proj"]
-    return out, {"h": h_new, "conv": buf[:, 1:, :]}
+    new = {"h": h_new, "conv": buf[:, 1:, :]}
+    if tp is not None:
+        out = TP.reduce_from_model(out, tp)
+        new = whole_state(new, tp)
+    return out, new

@@ -215,15 +215,19 @@ def _layer_full(lp, cfg, ltype, x, positions, window, enc=None,
     natural length, aux or None); `want_cache` (the prefill) puts the
     emitted k/v in the prefill-cache layout on a mesh, and under `tp`
     keeps every kv head the rank projects (all of them where the kv heads
-    do not split). `tp`: tensor
+    do not split) and makes a recurrent layer's state whole (one
+    all-reduce: `rglru.whole_state`, `mamba2.whole_state`; the training
+    forward pays none). `tp`: tensor
     parallel over "model" (`sharding.tp`; each mixer and the FFN take it
     where their part splits; `enc`'s output then already inside the head
     split, `_stack_inputs`).
     `batch_groups`: the MoE's, `_ffn_apply`."""
     h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
     if ltype == "ssm":
-        out, cache = M2.mamba2_forward(lp["mamba"], cfg, h,
-                                       tp=_split(tp, "ssm"))
+        part = _split(tp, "ssm")
+        out, cache = M2.mamba2_forward(lp["mamba"], cfg, h, tp=part)
+        if want_cache and part is not None:
+            cache = M2.whole_state(cfg, cache, part)
         return x + out, cache, None
     if ltype == "attn":
         att, (k, v) = L.attention(lp["attn"], cfg, h, positions,
@@ -234,8 +238,10 @@ def _layer_full(lp, cfg, ltype, x, positions, window, enc=None,
                  "pos": torch.broadcast_to(positions, x.shape[:2])
                  .to(torch.int32)}
     else:
-        att, cache = RG.rglru_block_forward(lp["rglru"], cfg, h,
-                                            tp=_split(tp, "lru"))
+        part = _split(tp, "lru")
+        att, cache = RG.rglru_block_forward(lp["rglru"], cfg, h, tp=part)
+        if want_cache and part is not None:
+            cache = RG.whole_state(cache, part)
     x = x + att
     if ltype == "attn" and enc is not None:
         h = L.apply_rms_norm(lp["norm_cross"], x, cfg.norm_eps)
@@ -313,13 +319,14 @@ def forward_prefill(params, cfg, batch, window=None, tp=None):
     Returns (logits (B, S, V) over the token positions, caches); an
     encoder-decoder's caches carry the cross K/V.
 
-    With a tensor-parallel context `tp` (`sharding.tp`, the attention
-    families: `tp.serve_in_scope`) params hold this rank's shards, the
-    layers split as in `forward_train`, the logits are the rank's (..., V/
-    tp) slice, and each cache's k/v (cross k/v too) are the rank's kv
-    heads where those split, else every kv head."""
-    if tp is not None and not TP.serve_in_scope(cfg):
-        raise ValueError(f"{cfg.arch_id}: no tensor-parallel serving for "
+    With a tensor-parallel context `tp` (`sharding.tp`, every family:
+    `tp.in_scope`) params hold this rank's shards, the layers split as in
+    `forward_train`, the logits are the rank's (..., V/tp) slice, each
+    cache's k/v (cross k/v too) are the rank's kv heads where those
+    split, else every kv head, and each recurrent state is whole (the
+    reference's batch-only layout, `rules.cache_specs`)."""
+    if tp is not None and not TP.in_scope(cfg):
+        raise ValueError(f"{cfg.arch_id}: no tensor-parallel forward for "
                          "this family")
     window = cfg.window if window is None else window
     x, positions, n_prefix, enc = _stack_inputs(params, cfg, batch, tp)
@@ -468,9 +475,14 @@ def _write_rows(cache, new, rows):
 
 def _layer_decode(lp, cfg, ltype, x, pos, cache, window, rows, tp=None,
                   split=(False, False)):
+    """One layer's decode step, the cache written in place (a recurrent
+    state only in `rows`). Under `tp` a recurrent mixer steps its part of
+    the whole state and makes the new state whole before the write, every
+    rank joining that all-reduce whatever `rows` holds."""
     h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
     if ltype == "ssm":
-        out, new = M2.mamba2_decode(lp["mamba"], cfg, h, cache)
+        out, new = M2.mamba2_decode(lp["mamba"], cfg, h, cache,
+                                    tp=_split(tp, "ssm"))
         _write_rows(cache, new, rows)
         return x + out
     if ltype == "attn":
@@ -478,7 +490,8 @@ def _layer_decode(lp, cfg, ltype, x, pos, cache, window, rows, tp=None,
             lp["attn"], cfg, h, pos, cache["k"], cache["v"], cache["pos"],
             window=window, rows=rows, tp=tp, split=split[0])
     else:
-        att, new = RG.rglru_block_decode(lp["rglru"], cfg, h, cache)
+        att, new = RG.rglru_block_decode(lp["rglru"], cfg, h, cache,
+                                         tp=_split(tp, "lru"))
         _write_rows(cache, new, rows)
     x = x + att
     if cfg.is_encdec and "cross_k" in cache:
@@ -502,15 +515,17 @@ def decode_step(params, cfg, tokens, pos, cache, window=None, rows=None,
     caches (no RoPE, every entry with cross_pos >= 0). Returns (logits (B,
     1, V), cache), the cache updated in place.
 
-    With a tensor-parallel context `tp` (`sharding.tp`, the attention
-    families) params hold this rank's shards: the vocab-parallel
-    embedding, each attention over its heads (`layers.attention_decode`;
-    `split` = (self, cross): whether the self- and cross-attention caches
-    hold this rank's slice of the sequence, `tp.cache_split`), the FFN's
-    columns or experts, and the rank's (B, 1, V/tp) slice of the logits.
-    `rows` index the rank's own rows of the batch."""
-    if tp is not None and not TP.serve_in_scope(cfg):
-        raise ValueError(f"{cfg.arch_id}: no tensor-parallel serving for "
+    With a tensor-parallel context `tp` (`sharding.tp`, every family)
+    params hold this rank's shards: the vocab-parallel embedding, each
+    attention over its heads (`layers.attention_decode`; `split` = (self,
+    cross): whether the self- and cross-attention caches hold this rank's
+    slice of the sequence, `tp.cache_split`), each RG-LRU block over its
+    channels and each Mamba2 block over its heads of the whole state
+    (`rglru_block_decode`, `mamba2_decode`), the FFN's columns or experts,
+    and the rank's (B, 1, V/tp) slice of the logits. `rows` index the
+    rank's own rows of the batch."""
+    if tp is not None and not TP.in_scope(cfg):
+        raise ValueError(f"{cfg.arch_id}: no tensor-parallel forward for "
                          "this family")
     window = cfg.window if window is None else window
     x = L.embed(params["embed"], tokens, _split(tp, "vocab")).to(

@@ -11,11 +11,12 @@ because the port updates the cache in place where the reference returns a
 new one and merges rows afterwards.
 
 On a mesh (`sharding.spmd.call_split`) the dense prefill and decode run
-tensor parallel over "model" with `tp` (`sharding.tp`, the attention
-families): the logits stay the rank's vocabulary slice, the greedy token
-is taken over the slices (`tp.vocab_parallel_argmax`) and returned logits
-are gathered for the last position only. `prefill_into_cache_split`
-moves a prefill's caches into the sequence-split decode caches.
+tensor parallel over "model" with `tp` (`sharding.tp`, every family):
+the logits stay the rank's vocabulary slice, the greedy token is taken
+over the slices (`tp.vocab_parallel_argmax`) and returned logits are
+gathered for the last position only. `prefill_into_cache_split` moves a
+prefill's caches into the sequence-split decode caches, and a recurrent
+layer's whole state into the rank's rows.
 """
 from __future__ import annotations
 
@@ -149,14 +150,19 @@ def prefill_into_cache_split(cfg, caches, cache, prompt_lens, tp):
     block of slots is assembled by one all-reduce of the ranks' head_dim
     blocks (k and v together; tp of them a layer, and tp more for an
     encoder-decoder's cross k/v, with cross_pos 0..Se-1): no rank holds a
-    layer's whole cache. Returns `cache`."""
-    lens = torch.as_tensor(prompt_lens,
-                           device=spmd.local(caches[0]["pos"]).device)
-    off = spmd.row_offset(caches[0]["pos"])
+    layer's whole cache. A recurrent layer's state (RG-LRU, Mamba2) is
+    whole on every rank, in the prefill's caches as in the decode cache
+    (`rules.cache_specs`: batch-only): it is copied into the rank's rows
+    as it is, with no collective. Returns `cache`."""
+    first = next((src["pos"] for src in caches if "pos" in src), None)
+    if first is not None:               # an attention layer's positions
+        lens = torch.as_tensor(prompt_lens, device=spmd.local(first).device)
+        off = spmd.row_offset(first)
     for src, dst in zip(caches, cache):
-        if "k" not in dst:
-            raise ValueError(f"{cfg.arch_id}: no split decode caches for "
-                             "recurrent layers")
+        if "k" not in dst:              # rglru / ssm: the final state
+            for key, t in src.items():
+                spmd.local(dst[key]).copy_(spmd.local(t))
+            continue
         p = spmd.local(src["pos"])
         b = p.shape[0]
         take = min(dst["k"].shape[1], p.shape[1])

@@ -31,13 +31,12 @@ as on one device:
   (`local`), and the global norm sums each leaf's squares over the dims it
   is sharded on.
 
-A serving step (prefill, decode) of the attention families runs tensor
-parallel too (`call_split`): each split parameter as its local shard,
-the batch as the rank's rows, each decode cache as the rank's rows and
-slice of the sequence (`rules.cache_specs`), the outputs laid out by the
-rules (the prefill caches moved from the rank's kv heads to head_dim over
-"model"). The recurrent families' serving steps run on gathered params
-and caches (`call_local`).
+A serving step (prefill, decode) of every family runs tensor parallel
+too (`call_split`): each split parameter as its local shard, the batch
+as the rank's rows, each decode cache as the rank's rows and slice of
+the sequence (`rules.cache_specs`; a recurrent state as the rank's rows,
+whole), the outputs laid out by the rules (the prefill caches moved from
+the rank's kv heads to head_dim over "model").
 
 Without DTensors none of this runs: the one-device arithmetic is unchanged.
 """
@@ -50,8 +49,6 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
 from repro_torch.sharding import rules as R
-
-BATCH_AXES = ("pod", "data")
 
 
 def is_dtensor(x) -> bool:
@@ -278,45 +275,6 @@ def host_scalars():
     except ImportError:     # no fake tensors in this build
         return contextlib.nullcontext()
     return unset_fake_temporarily()
-
-
-def call_local(fn, args, out_specs):
-    """Run `fn` (a serving step of the recurrent families, recurrentgemma
-    and Mamba2, whose decode states lie batch-only while their compute
-    would split by channel or head; the attention families run
-    `call_split`) on each rank's rows: every DTensor argument is gathered
-    over its non-batch mesh dims (it keeps Shard(0) on the batch axes
-    "pod"/"data", so a rank reads its own rows of the batch and the caches
-    and all of each parameter), `fn` runs on the local tensors, and each
-    output, batch-first, is laid out by `out_specs` (a tree of specs,
-    `rules`): every rank of the model axis repeats the same compute. Plain
-    arguments pass as they are; without DTensor arguments this is
-    `fn(*args)`."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    leaves, tdef = tree_flatten(args)
-    dts = [x for x in leaves if is_dtensor(x)]
-    if not dts:
-        return fn(*args)
-    mesh = dts[0].device_mesh
-    names = mesh.mesh_dim_names
-    rows = [any(x.placements[i] == Shard(0) for x in dts)
-            and names[i] in BATCH_AXES for i in range(mesh.ndim)]
-
-    def to_local(x):
-        if not is_dtensor(x):
-            return x
-        pl = [p if (rows[i] and p == Shard(0)) else Replicate()
-              for i, p in enumerate(x.placements)]
-        return x.redistribute(mesh, pl).to_local()
-    out = fn(*tree_unflatten([to_local(x) for x in leaves], tdef))
-    out_pl = [Shard(0) if r else Replicate() for r in rows]
-    o_leaves, o_def = tree_flatten(out)
-    specs = R.spec_leaves(out_specs)
-    if len(specs) != len(o_leaves):
-        raise ValueError(f"{len(o_leaves)} outputs, {len(specs)} specs")
-    placed = [DTensor.from_local(o, mesh, out_pl).redistribute(
-        mesh, R.to_placements(mesh, s)) for o, s in zip(o_leaves, specs)]
-    return tree_unflatten(placed, o_def)
 
 
 def row_offset(x) -> int:

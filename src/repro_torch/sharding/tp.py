@@ -93,26 +93,30 @@ not divide (the RG-LRU width, the SSM heads) runs whole on gathered
 leaves, as the attention's do.
 
 The serving steps (`serve.step.build_prefill` / `build_decode` with
-`tp`, run by `spmd.call_split`) split the same way for the archs whose
-mixers are all attention (`serve_in_scope`; the recurrent families'
-states are batch-only in `rules.cache_specs` while their compute splits
-by channel or head, and they keep `spmd.call_local`). The prefill is the
-training forward without its backward, and it emits every kv head's
-keys and values on the rank that projects them (where the kv heads do
-not divide, every rank projects all of them from the gathered wk/wv).
-The decode caches hold the sequence over "model", as the reference's
-flash-decoding layout (`rules.cache_specs`): a rank holds slots
-[r Sc/tp, (r + 1) Sc/tp) of every kv head. A decode step gathers the
-token's queries (and keys and values, where the kv heads split) to every
-rank, the owner of slot pos % Sc writes the new entry, every rank reads
-all heads over its slots (`read_partials`: an online softmax's max, sum
-and unnormalised output), the ranks' partials are gathered and merged
-(`combine_partials`), and each rank's heads go through its rows of `wo`.
-The greedy token over the vocabulary shards is the lowest index of the
-global max (`vocab_parallel_argmax`). Every collective is still an
-all-reduce, except the prefill caches' move from the rank's heads to the
-reference's head_dim layout (`heads_to_head_dim`), an all-to-all where
-the process group runs one on the tensors' device.
+`tp`, run by `spmd.call_split`) split the same way for every family. The
+prefill is the training forward without its backward, and it emits
+every kv head's keys and values on the rank that projects them (where
+the kv heads do not divide, every rank projects all of them from the
+gathered wk/wv). The decode caches hold the sequence over "model", as
+the reference's flash-decoding layout (`rules.cache_specs`): a rank
+holds slots [r Sc/tp, (r + 1) Sc/tp) of every kv head. A decode step
+gathers the token's queries (and keys and values, where the kv heads
+split) to every rank, the owner of slot pos % Sc writes the new entry,
+every rank reads all heads over its slots (`read_partials`: an online
+softmax's max, sum and unnormalised output), the ranks' partials are
+gathered and merged (`combine_partials`), and each rank's heads go
+through its rows of `wo`. A recurrent layer's state stays whole on
+every rank, the reference's batch-only layout (`rules.cache_specs`): a
+decode step cuts the rank's channels or heads out of it, steps them,
+and makes the new state whole again by one all-reduce of the
+zero-padded, packed state (`rglru.whole_state`, `mamba2.whole_state`;
+a Mamba2 group's B/C window columns from one rank only,
+`mamba2._rank_columns`), and the prefill gathers the state it emits the
+same way. The greedy token over the vocabulary shards is the lowest
+index of the global max (`vocab_parallel_argmax`). Every collective is
+still an all-reduce, except the prefill caches' move from the rank's
+heads to the reference's head_dim layout (`heads_to_head_dim`), an
+all-to-all where the process group runs one on the tensors' device.
 """
 from __future__ import annotations
 
@@ -480,13 +484,6 @@ def gathered_leaves(cfg, params, mesh, tp: Optional[TensorParallel]):
 # ------------------------------------------------------------ serving
 
 NEG = torch.finfo(torch.float32).min    # the reference's masked logit
-
-
-def serve_in_scope(cfg) -> bool:
-    """The archs whose serving steps split over "model": every mixer
-    attention (dense or MoE FFN, a modality prefix, an encoder-decoder).
-    The recurrent families' serving runs gathered (`spmd.call_local`)."""
-    return all(t == "attn" for t in cfg.layer_types())
 
 
 def cache_split(c_specs) -> tuple:

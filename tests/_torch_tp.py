@@ -1,7 +1,8 @@
 """Rank functions for the tensor-parallel tests
 (tests/test_torch_tensor_parallel.py,
-tests/test_torch_tensor_parallel_families.py and
-tests/test_torch_tensor_parallel_recurrent.py), run on gloo ranks by
+tests/test_torch_tensor_parallel_families.py,
+tests/test_torch_tensor_parallel_recurrent.py and the three
+tests/test_torch_tensor_parallel_serving*.py), run on gloo ranks by
 `_torch_dist.spawn`, and the inputs they share with the one-device
 references (numpy draws from a seed)."""
 import contextlib
@@ -288,10 +289,10 @@ def recurrent_config(case: str):
     return cfg
 
 
-def recurrent_inputs(case: str, seed: int = 2) -> dict:
+def recurrent_inputs(case: str, seed: int = 2, cfg=None) -> dict:
     """Full weights and inputs of one recurrent case, as numpy arrays
     (gates and decays near the init's ranges, the norm's input well away
-    from zero)."""
+    from zero); a block case's sizes from `cfg` where given."""
     rng = np.random.default_rng(seed)
 
     def n(*shape, scale=1.0, shift=0.0):
@@ -301,7 +302,7 @@ def recurrent_inputs(case: str, seed: int = 2) -> dict:
         return {"x": n(B, S, 64), "g": n(B, S, 64)}
     if case == "gather_rows":       # a leaf stored split by rows
         return {"x": n(16, 32), "g": n(16, 32)}
-    cfg = recurrent_config(case)
+    cfg = recurrent_config(case) if cfg is None else cfg
     d = cfg.d_model
     if case == "norm":
         di = cfg.ssm.d_inner(d)
@@ -417,6 +418,128 @@ def recurrent_ranks(rank, world, cases):
         out[case] = run_recurrent(case, recurrent_inputs(case), tp)
         out[case]["split"] = (tp.lru, tp.ssm)
     return out
+
+
+# ------------------------------------------------------------ recurrent serving
+
+LAYER_CASES = ("rglru", "rglru_255", "mamba2", "mamba2_g2", "mamba2_15")
+LAYER_ROWS, LAYER_SEQ = 4, 16
+DECODE_ROWS = (0, 2)     # the rows a `rows=` decode step writes
+
+
+def layer_config(case: str):
+    """`recurrent_config`'s, and the variants whose part the model axis (2
+    or 4) does not divide: an RG-LRU width of 255 ("rglru_255"), 15 SSM
+    heads (d_model 240, "mamba2_15")."""
+    if case == "rglru_255":
+        cfg = recurrent_config("rglru")
+        return cfg.replace(rglru=dataclasses.replace(cfg.rglru,
+                                                     lru_width=255))
+    if case == "mamba2_15":
+        return recurrent_config("mamba2").replace(d_model=240)
+    return recurrent_config(case)
+
+
+def layer_inputs(case: str, seed: int = 5) -> dict:
+    """One recurrent decoder layer of `layer_config(case)` as numpy arrays:
+    the mixer's weights (`recurrent_inputs`), the norms' scales, the
+    RG-LRU layer's gated MLP, a prefill input (LAYER_ROWS, LAYER_SEQ, d),
+    a decode token (LAYER_ROWS, 1, d) at positions 20.., and a whole
+    decode state (h near a few steps' size, the conv window as the
+    branch's)."""
+    cfg = layer_config(case)
+    base = "rglru" if cfg.rglru else "mamba2"
+    mixer = recurrent_inputs(base, seed, cfg)
+    rng = np.random.default_rng(seed + 1)
+    d = cfg.d_model
+
+    def n(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+    out = {"mixer": {k: v for k, v in mixer.items() if k not in ("x", "g")},
+           "norm1": n(d, scale=0.1), "x": n(LAYER_ROWS, LAYER_SEQ, d),
+           "x1": n(LAYER_ROWS, 1, d),
+           "pos": np.arange(20, 20 + LAYER_ROWS, dtype=np.int32)}
+    k = (cfg.rglru or cfg.ssm).d_conv - 1
+    if cfg.rglru:
+        w, f = cfg.rglru.lru_width, cfg.d_ff
+        out.update(norm2=n(d, scale=0.1),
+                   ffn={"w_gate": n(d, f, scale=d ** -0.5),
+                        "w_up": n(d, f, scale=d ** -0.5),
+                        "w_down": n(f, d, scale=f ** -0.5)},
+                   state={"h": n(LAYER_ROWS, w),
+                          "conv": n(LAYER_ROWS, k, w, scale=0.5)})
+    else:
+        s = cfg.ssm
+        nh = s.n_heads(d)
+        cd = s.d_inner(d) + 2 * s.n_groups * s.d_state
+        out["state"] = {"ssm": n(LAYER_ROWS, nh, s.head_dim, s.d_state,
+                                 scale=0.3),
+                        "conv": n(LAYER_ROWS, k, cd, scale=0.5)}
+    return out
+
+
+def run_layer(case: str, inp: dict, tp=None) -> dict:
+    """One recurrent decoder layer of `case` (`transformer._layer_full` with
+    want_cache, the prefill's path, then `transformer._layer_decode` from
+    the whole state, once writing every row and once only DECODE_ROWS),
+    on one device (tp=None) or with `tp` on this rank's leaves
+    (RECURRENT_LAYOUT where the part splits, else whole; the MLP's columns
+    and rows). Returns the outputs, the states (whole: the rank's after
+    the gathers), whether the part split, and the all-reduces of each
+    call."""
+    from repro_torch.models import transformer as T
+    cfg = layer_config(case)
+    base = "rglru" if cfg.rglru else "mamba2"
+    t = {k: (tree_map(torch.from_numpy, v) if isinstance(v, dict)
+             else torch.from_numpy(v)) for k, v in inp.items()}
+    r, k = (0, 1) if tp is None else (tp.rank, tp.size)
+    split = tp is not None and (tp.lru if cfg.rglru else tp.ssm)
+    layout = RECURRENT_LAYOUT[base] if split else {}
+    mixer = {name: lay(v, layout.get(name, "full"), r, k)
+             for name, v in t["mixer"].items()}
+    lp = {"norm1": {"scale": t["norm1"]}}
+    if cfg.rglru:
+        ffn = tp is not None and tp.ffn
+        lp.update(rglru=mixer, norm2={"scale": t["norm2"]}, ffn={
+            name: lay(v, ("rows" if name == "w_down" else "cols")
+                      if ffn else "full", r, k)
+            for name, v in t["ffn"].items()})
+        ltype = "rglru"
+    else:
+        lp["mamba"] = mixer
+        ltype = "ssm"
+    counts = {}
+
+    def counted(name, fn):
+        before = 0 if tp is None else tp.all_reduces
+        out = fn()
+        counts[name] = 0 if tp is None else tp.all_reduces - before
+        return out
+    positions = torch.arange(LAYER_SEQ)[None, :]
+    with torch.no_grad():
+        y, state, _ = counted("prefill", lambda: T._layer_full(
+            lp, cfg, ltype, t["x"], positions, None, want_cache=True,
+            tp=tp))
+        res = {"prefill_out": y, "prefill_state": state, "split": split}
+        for name, rows in (("all", range(LAYER_ROWS)),
+                           ("rows", DECODE_ROWS)):
+            cache = {n: v.clone() for n, v in t["state"].items()}
+            res[f"decode_{name}"] = counted(name, lambda: T._layer_decode(
+                lp, cfg, ltype, t["x1"], t["pos"], cache, None,
+                torch.tensor(rows), tp))
+            res[f"state_{name}"] = cache
+    res["all_reduces"] = counts
+    return res
+
+
+def layer_ranks(rank, world, cases):
+    """Every recurrent layer case on this rank's leaves, on a ("model",)
+    mesh of all the ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.sharding.tp import TensorParallel
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("model",))
+    return {case: run_layer(case, layer_inputs(case), TensorParallel.build(
+        layer_config(case), mesh)) for case in cases}
 
 
 # ------------------------------------------------------------ training
@@ -605,11 +728,11 @@ def serve_prompt_len(cfg) -> int:
     return SERVE_PROMPT + (SERVE_PREFIX if cfg.embed_stub else 0)
 
 
-def serve_one_device(cfg, params, batch) -> dict:
+def serve_one_device(cfg, params, batch, cache_len=SERVE_CACHE) -> dict:
     """The port's unsharded serving steps: the greedy prefill, its logits
-    and natural caches, `prefill_into_cache` into SERVE_CACHE slots, then
-    SERVE_STEPS greedy decode steps (tokens and logits a step) and the
-    final caches."""
+    and natural caches, `prefill_into_cache` into `cache_len` slots, then
+    SERVE_STEPS greedy decode steps (tokens, and logits a step from a
+    second call on a copy of the cache) and the final caches."""
     from repro_torch.models import transformer as T
     from repro_torch.serve import step as ST
     t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
@@ -618,31 +741,36 @@ def serve_one_device(cfg, params, batch) -> dict:
         logits, nat = ST.build_prefill(cfg, return_logits=True)(params, t)
         tok = ST.build_prefill(cfg)(params, t)[0]
         n = serve_prompt_len(cfg)
-        cache = ST.prefill_into_cache(cfg, nat, T.init_cache(
-            cfg, SERVE_ROWS, SERVE_CACHE, device="cpu",
-            enc_len=SERVE_FRAMES if cfg.is_encdec else 0),
-            torch.full((SERVE_ROWS,), n))
+        empty = T.init_cache(cfg, SERVE_ROWS, cache_len, device="cpu",
+                             enc_len=SERVE_FRAMES if cfg.is_encdec else 0)
+        # the handoff takes a recurrent state as it is: keep the prefill's
+        cache = ST.prefill_into_cache(cfg, tree_map(torch.clone, nat),
+                                      empty, torch.full((SERVE_ROWS,), n))
         handed = tree_map(torch.clone, cache)
         greedy = ST.build_decode(cfg)
         with_logits = ST.build_decode(cfg, return_logits=True)
         toks, step_logits = [tok], [logits]
         for i in range(SERVE_STEPS):
             pos = torch.full((SERVE_ROWS,), n + i, dtype=torch.int32)
+            # on a copy: a recurrent state steps again at every call
             step_logits.append(with_logits(params, tok[:, None], pos,
-                                           cache)[0])
+                                           tree_map(torch.clone, cache))[0])
             tok = greedy(params, tok[:, None], pos, cache)[0]
             toks.append(tok)
     return {"tokens": torch.stack(toks), "logits": torch.stack(step_logits),
-            "prefill_caches": nat, "handed": handed, "caches": cache}
+            "prefill_caches": nat, "handed": handed, "caches": cache,
+            "cache_len": cache_len}
 
 
-def serve_ranks(rank, world, params_path, archs, mesh_shape, names):
+def serve_ranks(rank, world, params_path, archs, mesh_shape, names,
+                cache_lens=None):
     """On a mesh of `mesh_shape` / `names`, for each arch of `archs` (its
     bridged params pickled at `params_path`): the tensor-parallel prefill
     (greedy and with logits), `prefill_into_cache_split` into
-    SERVE_CACHE slots, SERVE_STEPS greedy decode steps from the ranks' own
-    tokens (each step's logits too, from a second call on the same
-    inputs); the all-reduces of every call, the shapes of every op output
+    `cache_lens[arch]` slots (default SERVE_CACHE), SERVE_STEPS greedy
+    decode steps from the ranks' own tokens (each step's logits too, from
+    a second call on the same inputs and a copy of the cache: a
+    recurrent state would step twice); the all-reduces of every call, the shapes of every op output
     of the greedy calls and the handoff, the local cache shapes, and (rank
     0) every cache gathered."""
     import pickle
@@ -679,7 +807,9 @@ def serve_ranks(rank, world, params_path, archs, mesh_shape, names):
         p_specs = R.prefill_cache_specs(cfg, prefill_cache_shapes(cfg), mesh)
         out_p = (tok_spec, p_specs)
         local_p = TP.prefill_local_specs(out_p, tp)
-        res = {"split": (tp.heads, tp.kv, tp.vocab, tp.experts)}
+        cache_len = (cache_lens or {}).get(arch, SERVE_CACHE)
+        res = {"split": (tp.heads, tp.kv, tp.vocab, tp.experts, tp.lru,
+                         tp.ssm), "cache_len": cache_len}
         counts = {}
 
         def run(name, fn, args, specs, local=None, shapes=None):
@@ -704,7 +834,7 @@ def serve_ranks(rank, world, params_path, archs, mesh_shape, names):
                         out_p, local_p)
         del tp.runs_all_to_all
         nat_ar = spmd_full(nat_ar)
-        cache_g = T.init_cache(cfg, SERVE_ROWS, SERVE_CACHE, device="cpu",
+        cache_g = T.init_cache(cfg, SERVE_ROWS, cache_len, device="cpu",
                                enc_len=SERVE_FRAMES if cfg.is_encdec else 0)
         c_specs = R.cache_specs(cfg, cache_g, mesh)
         cache = R.distribute(mesh, cache_g, c_specs)
@@ -730,8 +860,9 @@ def serve_ranks(rank, world, params_path, archs, mesh_shape, names):
                 (SERVE_ROWS,), n + i, dtype=torch.int32)})["p"]
             t_in = D.put_batch(mesh, {"t": R.P(pspec[0], None)},
                                {"t": toks[-1][:, None]})["t"]
-            lg, cache = run("decode_logits", with_logits,
-                            (params, t_in, pos, cache), (pspec, c_specs))
+            lg, _ = run("decode_logits", with_logits,
+                        (params, t_in, pos, tree_map(torch.clone, cache)),
+                        (pspec, c_specs))
             tok, cache = run("decode", greedy, (params, t_in, pos, cache),
                              (pspec, c_specs), None,
                              shapes["decode"] if i == 0 else None)
@@ -764,8 +895,11 @@ def prefill_cache_shapes(cfg) -> list:
 
 
 def spmd_full(tree):
-    return tree_map(lambda x: x.full_tensor() if hasattr(x, "full_tensor")
-                    else x, tree)
+    """Every DTensor leaf gathered whole, a copy (a leaf replicated over
+    the mesh gives its local tensor itself, which a later in-place step
+    would write)."""
+    return tree_map(lambda x: x.full_tensor().clone()
+                    if hasattr(x, "full_tensor") else x, tree)
 
 
 # ------------------------------------------------------------ decode read

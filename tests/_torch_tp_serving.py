@@ -1,25 +1,32 @@
 """The checks of the tensor-parallel serving tests
-(tests/test_torch_tensor_parallel_serving.py and
-tests/test_torch_tensor_parallel_serving_families.py): the reference's
+(tests/test_torch_tensor_parallel_serving.py,
+tests/test_torch_tensor_parallel_serving_families.py and
+tests/test_torch_tensor_parallel_serving_recurrent.py): the reference's
 greedy tokens on one device, the port's one-device steps, the ranks'
 runs (`_torch_tp.serve_ranks`) and what each test holds them to.
 Imported only by test files that have already done
 ``pytest.importorskip("jax")``.
 
-All-reduces over "model" a call (L decoder layers, Le encoder layers; c =
-1 for an encoder-decoder; g the leaves stored split and taken whole,
-where the kv heads do not split: wk and wv of every attention, one
-all-reduce each in serving, having no gradient):
-  prefill     (2 + c) L + 2 Le + 2 + g (the forward's row-parallel
-              outputs, the embedding, the greedy token), and 2 (1 + c) L
-              all-to-alls (k, v to head_dim) where the kv heads split
+All-reduces over "model" a call (L attention layers, Le encoder layers,
+Lr RG-LRU layers, Lm Mamba2 layers; c = 1 for an encoder-decoder; g the
+leaves stored split and taken whole, one all-reduce each in serving,
+having no gradient: where the kv heads do not split wk and wv of every
+attention, and Mamba2's in_proj and conv_w, stored split by contiguous
+columns, in every layer):
+  prefill     (2 + c) L + 2 Le + 4 Lr + 3 Lm + 2 + g (the forward's
+              row-parallel outputs, an RG-LRU layer's conv gather and
+              new state's gather besides, a Mamba2 layer's norm, output
+              and state, the embedding, the greedy token), and 2 (1 + c)
+              L all-to-alls (k, v to head_dim) where the kv heads split
               (else each rank holds every kv head and slices it); by the
               all-reduce route (the card rig's) those are all-reduces
   handoff     tp (1 + c) L (`prefill_into_cache_split`: a block of slots
-              a rank, k and v together)
-  decode      (4 + 3 c) L + 2 + g (a self-attention's gather, merge and
-              output, a cross-attention's the same, the FFN's or MoE's
-              output, the embedding, the greedy token; g counts the
+              a rank, k and v together; a recurrent state is whole on
+              every rank and copied as it is)
+  decode      (4 + 3 c) L + 4 Lr + 3 Lm + 2 + g (a self-attention's
+              gather, merge and output, a cross-attention's the same, the
+              FFN's or MoE's output, an RG-LRU or Mamba2 layer's as in the
+              prefill, the embedding, the greedy token; g counts the
               encoder's leaves too: they are arguments of the step)
 """
 import functools
@@ -47,9 +54,9 @@ def close(a, b, tol, what):
 
 
 @functools.cache
-def reference_serve(arch) -> np.ndarray:
+def reference_serve(arch, cache_len=H.SERVE_CACHE) -> np.ndarray:
     """The reference's greedy tokens on one device: `build_prefill`,
-    `prefill_into_cache` into SERVE_CACHE slots and SERVE_STEPS
+    `prefill_into_cache` into `cache_len` slots and SERVE_STEPS
     `build_decode` steps, (SERVE_STEPS + 1, B)."""
     from repro.models import transformer as JT
     from repro.serve.step import build_decode, build_prefill
@@ -59,7 +66,7 @@ def reference_serve(arch) -> np.ndarray:
     tok, nat = jax.jit(build_prefill(jcfg))(jp, batch)
     n = H.serve_prompt_len(cfg)
     cache = prefill_into_cache(jcfg, nat, JT.init_cache(
-        jcfg, H.SERVE_ROWS, H.SERVE_CACHE,
+        jcfg, H.SERVE_ROWS, cache_len,
         enc_len=H.SERVE_FRAMES if cfg.is_encdec else 0),
         jnp.full((H.SERVE_ROWS,), n))
     decode = jax.jit(build_decode(jcfg))
@@ -82,27 +89,31 @@ def bridged_params(archs, tmp_path_factory):
     return params, str(path)
 
 
-def one_device_runs(params) -> dict:
+def one_device_runs(params, cache_lens=None) -> dict:
     out = {}
     for a, p in params.items():
         cfg = registry.get(a, reduced=True)
-        out[a] = H.serve_one_device(cfg, p, H.serve_batch(cfg))
+        out[a] = H.serve_one_device(cfg, p, H.serve_batch(cfg),
+                                    (cache_lens or {}).get(a, H.SERVE_CACHE))
     return out
 
 
-def mesh_run(shape, archs, params_path, tmp):
+def mesh_run(shape, archs, params_path, tmp, cache_lens=None):
     return shape, archs, spawn(H.serve_ranks, int(np.prod(shape)), tmp,
-                               params_path, archs, shape, NAMES)
+                               params_path, archs, shape, NAMES, cache_lens)
 
 
 def expected_counts(cfg, size: int, kv_split: bool) -> dict:
-    """(all-reduces, all-to-alls) of every call: the module docstring."""
-    L, c = cfg.n_layers, int(cfg.is_encdec)
+    """(all-reduces, all-to-alls) of every call: the module docstring (every
+    recurrent part split)."""
+    types = cfg.layer_types()
+    L, c = types.count("attn"), int(cfg.is_encdec)
+    Lr, Lm = types.count("rglru"), types.count("ssm")
     Le = cfg.n_enc_layers if cfg.is_encdec else 0
-    g = 0 if kv_split else 2 * (L + c * (L + Le))
+    g = (0 if kv_split else 2 * (L + c * (L + Le))) + 2 * Lm
     moves = 2 * (1 + c) * L if kv_split else 0
-    prefill = (2 + c) * L + 2 * Le + 2 + g
-    decode = (4 + 3 * c) * L + 2 + g
+    prefill = (2 + c) * L + 2 * Le + 4 * Lr + 3 * Lm + 2 + g
+    decode = (4 + 3 * c) * L + 4 * Lr + 3 * Lm + 2 + g
     return {"prefill": (prefill, moves), "prefill_logits": (prefill, moves),
             "prefill_all_reduce_route": (prefill + moves, 0),
             "handoff": (size * (1 + c) * L, 0),
@@ -111,13 +122,13 @@ def expected_counts(cfg, size: int, kv_split: bool) -> dict:
 
 def check_one_device_tokens(one_device, arch):
     assert np.array_equal(one_device[arch]["tokens"].numpy(),
-                          reference_serve(arch))
+                          reference_serve(arch, one_device[arch]["cache_len"]))
 
 
 def check_tokens(runs):
     shape, archs, ranks = runs
     for arch in archs:
-        want = reference_serve(arch)
+        want = reference_serve(arch, ranks[0][arch]["cache_len"])
         for r, res in enumerate(ranks):
             assert np.array_equal(res[arch]["tokens"].numpy(), want), \
                 (arch, shape, r)
@@ -170,27 +181,36 @@ def check_counts(runs):
 
 
 def check_no_full_cache_or_logits(runs):
-    """Every rank holds its SERVE_CACHE / tp slots of every layer (its
-    SERVE_FRAMES / tp cross slots), no op output of a greedy prefill, the
-    handoff or a greedy decode step is a layer's full-length cache, and
-    every rank's logits are its (..., V / tp) slice
-    (`transformer._logits`)."""
+    """Every rank holds its cache_len / tp slots of every attention layer
+    (its SERVE_FRAMES / tp cross slots) and each recurrent layer's whole
+    state for its rows (the reference's layout), no op output of a
+    greedy prefill, the handoff or a greedy decode step is an attention
+    layer's full-length cache, and every rank's logits are its (..., V /
+    tp) slice (`transformer._logits`)."""
+    from repro_torch.models import transformer as T
     shape, archs, ranks = runs
     tp = shape[-1]
     for arch in archs:
         cfg = registry.get(arch, reduced=True)
+        n = ranks[0][arch]["cache_len"]
+        whole = T.init_cache(cfg, H.SERVE_ROWS, n, device="meta")
         for res in ranks:
-            assert res[arch]["cache_split"] == (True, cfg.is_encdec)
-            for layer in res[arch]["local_cache"]:
-                assert layer["k"][1] == H.SERVE_CACHE // tp
-                assert layer["pos"][1] == H.SERVE_CACHE // tp
+            assert res[arch]["cache_split"] == (
+                "attn" in cfg.layer_types(), cfg.is_encdec)
+            for layer, want in zip(res[arch]["local_cache"], whole):
+                if "k" not in layer:
+                    for k, s in layer.items():
+                        rows = H.SERVE_ROWS * tp // int(np.prod(shape))
+                        assert s == (rows,) + tuple(want[k].shape[1:]), k
+                    continue
+                assert layer["k"][1] == n // tp
+                assert layer["pos"][1] == n // tp
                 if cfg.is_encdec:
                     assert layer["cross_k"][1] == H.SERVE_FRAMES // tp
             for name, shapes in res[arch]["shapes"].items():
                 assert shapes, name
                 for s in shapes:
-                    assert not (len(s) >= 2 and s[1] == H.SERVE_CACHE), \
-                        (arch, name, s)
+                    assert not (len(s) >= 2 and s[1] == n), (arch, name, s)
             logits = res[arch]["logits_shapes"]
             assert logits and {s[-1] for s in logits} == {
                 cfg.padded_vocab_size // tp}, logits

@@ -16,22 +16,28 @@ Mamba2's B/C projection (one group, read by every head), the MoE router,
 and a part the axis does not divide, whole (measured on reduced configs:
 the dense decoders and seamless equal, granite-moe 0.08%, recurrentgemma
 1.5% and mamba2 3.1% above the one-rank count, each exactly its repeated
-products: the residual is 0). The serving steps of the attention
-families run tensor parallel too (`spmd.call_split`, the decode caches'
-sequence over "model"): flops times ranks equal the one-rank count plus
-what the model ranks repeat (the MoE router; the kv projections where
-the kv heads do not divide the axis), within 1%. The serving steps of
-recurrentgemma and Mamba2 run the same rows on every rank of the "model"
-axis (`spmd.call_local`): flops times ranks equal the one-rank count
-times the model axis size (the replication factor, 2 on the debug
-meshes), within 1%. Serving all-reduces over "model": a decode step 4 a
-layer (the token's q/k/v gathered, the partials merged, the attention
-output, the FFN's or MoE's output), 7 a decoder layer with
-cross-attention, one for the embedding and one for the greedy token; a
-prefill 2 a layer (3 with cross-attention, 2 an encoder layer), the
-embedding's and the greedy token's, and 2 all-to-alls a layer (4 with
-cross-attention) moving the caches' kv heads to head_dim; no
-all-gather. The tensor-parallel train step's all-reduces over "model",
+products: the residual is 0). The serving steps of every family run
+tensor parallel too (`spmd.call_split`, the decode caches' sequence over
+"model", a recurrent state whole on every rank): flops times ranks equal
+the one-rank count plus what the model ranks repeat (the MoE router; the
+kv projections where the kv heads do not divide the axis:
+recurrentgemma's one; Mamba2's B/C projection and, in a decode step, its
+conv on the B/C channels; a part the axis does not divide, whole),
+within 1% (measured on reduced configs: recurrentgemma 1.5%, mamba2
+3.1-3.3% above the one-rank count, each exactly its repeated products).
+Serving all-reduces over "model": a decode step 4 an attention layer
+(the token's q/k/v gathered, the partials merged, the attention output,
+the FFN's or MoE's output), 7 a decoder layer with cross-attention, 4
+an RG-LRU layer (its conv output's gather, its output, the MLP's output,
+the new state's gather), 3 a Mamba2 layer (the norm's sum of squares,
+its output, the new state's gather), one for the embedding and one for
+the greedy token; a prefill 2 an attention layer (3 with
+cross-attention, 2 an encoder layer), 4 an RG-LRU and 3 a Mamba2 layer
+as in decode, the embedding's and the greedy token's, and 2
+all-to-alls an attention layer (4 with cross-attention) moving the
+caches' kv heads to head_dim where the kv heads split; one for each
+leaf stored split over "model" and taken whole; no all-gather. The
+tensor-parallel train step's all-reduces over "model",
 per microbatch: 4 per dense layer (two forward, two backward), 5 per MoE
 layer (the attention's 2; the experts' output forward, their input and
 the gate weights backward), 6 per encoder-decoder decoder layer (the
@@ -102,15 +108,12 @@ def test_reduced_case_runs_on_debug_mesh(debug_mesh, small, arch, shape):
     assert m["memory"]["peak_bytes"] > 0
     colls = m["colls"]
     assert set(DR.COLLECTIVES) <= set(colls)
-    if case["tp"] is None:      # gathered params and caches (call_local)
-        assert colls["all-gather"]["count"] > 0
-    else:                       # tensor parallel: all-reduces only
-        assert colls["all-reduce"]["count"] >= \
-            m["model_axis_all_reduces"]["count"] > 0
-        if kind != "train":
-            assert colls["all-gather"]["count"] == 0
-    assert (case["tp"] is None) == (kind != "train" and arch in
-                                    ("mamba2-130m", "recurrentgemma-9b"))
+    # tensor parallel, every family and shape: all-reduces only
+    assert case["tp"] is not None
+    assert colls["all-reduce"]["count"] >= \
+        m["model_axis_all_reduces"]["count"] > 0
+    if kind != "train":
+        assert colls["all-gather"]["count"] == 0
     if kind == "train":
         assert colls["all-reduce"]["count"] >= 1     # the gradients
         assert colls["all-reduce"]["bytes"] > 0
@@ -158,25 +161,38 @@ SERVE_ARCHS = ["qwen3-1.7b", "qwen3-4b", "mistral-nemo-12b", "starcoder2-7b",
 def serve_repeated_flops(cfg, mesh, shape) -> int:
     """The flops of a serving step that the model ranks repeat beyond
     their 1/tp shares, summed over the ranks (2 a multiply-add): the MoE
-    router on every token, whole on every rank, and where the kv heads do
+    router on every token, whole on every rank; where the kv heads do
     not divide the axis the kv projections: every rank projects all kv
     heads for the caches (a prefill's cross-attention too, over the
     encoder frames), and the kv heads its query heads read in the
-    encoder's self-attention, as in training."""
+    encoder's self-attention, as in training; where the Mamba2 heads
+    split, the B/C projection of the groups each rank's heads read and,
+    in a decode step, the conv on those channels (an einsum over the
+    window; the prefill's conv is elementwise, no product)."""
     ctx = TP.TensorParallel.build(cfg, mesh)
     c = S.SHAPES[shape]
     prefill = c.kind == "prefill"
     tokens = c.global_batch * (c.seq_len if prefill else 1)
     if prefill and cfg.is_encdec:
         tokens //= 2
+    n_attn = cfg.layer_types().count("attn")
     kv = 0 if ctx.kv else 2 * cfg.n_kv_heads * cfg.resolved_head_dim
-    per_token = cfg.n_layers * ((ctx.size - 1) * kv + (
+    per_token = n_attn * ((ctx.size - 1) * kv + (
         (ctx.size - 1) * cfg.moe.n_experts if cfg.moe else 0))
     frames = tokens if prefill and cfg.is_encdec else 0
     enc = 0 if ctx.kv else (ctx.size * len(ctx.kv_heads(cfg))
                             - cfg.n_kv_heads) * cfg.resolved_head_dim * 2
     cross = cfg.n_layers * (ctx.size - 1) * kv + cfg.n_enc_layers * enc
-    return 2 * cfg.d_model * (tokens * per_token + frames * cross)
+    bc = 0
+    if ctx.ssm:
+        s = cfg.ssm
+        nh = s.n_heads(cfg.d_model)
+        mine = len(TP.head_groups(0, nh // ctx.size, nh // s.n_groups))
+        bc = cfg.layer_types().count("ssm") * (
+            ctx.size * mine - s.n_groups) * s.d_state * 2 * (
+                cfg.d_model + (0 if prefill else s.d_conv))
+    return 2 * cfg.d_model * (tokens * per_token + frames * cross) \
+        + 2 * tokens * bc
 
 
 @pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "long_500k"])
@@ -218,19 +234,102 @@ def test_gathered_kv_serving_flops_times_ranks_is_one_rank_plus_repeated(
     assert len(case["gathered_leaves"]) == 2 * (1 + 2 * cfg.is_encdec)
 
 
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "long_500k"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-130m"])
+def test_recurrent_serving_flops_times_ranks_is_one_rank_plus_repeated(
+        debug_mesh, small, arch, shape):
+    """The recurrent families' serving steps split over "model": each rank
+    steps its RG-LRU channels or Mamba2 heads of the whole state. Flops x
+    ranks = one rank + `serve_repeated_flops`: recurrentgemma's one kv
+    head (projected on both ranks), Mamba2's B/C projection (one group,
+    read by every head) and its decode conv on those channels."""
+    cfg = reduced(arch, shape)
+    case, m = DR.measure_case(cfg, shape, debug_mesh)
+    assert case["tp"] is not None and (case["tp"].lru or case["tp"].ssm)
+    one = one_rank_flops(cfg, shape, None)
+    want = one + serve_repeated_flops(cfg, debug_mesh, shape)
+    assert want > one
+    assert abs(m["flops"] * debug_mesh.size() - want) <= FLOPS_REL * one
+
+
+def whole_serving_flops(cfg, shape, one) -> int:
+    """A serving step's flops of the part `gathered_part_config` leaves
+    whole (2 a multiply-add and token): every Mamba2 layer's, the
+    one-rank count `one` less the tied logits' (every position's in a
+    prefill), or the RG-LRU layers' five products and, in a decode step,
+    their conv (an einsum over the window)."""
+    c = S.SHAPES[shape]
+    prefill = c.kind == "prefill"
+    tokens = c.global_batch * (c.seq_len if prefill else 1)
+    d = cfg.d_model
+    if cfg.ssm:
+        return one - 2 * tokens * d * cfg.padded_vocab_size
+    w, k = cfg.rglru.lru_width, cfg.rglru.d_conv
+    n = cfg.layer_types().count("rglru")
+    return 2 * tokens * n * (3 * d * w + 2 * w * w + (0 if prefill
+                                                      else k * w))
+
+
 @pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-130m"])
 def test_recurrent_serving_flops_times_ranks_is_one_rank_times_replication(
         debug_mesh, small, arch, shape):
-    """The recurrent families keep the gathered serving step
-    (`spmd.call_local`): every model rank repeats the one-rank compute."""
-    cfg = reduced(arch, shape)
+    """A part the model axis does not divide (15 SSM heads, an RG-LRU
+    width of 255 on 2 ranks) serves whole on gathered leaves and its
+    whole state, with no state gather: every rank of the model axis
+    repeats its compute (the replication), the rest splits."""
+    cfg = gathered_part_config(arch, shape)
     case, m = DR.measure_case(cfg, shape, debug_mesh)
-    assert case["tp"] is None
+    tp = case["tp"]
+    assert tp is not None and not tp.ssm and not tp.lru
     one = one_rank_flops(cfg, shape, None)
     replication = R.mesh_axis_size(debug_mesh, "model")
-    assert abs(m["flops"] * debug_mesh.size() - one * replication) \
-        <= FLOPS_REL * one * replication
+    want = one + serve_repeated_flops(cfg, debug_mesh, shape) + (
+        replication - 1) * whole_serving_flops(cfg, shape, one)
+    assert abs(m["flops"] * debug_mesh.size() - want) <= FLOPS_REL * one
+    # no state gather: of a whole RG-LRU layer only its MLP's output
+    assert m["model_axis_all_reduces"]["count"] == \
+        serve_all_reduces(cfg, shape, tp, debug_mesh)
+
+
+def serve_all_reduces(cfg, shape, tp, mesh) -> int:
+    """A serving step's all-reduces over "model" (the module docstring):
+    an attention layer 4 in a decode step, 2 in a prefill; an RG-LRU
+    layer 4 (its gather, its output, the MLP's, the state's), a Mamba2
+    layer 3 (the norm, its output, the state), where their part splits;
+    else the MLP's alone (1) or none; 2 (the embedding, the greedy token)
+    and one for each leaf stored split and taken whole."""
+    types = cfg.layer_types()
+    attn = 4 if S.SHAPES[shape].kind == "decode" else 2
+    rglru = 4 if tp.lru else 1
+    ssm = 3 if tp.ssm else 0
+    return attn * types.count("attn") + rglru * types.count("rglru") \
+        + ssm * types.count("ssm") + 2 + TP.leaf_gather_all_reduces(
+            cfg, S.params_shapes(cfg), mesh, tp, backward=False)
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "long_500k"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-130m"])
+def test_recurrent_serving_model_axis_all_reduces(debug_mesh, small, arch,
+                                                  shape):
+    """recurrentgemma (r, r, a): 4 + 4 + 2 + 2 + 2 = 14 a prefill, 4 + 4 +
+    4 + 2 + 2 = 16 a decode step (its gathered wk and wv one each); mamba2
+    (2 layers): 3 x 2 + 2 + 4 = 12 either way (each layer's in_proj and
+    conv_w, stored split by contiguous columns, gathered); no all-to-all
+    (the one kv head is projected whole on every rank and sliced to
+    head_dim) and no all-gather."""
+    cfg = reduced(arch, shape)
+    case, m = DR.measure_case(cfg, shape, debug_mesh)
+    want = {("recurrentgemma-9b", "prefill"): 14,
+            ("recurrentgemma-9b", "decode"): 16,
+            ("mamba2-130m", "prefill"): 12,
+            ("mamba2-130m", "decode"): 12}[arch, S.SHAPES[shape].kind]
+    assert serve_all_reduces(cfg, shape, case["tp"], debug_mesh) == want
+    assert m["model_axis_all_reduces"]["count"] == want
+    assert m["colls"]["all-reduce"]["count"] == want
+    assert case["tp"].all_to_alls == 0
+    assert m["colls"]["all-to-all"]["count"] == 0
+    assert m["colls"]["all-gather"]["count"] == 0
 
 
 @pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "long_500k"])
@@ -300,11 +399,11 @@ def test_tensor_parallel_train_flops_times_ranks_is_one_rank(
     assert abs(m["flops"] * debug_mesh.size() - want) <= FLOPS_REL * one
 
 
-def gathered_part_config(arch):
+def gathered_part_config(arch, shape="train_4k"):
     """Reduced mamba2 with 15 SSM heads (d_model 240) or reduced
     recurrentgemma with an RG-LRU width of 255: the model axis of 2
     divides neither, so that part runs whole on every model rank."""
-    cfg = reduced(arch, "train_4k")
+    cfg = reduced(arch, shape)
     if cfg.ssm:
         return cfg.replace(d_model=240)
     return cfg.replace(rglru=dataclasses.replace(cfg.rglru, lru_width=255))
@@ -436,8 +535,8 @@ def test_recurrent_model_axis_all_reduces(debug_mesh, small, arch,
     # ("rglru", "rglru", "attn"): the first attention block is the third;
     # its one kv head is gathered
     ("recurrentgemma-9b", "train_4k", True, "blocks/2/attn/wq"),
-    # its serving step stays gathered: every leaf split over "model"
-    ("recurrentgemma-9b", "decode_32k", False, "blocks/2/attn/wq"),
+    # its serving step splits too, the kv head's wk and wv gathered
+    ("recurrentgemma-9b", "decode_32k", True, "blocks/2/attn/wq"),
 ])
 def test_record_says_tensor_parallel_and_gathered_leaves(
         debug_mesh, small, monkeypatch, arch, shape, tensor_parallel, wq):
@@ -445,15 +544,10 @@ def test_record_says_tensor_parallel_and_gathered_leaves(
     monkeypatch.setattr(DR.registry, "get", lambda a: cfg)
     rec = DR.run_case(arch, shape, debug_mesh, "pod1", verbose=False)
     assert rec["tensor_parallel"] is tensor_parallel
-    if tensor_parallel:
-        # 4/2 heads, 2/2 kv heads; recurrentgemma's 1 kv head: wk, wv
-        assert rec["gathered_leaves"] == ([] if wq is None else [
-            wq.replace("wq", "wk"), wq.replace("wq", "wv")])
-        assert rec["model_axis_all_reduces"]["count"] > 0
-    else:
-        assert "embed/table" in rec["gathered_leaves"]
-        assert wq in rec["gathered_leaves"]
-        assert rec["model_axis_all_reduces"] is None
+    # 4/2 heads, 2/2 kv heads; recurrentgemma's 1 kv head: wk, wv
+    assert rec["gathered_leaves"] == ([] if wq is None else [
+        wq.replace("wq", "wk"), wq.replace("wq", "wv")])
+    assert rec["model_axis_all_reduces"]["count"] > 0
 
 
 @pytest.mark.parametrize("dims,shape,want", [

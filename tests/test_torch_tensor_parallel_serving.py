@@ -29,7 +29,8 @@ reduced configs (4 heads, 2 kv heads, head_dim 64, 2 layers; seamless 2 +
   full-length cache or a full (B, V) row of logits in a greedy step or
   the handoff. Dense decoders here; the MoE decoders, the
   encoder-decoder and the (2, 2, 2) mesh:
-  tests/test_torch_tensor_parallel_serving_families.py.
+  tests/test_torch_tensor_parallel_serving_families.py; the recurrent
+  families: tests/test_torch_tensor_parallel_serving_recurrent.py.
 
 The all-reduce counts: tests/_torch_tp_serving.py.
 """
@@ -156,27 +157,18 @@ def test_no_rank_holds_a_full_cache_or_logits_row(mesh_runs):
 
 
 def test_serving_split_plans():
-    """`TensorParallel.build` splits the serving steps of every attention
-    arch; recurrentgemma and Mamba2 stay out of the serving scope."""
+    """`TensorParallel.build` splits the serving steps of every arch, the
+    attention families and the recurrent ones alike (the serving shapes
+    of `launch.shapes.make_case` build it for every case)."""
+    from repro_torch.launch import shapes as S
     from repro_torch.sharding import rules as R
     from repro_torch.sharding import tp as TP
     mesh = R.mesh_like((16, 16), ("data", "model"))
     for arch in registry.ARCH_IDS:
         cfg = registry.get(arch)
-        assert TP.serve_in_scope(cfg) == (arch in DENSE + FAMILIES), arch
+        assert TP.in_scope(cfg), arch
         assert TP.TensorParallel.build(cfg, mesh) is not None
-
-
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-130m"])
-def test_recurrent_serving_refuses_a_split(arch):
-    from repro_torch.models import transformer as T
-    from repro_torch.sharding import rules as R
-    from repro_torch.sharding import tp as TP
-    cfg = registry.get(arch, reduced=True)
-    ctx = TP.TensorParallel.build(cfg, R.mesh_like((1, 2),
-                                                   ("data", "model")))
-    with pytest.raises(ValueError, match="no tensor-parallel serving"):
-        T.decode_step(None, cfg, None, None, None, tp=ctx)
+        assert S.make_case(cfg, "decode_32k", mesh)["tp"] is not None, arch
 
 
 def test_cache_split_follows_the_rule():

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's tensor-parallel phases (29-31, 33-36) driven alone on
+"""chip_smoke.py's tensor-parallel phases (29-31, 33-37) driven alone on
 one card, with `--dp` phase 32 (the MoE load balance on a data-parallel
-mesh under remat), and phases 35-36 (the serving steps tensor parallel,
-`chip_smoke.serve_tp_phases`):
+mesh under remat), and phases 35-37 (the serving steps tensor parallel,
+`chip_smoke.serve_tp_phases`; 37 the recurrent families):
 
-    python3 tools/probe_tp.py [--phases 29,30,31,33,34,35,36] [--dp]
+    python3 tools/probe_tp.py [--phases 29,30,31,33,34,35,36,37] [--dp]
                               [--out FILE]
 
 Builds the kernels (the "pallas" forward runs the flash kernel on each
