@@ -389,8 +389,8 @@ def unified_dashboard(snapshot: Dict[str, dict],
     warnings (dropped spans, illegal transitions, flight-recorder dumps)
     lead; the gateway / kvcache / speculation / scheduler sections are
     exactly the `gateway_dashboard` ones (same tables, same Fig 6/7 gauge
-    plots when `gauges` is passed); the SLO, engine step-latency, span
-    tracer, and flight-recorder sections follow."""
+    plots when `gauges` is passed); the SLO, engine step-latency, fused
+    decode graph, span tracer, and flight-recorder sections follow."""
     parts = []
     warns = _health_warnings(snapshot)
     if warns:
@@ -409,6 +409,9 @@ def unified_dashboard(snapshot: Dict[str, dict],
     if snapshot.get("engine_steps"):
         parts += ["\n## engine step latency",
                   engine_steps_table(snapshot["engine_steps"])]
+    if snapshot.get("graph"):
+        parts += ["\n## fused decode graph",
+                  _metric_table(snapshot["graph"], ("graph counter", "value"))]
     if snapshot.get("sampler"):
         parts += ["\n## telemetry sampler",
                   sampler_stats_table(snapshot["sampler"])]

@@ -383,6 +383,7 @@ class Gateway:
         self.registry.register_scope("scheduler", self.scheduler_summary)
         self.registry.register_scope("speculation", self.spec_summary)
         self.registry.register_scope("engine_steps", self.engine_step_summary)
+        self.registry.register_scope("graph", self.graph_summary)
         self.registry.register_scope("trace", self._trace_summary)
         self.registry.register_scope("workers", self.workers_summary)
         if self.brownout is not None:
@@ -1003,6 +1004,10 @@ class Gateway:
         supervises and waits for progress."""
         if self.async_workers:
             return self._step_async()
+        with otrace.span("gateway.step"):
+            return self._step_sync()
+
+    def _step_sync(self) -> int:
         self._maybe_reintegrate()
         if self.brownout is not None:
             self.brownout.tick(self.queue.depth())
@@ -1146,6 +1151,18 @@ class Gateway:
             for stat, v in merged[kind].summary().items():
                 out[f"{kind}_{stat}"] = v
         return out
+
+    def graph_summary(self) -> Optional[dict]:
+        """The fused decode graphs' captures, replays and eager warm-up
+        runs, summed over replicas (`serve.graph.FusedDecodeGraph`); None
+        without a fused lane. A recapture after a replica's `reset()`
+        shows as a second capture."""
+        graphs = [r.engine._decode_fused for r in self.replicas
+                  if r.engine._decode_fused is not None]
+        if not graphs:
+            return None
+        return {k: sum(getattr(g, k) for g in graphs)
+                for k in ("captures", "replays", "warmup_runs")}
 
     def _trace_summary(self) -> Optional[dict]:
         """Span-tracer counters while tracing is on (None otherwise)."""

@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.obs import trace as otrace
 from repro_torch.sharding import tp as TP
 from repro_torch.sharding.rules import constrain
 
@@ -439,17 +440,20 @@ def attention_decode_paged(params, cfg, x, pos, kpool, vpool, table, *,
     B = x.shape[0]
     hd, nh = cfg.resolved_head_dim, cfg.n_heads
     bs = kpool.shape[1]
-    q, k_new, v_new = _project_qkv(params, cfg, x, x)
-    if rope:
-        q = apply_rope(q, pos[:, None], cfg.rope_theta)
-        k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
-    blk = torch.gather(table, 1, (pos // bs).long()[:, None])[:, 0].long()
-    off = (pos % bs).long()
-    kpool.index_put_((blk, off), k_new[:, 0])
-    vpool.index_put_((blk, off), v_new[:, 0])
-    out = pa_ops.paged_attention(q[:, 0].contiguous(), kpool, vpool, table,
-                                 pos, window=window, kernel=kernel)
-    out = out.reshape(B, 1, nh * hd).to(x.dtype) @ params["wo"]
+    with otrace.region("attn.proj") as rg:
+        q, k_new, v_new = _project_qkv(params, cfg, x, x)
+        if rope:
+            q = apply_rope(q, pos[:, None], cfg.rope_theta)
+            k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+        blk = torch.gather(table, 1, (pos // bs).long()[:, None])[:, 0].long()
+        off = (pos % bs).long()
+        kpool.index_put_((blk, off), k_new[:, 0])
+        vpool.index_put_((blk, off), v_new[:, 0])
+        rg.switch("attn.core")
+        out = pa_ops.paged_attention(q[:, 0].contiguous(), kpool, vpool,
+                                     table, pos, window=window, kernel=kernel)
+        rg.switch("attn.proj")
+        out = out.reshape(B, 1, nh * hd).to(x.dtype) @ params["wo"]
     return out, kpool, vpool
 
 
@@ -472,26 +476,30 @@ def attention_prefill_paged(params, cfg, x, q_pos, n_tok, kpool, vpool,
     hd, nh, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     bs = kpool.shape[1]
     nb = table.shape[0]
-    q, k, v = _project_qkv(params, cfg, x, x)
-    if rope:
-        q = apply_rope(q, q_pos[None, :], cfg.rope_theta)
-        k = apply_rope(k, q_pos[None, :], cfg.rope_theta)
-    real = torch.arange(S, device=x.device) < n_tok
-    # pad positions may run past the table (jnp.take fills there); they
-    # go to block 0 either way
-    page = (q_pos // bs).clamp(max=nb - 1).long()
-    blk = torch.where(real, table[page], 0).long()
-    off = torch.where(real, q_pos % bs, 0).long()
-    kpool.index_put_((blk, off), k[0])
-    vpool.index_put_((blk, off), v[0])
-    kall = kpool[table.long()].reshape(1, nb * bs, nkv, hd)
-    vall = vpool[table.long()].reshape(1, nb * bs, nkv, hd)
-    kv_pos = torch.arange(nb * bs, device=x.device)
-    mask = kv_pos[None, :] <= q_pos[:, None]             # causal, absolute
-    if window is not None:
-        mask &= kv_pos[None, :] > (q_pos[:, None] - window)
-    out = _sdpa_xla(q, kall, vall, mask[None], 1.0 / math.sqrt(hd))
-    return out.reshape(B, S, nh * hd) @ params["wo"], kpool, vpool
+    with otrace.region("attn.proj") as rg:
+        q, k, v = _project_qkv(params, cfg, x, x)
+        if rope:
+            q = apply_rope(q, q_pos[None, :], cfg.rope_theta)
+            k = apply_rope(k, q_pos[None, :], cfg.rope_theta)
+        real = torch.arange(S, device=x.device) < n_tok
+        # pad positions may run past the table (jnp.take fills there);
+        # they go to block 0 either way
+        page = (q_pos // bs).clamp(max=nb - 1).long()
+        blk = torch.where(real, table[page], 0).long()
+        off = torch.where(real, q_pos % bs, 0).long()
+        kpool.index_put_((blk, off), k[0])
+        vpool.index_put_((blk, off), v[0])
+        rg.switch("attn.core")
+        kall = kpool[table.long()].reshape(1, nb * bs, nkv, hd)
+        vall = vpool[table.long()].reshape(1, nb * bs, nkv, hd)
+        kv_pos = torch.arange(nb * bs, device=x.device)
+        mask = kv_pos[None, :] <= q_pos[:, None]         # causal, absolute
+        if window is not None:
+            mask &= kv_pos[None, :] > (q_pos[:, None] - window)
+        out = _sdpa_xla(q, kall, vall, mask[None], 1.0 / math.sqrt(hd))
+        rg.switch("attn.proj")
+        out = out.reshape(B, S, nh * hd) @ params["wo"]
+    return out, kpool, vpool
 
 
 def _gather_chain(pool, table):

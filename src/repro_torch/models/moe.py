@@ -51,6 +51,7 @@ import math
 import torch
 
 from repro_torch.models.layers import ACTIVATIONS, dense_init, uniform_init
+from repro_torch.obs import trace as otrace
 from repro_torch.sharding import spmd
 from repro_torch.sharding import tp as TP
 from repro_torch.sharding.rules import constrain
@@ -106,49 +107,56 @@ def moe_ffn(params, cfg, x, *, want_aux: bool = False, tp=None,
     E, K, Ep = m.n_experts, m.top_k, m.padded_n_experts
     C = capacity(cfg, S)
 
-    logits = (x @ params["router"]).float()                      # (B, S, E)
-    gate_vals, idx = route(logits, K)                            # (B, S, K)
-    weights = torch.softmax(gate_vals, dim=-1).to(x.dtype)
+    with otrace.region("moe.route") as rg:
+        logits = (x @ params["router"]).float()                  # (B, S, E)
+        gate_vals, idx = route(logits, K)                        # (B, S, K)
+        weights = torch.softmax(gate_vals, dim=-1).to(x.dtype)
 
-    # --- slots: token-major, k-minor order; past capacity is dropped ---
-    flat_e = idx.reshape(B, S * K)
-    onehot = (flat_e[..., None] == torch.arange(Ep, device=x.device)) \
-        .to(torch.int32)                                         # (B, SK, Ep)
-    pos = (torch.cumsum(onehot, dim=1, dtype=torch.int32) * onehot) \
-        .sum(-1) - 1
-    keep = pos < C
+        # --- slots: token-major, k-minor order; past capacity is dropped
+        flat_e = idx.reshape(B, S * K)
+        onehot = (flat_e[..., None] == torch.arange(Ep, device=x.device)) \
+            .to(torch.int32)                                     # (B, SK, Ep)
+        pos = (torch.cumsum(onehot, dim=1, dtype=torch.int32) * onehot) \
+            .sum(-1) - 1
+        keep = pos < C
 
-    # --- aux losses (before the experts, as the reference orders them:
-    # a recomputed forward then stops before the experts' all-reduce) ---
-    aux = None
-    if want_aux:
-        probs = torch.softmax(logits, dim=-1)
-        me = probs.mean(dim=(0, 1))
-        ce = (idx[..., None] == torch.arange(E, device=x.device)).float() \
-            .sum(dim=2).mean(dim=(0, 1)) / K
-        me, ce = spmd.global_batch_mean(torch.stack([me, ce]), batch_groups)
-        aux = {"load_balance": E * (me * ce).sum(),
-               "router_z": (torch.logsumexp(logits, dim=-1) ** 2).mean(),
-               "dropped_frac": 1.0 - keep.float().mean()}
+        # --- aux losses (before the experts, as the reference orders
+        # them: a recomputed forward then stops before the experts'
+        # all-reduce) ---
+        aux = None
+        if want_aux:
+            probs = torch.softmax(logits, dim=-1)
+            me = probs.mean(dim=(0, 1))
+            ce = (idx[..., None] == torch.arange(E, device=x.device)) \
+                .float().sum(dim=2).mean(dim=(0, 1)) / K
+            me, ce = spmd.global_batch_mean(torch.stack([me, ce]),
+                                            batch_groups)
+            aux = {"load_balance": E * (me * ce).sum(),
+                   "router_z": (torch.logsumexp(logits, dim=-1) ** 2).mean(),
+                   "dropped_frac": 1.0 - keep.float().mean()}
 
-    if tp is None:
-        return _experts(params, cfg, x, weights, flat_e, pos, keep,
-                        range(Ep), C), aux
-    return TP.reduce_from_model(_experts(
-        params, cfg, TP.copy_to_model(x, tp), TP.copy_to_model(weights, tp),
-        flat_e, pos, keep, tp.local_experts(cfg), C), tp), aux
+        if tp is None:
+            return _experts(params, cfg, x, weights, flat_e, pos, keep,
+                            range(Ep), C, rg), aux
+        return TP.reduce_from_model(_experts(
+            params, cfg, TP.copy_to_model(x, tp),
+            TP.copy_to_model(weights, tp), flat_e, pos, keep,
+            tp.local_experts(cfg), C, rg), tp), aux
 
 
-def _experts(params, cfg, x, weights, flat_e, pos, keep, experts: range, C):
+def _experts(params, cfg, x, weights, flat_e, pos, keep, experts: range, C,
+             rg):
     """Dispatch, the `experts` (a range of the padded experts: the expert
     weights' leading dim), combine. The kept entries routed to them are
     scatter-added into a (B, len(experts), C, d) buffer, each expert runs
     on its C slots, and each entry's output is gathered back and mixed by
-    its gate weight (the other entries add zero)."""
+    its gate weight (the other entries add zero). `rg` is the caller's
+    open `obs.trace` region, switched to each of the three in turn."""
     B, S, d = x.shape
     SK = flat_e.shape[1]
     K = SK // S
     lo, n = experts.start, len(experts)
+    rg.switch("moe.dispatch")
     if n == cfg.moe.padded_n_experts:           # all of them: no filter
         mine, slot = keep, flat_e * C + torch.where(keep, pos, 0)
     else:
@@ -162,6 +170,7 @@ def _experts(params, cfg, x, weights, flat_e, pos, keep, experts: range, C):
     buf = constrain(buf, ("batch", "model", None, None))         # (B,E,C,d)
 
     # --- experts: (B, n, C, d) x (n, d, ff) ---
+    rg.switch("moe.experts")
     act = ACTIVATIONS[cfg.act]
     h = act(torch.einsum("becd,edf->becf", buf, params["w_gate"])) \
         * torch.einsum("becd,edf->becf", buf, params["w_up"])
@@ -169,6 +178,7 @@ def _experts(params, cfg, x, weights, flat_e, pos, keep, experts: range, C):
     out_buf = constrain(out_buf, ("batch", "model", None, None))
 
     # --- combine ---
+    rg.switch("moe.combine")
     gathered = torch.gather(out_buf.reshape(B, n * C, d), 1, index)
     gathered = torch.where(mine[..., None], gathered, 0)
     return (gathered * weights.reshape(B, SK, 1)).reshape(B, S, K, d) \

@@ -64,6 +64,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
+from repro_torch.obs import trace as otrace
 from repro_torch.sharding import tp as TP
 from repro_torch.sharding.rules import constrain
 
@@ -185,7 +186,8 @@ def _ffn_apply(lp, cfg, h, want_aux: bool = False, tp=None,
         return MOE.moe_ffn(lp["ffn"], cfg, h, want_aux=want_aux,
                            tp=_split(tp, "experts"),
                            batch_groups=batch_groups)
-    return L.mlp(lp["ffn"], h, cfg.act, _split(tp, "ffn")), None
+    with otrace.region("ffn"):
+        return L.mlp(lp["ffn"], h, cfg.act, _split(tp, "ffn")), None
 
 
 def _logits(params, cfg, x, tp=None):
@@ -204,6 +206,14 @@ def _logits(params, cfg, x, tp=None):
         out = out.masked_fill(pad >= cfg.vocab_size, -1e30)
     # vocab-sharded logits on a mesh (a no-op without one)
     return constrain(out, ("batch", None, "model"))
+
+
+def _final_logits(params, cfg, x):
+    """The final norm and the logits: the serving steps' "logits"
+    region."""
+    with otrace.region("logits"):
+        x = L.apply_rms_norm(params["final_norm"], x, cfg.norm_eps)
+        return _logits(params, cfg, x)
 
 
 # ============================================================== full sequence
@@ -592,8 +602,7 @@ def decode_step_paged(params, cfg, tokens, pos, cache, table, window=None,
     x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
     for lp, pool in zip(params["layers"], cache):
         x = _layer_decode_paged(lp, cfg, x, pos, pool, table, window, kernel)
-    x = L.apply_rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, x), cache
+    return _final_logits(params, cfg, x), cache
 
 
 def _layer_prefill_paged(lp, cfg, x, q_pos, n_tok, pool, table, window):
@@ -623,8 +632,7 @@ def forward_prefill_paged(params, cfg, tokens, start, n_tok, cache, table,
     for lp, pool in zip(params["layers"], cache):
         x = _layer_prefill_paged(lp, cfg, x, q_pos, n_tok, pool, table,
                                  window)
-    x = L.apply_rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, x), cache
+    return _final_logits(params, cfg, x), cache
 
 
 def _layer_verify_paged(lp, cfg, x, pos, pool, table, window):

@@ -31,6 +31,24 @@ Design constraints, in order:
     another replica's thread may be capturing a CUDA graph, and a device
     synchronize is illegal then.
 
+  * **Device time by region.** ``region(name)`` marks a stretch of a
+    model step's launches (``attn.proj``, ``attn.core``, ``ffn``,
+    ``moe.*``, ``logits``). While an engine step runs a ``device_timer``
+    on its thread, a region records CUDA timing events at its ends on the
+    step's stream (``perf_counter`` stamps on the CPU, where ops are
+    synchronous; ``switch`` to the next adjacent region shares one) and
+    never synchronizes; the step resolves them after the host read it
+    already makes and adds ``device={"total_ms": ..., "<region>": ms,
+    ...}`` to its span. While a CUDA graph is captured
+    (``GraphCapture``), regions become external timing events, i.e. event
+    nodes of the graph, which the graph hands to the step that replays it.
+    An engine times one eager step in four and every fused dispatch
+    (``device_timer(every=)``): marks and their reading are host work.
+  * **On the profiler's clock.** While a ``torch.profiler`` records, every
+    span and eager region also opens a ``record_function`` range of the
+    same name, so a device trace shows which program span holds the
+    device idle.
+
 Track layout in the export: pid 1 ("serving host") holds the host/engine
 spans, one tid per engine replica (the gateway itself shares tid 0 with
 replica 0, which it drives synchronously). pid 2 ("requests") holds one
@@ -40,6 +58,7 @@ story, but per request and zoomable.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
 import time
@@ -67,9 +86,20 @@ class _Span:
         self.args = args
 
 
+def _mirror(name: str):
+    """A `torch.profiler` range named `name`, entered, while a profiler
+    records; None otherwise."""
+    if not torch._C._autograd._profiler_enabled():
+        return None
+    rf = torch.autograd.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 class _ActiveSpan:
     """Context manager recording one span into its tracer on exit."""
-    __slots__ = ("_tracer", "_name", "_cat", "_tid", "_args", "_t0")
+    __slots__ = ("_tracer", "_name", "_cat", "_tid", "_args", "_t0",
+                 "_range")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, tid: int,
                  args: Optional[Dict[str, Any]]):
@@ -80,19 +110,30 @@ class _ActiveSpan:
         self._args = args
 
     def __enter__(self) -> "_ActiveSpan":
+        self._range = _mirror(self._name)
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> bool:
+        t1 = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         self._tracer._record(_Span(
-            self._name, self._cat, self._t0,
-            time.perf_counter() - self._t0, HOST_PID, self._tid,
-            self._args))
+            self._name, self._cat, self._t0, t1 - self._t0, HOST_PID,
+            self._tid, self._args))
         return False
+
+    def add_args(self, **args):
+        """Add args before the span ends (a step's device times, known
+        only after its host read)."""
+        if self._args is None:
+            self._args = {}
+        self._args.update(args)
 
 
 class _NullSpan:
-    """Shared no-op span: the disabled-tracing fast path."""
+    """Shared no-op span, region and step timer: the disabled-tracing fast
+    path."""
     __slots__ = ()
 
     def __enter__(self) -> "_NullSpan":
@@ -100,6 +141,18 @@ class _NullSpan:
 
     def __exit__(self, *exc) -> bool:
         return False
+
+    def add_args(self, **args):
+        pass
+
+    def switch(self, name: str):
+        pass
+
+    def stop(self):
+        pass
+
+    def attach(self, span):
+        pass
 
 
 _NULL = _NullSpan()
@@ -233,6 +286,7 @@ def enable(capacity: int = 1 << 16) -> Tracer:
     with _PENDING_MU:
         t._track_names.update(_PENDING_TRACKS)
     _TRACER = t
+    _rearm()
     return _TRACER
 
 
@@ -241,6 +295,7 @@ def disable() -> Optional[Tracer]:
     export what was captured."""
     global _TRACER
     t, _TRACER = _TRACER, None
+    _rearm()
     return t
 
 
@@ -304,16 +359,260 @@ def fence(x):
     return x
 
 
-def traced(name: Optional[str] = None, *, cat: str = "serve"):
-    """Decorator form of `span` for whole-function spans."""
-    def deco(fn):
-        label = name or fn.__qualname__
+# ------------------------------------------------------- device regions
+#
+# An engine step opens a `device_timer` on its thread and the model code's
+# `region`s record into it; the step resolves them after its host read.
+# While a thread captures a CUDA graph (`GraphCapture`), regions become
+# the graph's own event nodes, and the graph hands them to the step timer
+# of the thread that replays it.
 
-        def wrapper(*a, **kw):
-            with span(label, cat=cat):
-                return fn(*a, **kw)
-        wrapper.__name__ = fn.__name__
-        wrapper.__qualname__ = fn.__qualname__
-        wrapper.__doc__ = fn.__doc__
-        return wrapper
-    return deco
+_LOCAL = threading.local()  # .timer: the thread's StepTimer; .capture: the
+                            # regions of the graph being captured; .mute:
+                            # inside an untimed step (`cover(False)`)
+_ARMED = False              # tracing on, or some thread capturing regions
+_CAPTURES = 0
+_ARM_MU = threading.Lock()
+
+
+def _rearm():
+    global _ARMED
+    with _ARM_MU:
+        _ARMED = _TRACER is not None or _CAPTURES > 0
+
+
+def _graph_event():
+    ev = torch.cuda.Event(enable_timing=True, external=True)
+    ev.record()
+    return ev
+
+
+def _event_ms(a, b) -> float:
+    return a.elapsed_time(b)
+
+
+def _clock_ms(a, b) -> float:
+    return 1e3 * (b - a)
+
+
+class _Region:
+    """A run of adjacent segments on one stream, each named, each timed
+    from one mark to the next: `switch(name)` ends the current segment
+    and starts the next with a single mark. Finished segments go to
+    `sink` as (name, mark, mark)."""
+    __slots__ = ("_name", "_sink", "_mark", "_eager", "_a", "_range")
+
+    def __init__(self, name: str, sink: list, mark, eager: bool):
+        self._name = name
+        self._sink = sink
+        self._mark = mark
+        self._eager = eager     # run now, not captured: mirror it
+        self._range = None
+
+    def __enter__(self) -> "_Region":
+        if self._eager:
+            self._range = _mirror(self._name)
+        self._a = self._mark()
+        return self
+
+    def _end(self):
+        b = self._mark()
+        self._sink.append((self._name, self._a, b))
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        return b
+
+    def switch(self, name: str):
+        b = self._end()
+        self._name, self._a = name, b
+        if self._eager:
+            self._range = _mirror(name)
+
+    def __exit__(self, *exc) -> bool:
+        self._end()
+        return False
+
+
+class StepTimer:
+    """One engine step's stream time and its regions' device time.
+    Marks are CUDA timing events on the step's stream (the current one
+    when the timer starts), or perf_counter stamps where the step runs on
+    the CPU. Nothing synchronizes: `attach` reads the marks after the
+    step's own host read, and then hands the events back to its thread's
+    pool for the next step."""
+
+    def __init__(self, device: torch.device):
+        self._events: list = []
+        if device.type == "cuda":
+            self._stream = torch.cuda.current_stream(device)
+            pools = _LOCAL.__dict__.setdefault("pools", {})
+            self._pool = pools.setdefault(self._stream.device_index, [])
+            self.mark = self._event
+            self._ms = _event_ms
+        else:
+            self.mark = time.perf_counter
+            self._ms = _clock_ms
+        self.regions: list = []     # (name, mark, mark)
+        self._replays: list = []    # (graph's regions, mark, mark)
+        self._end = None
+        self._start = self.mark()
+
+    def _event(self):
+        pool = self._pool
+        ev = pool.pop() if pool else torch.cuda.Event(enable_timing=True)
+        ev.record(self._stream)
+        self._events.append(ev)
+        return ev
+
+    def replayed(self, regions: list, a, b):
+        """A graph replayed between marks `a` and `b` of this stream, its
+        regions' events refreshed by the replay."""
+        self._replays.append((regions, a, b))
+
+    def stop(self):
+        """Mark the end of the step's launches (before its host read)."""
+        if self._end is None:
+            self._end = self.mark()
+
+    def read(self) -> Dict[str, float]:
+        """{"total_ms": stream time of the step (of its graph replays, if
+        it replayed one), "<region>": ms summed over its segments}."""
+        self.stop()
+        ms = self._ms
+        segments = list(self.regions)
+        if self._replays:
+            total = sum(ms(a, b) for _, a, b in self._replays)
+            for regions, _, _ in self._replays:
+                segments += regions
+        else:
+            total = ms(self._start, self._end)
+        out = {"total_ms": total}
+        for name, a, b in segments:
+            out[name] = out.get(name, 0.0) + ms(a, b)
+        if self._events:
+            self._pool.extend(self._events)
+            self._events = []
+        return out
+
+    def attach(self, span):
+        """Read the marks, add them to `span` as its `device` arg, and end
+        this thread's timing."""
+        if getattr(_LOCAL, "timer", None) is self:
+            _LOCAL.timer = None
+        span.add_args(device=self.read())
+
+
+def device_timer(device, every: int = 1):
+    """Time this thread's engine step by region until `attach`: a
+    StepTimer while tracing is on, the shared no-op otherwise. With
+    `every` > 1, one call in `every` of this thread's such calls (the
+    first, then every `every`-th) times its step; the others are the
+    no-op."""
+    if _TRACER is None:
+        return _NULL
+    if every > 1:
+        n = _LOCAL.__dict__.get("sampled", 0)
+        _LOCAL.sampled = n + 1
+        if n % every:
+            return _NULL
+    tm = StepTimer(torch.device(device))
+    _LOCAL.timer = tm
+    return tm
+
+
+def step_timer() -> Optional[StepTimer]:
+    """This thread's running step timer (None while tracing is off)."""
+    if _TRACER is None:
+        return None
+    return getattr(_LOCAL, "timer", None)
+
+
+def stop_timer():
+    """Mark the end of this thread's step's launches, if it is timed."""
+    tm = step_timer()
+    if tm is not None:
+        tm.stop()
+
+
+def _open(name: str, eager: bool = True):
+    loc = _LOCAL
+    if getattr(loc, "mute", False):
+        return _NULL
+    sink = getattr(loc, "capture", None)
+    if sink is not None:
+        return _Region(name, sink, _graph_event, False)
+    tm = getattr(loc, "timer", None)
+    if tm is None or _TRACER is None:
+        return _NULL
+    return _Region(name, tm.regions, tm.mark, eager)
+
+
+def region(name: str):
+    """Instrumentation-site entry point for a stretch of a step's device
+    work: a timed region (see `_Region`; `switch` moves on to the next
+    adjacent one) inside a timed step or a graph capture, the shared
+    no-op otherwise."""
+    if not _ARMED:
+        return _NULL
+    return _open(name)
+
+
+class _Mute:
+    __slots__ = ("_was",)
+
+    def __enter__(self):
+        self._was = getattr(_LOCAL, "mute", False)
+        _LOCAL.mute = True
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _LOCAL.mute = self._was
+        return False
+
+
+def cover(timed: bool):
+    """One step of a multi-step dispatch. Timed, it is a "covered_ms"
+    segment and its regions record; untimed, its regions are muted, so a
+    fused dispatch times its first step only (each event between two
+    kernels costs device time). Shares of such a dispatch divide by its
+    "covered_ms"."""
+    if not _ARMED:
+        return _NULL
+    return _open("covered_ms", eager=False) if timed else _Mute()
+
+
+class GraphCapture:
+    """A CUDA graph's warm-up and captures on this thread. The thread's
+    step timer is set aside for the whole of it (warm-up runs are not the
+    step's work); inside `recording()` regions are external timing events
+    (`regions`), which a capture turns into event nodes of its graph,
+    whatever the tracing state."""
+
+    def __init__(self):
+        self.regions: list = []
+        self._timer = None
+
+    def __enter__(self) -> "GraphCapture":
+        self._timer = getattr(_LOCAL, "timer", None)
+        _LOCAL.timer = None
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _LOCAL.timer = self._timer
+        return False
+
+    @contextlib.contextmanager
+    def recording(self):
+        global _CAPTURES
+        _LOCAL.capture = self.regions
+        with _ARM_MU:
+            _CAPTURES += 1
+        _rearm()
+        try:
+            yield self
+        finally:
+            _LOCAL.capture = None
+            with _ARM_MU:
+                _CAPTURES -= 1
+            _rearm()

@@ -99,6 +99,11 @@ from repro_torch.serve.step import (build_decode, build_decode_fused,
 
 DECODE_KERNELS = ("reference", "cuda")
 PREFILL_MODES = ("decode", "bulk")
+# while tracing, one eager step in this many (prefills and single decode
+# steps, host-bound) carries device time by region: its marks and their
+# reading cost about 5% of a host-bound prefill (PERF.md). Every fused
+# dispatch carries it.
+EAGER_TIMING_EVERY = 4
 
 
 @dataclass
@@ -425,6 +430,16 @@ class ServeEngine:
             return contextlib.nullcontext()
         return torch.cuda.stream(self._stream)
 
+    @property
+    def trace_tid(self) -> int:
+        return self._trace_tid
+
+    @trace_tid.setter
+    def trace_tid(self, tid: int):
+        self._trace_tid = tid
+        if self._decode_fused is not None:
+            self._decode_fused.trace_tid = tid
+
     def _observe_step(self, kind: str, t0: float, shares=None):
         """Record one step's wall ms under its step kind and, when the
         utilization ledger is armed, attribute the same measured seconds
@@ -519,11 +534,14 @@ class ServeEngine:
         tok0 = self.prefill_tokens_computed
         with otrace.span("engine.step", tid=self.trace_tid, step="prefill",
                          slot=slot, prompt_len=len(req.prompt),
-                         reused=(adm.n_reused if adm is not None else 0)):
+                         reused=(adm.n_reused if adm is not None else 0)) \
+                as span:
+            timer = otrace.device_timer(self.device, EAGER_TIMING_EVERY)
             if adm is not None:
                 first = self._paged_prefill_slot(slot, req, adm)
             else:
                 first = self._dense_prefill_slot(slot, req)
+            timer.attach(span)
             self._finish_prefill(slot, req, first)
         # share basis: prompt tokens actually computed (min 1 — a full
         # prefix hit still occupied the dispatch)
@@ -603,6 +621,7 @@ class ServeEngine:
             out, nat = prefill(self.params, {"tokens": toks}, P)
             self._write_slot(slot, prefill_into_cache(
                 self.cfg, nat, self._empty_row(), [P]))
+            otrace.stop_timer()
             return int(out[0]) if greedy else \
                 self._sample_safe(req, self._host_logits(out[0]))
         self._write_slot(slot, self._empty_row())
@@ -619,6 +638,7 @@ class ServeEngine:
             pos[slot] = t
             out, _ = decode(self.params, self._ints(toks), self._ints(pos),
                             self.cache, rows)
+        otrace.stop_timer()
         return int(out[slot]) if greedy else \
             self._sample_safe(req, self._host_logits(out[slot]))
 
@@ -642,6 +662,7 @@ class ServeEngine:
             prefill = self._prefill_tok if greedy else self._prefill_lg
             out, _ = prefill(self.params, toks, start, len(suffix),
                              self.cache, self._ints(self.table[slot]))
+            otrace.stop_timer()
             first = int(out) if greedy else \
                 self._sample_safe(req, self._host_logits(out))
         else:
@@ -658,6 +679,7 @@ class ServeEngine:
                 pos[slot] = t
                 out, _ = decode(self.params, self._ints(toks),
                                 self._ints(pos), self.cache, tbl)
+            otrace.stop_timer()
             first = int(out[slot]) if greedy else \
                 self._sample_safe(req, self._host_logits(out[slot]))
         # index the prompt's full pages: the next request sharing this
@@ -736,7 +758,8 @@ class ServeEngine:
         shares = [(self.active[s].request_id, 1, self._blocks_held(s))
                   for s in live]
         with otrace.span("engine.step", tid=self.trace_tid, step="decode",
-                         live=len(live)):
+                         live=len(live)) as span:
+            timer = otrace.device_timer(self.device, EAGER_TIMING_EVERY)
             decode = self._decode_tok if greedy_batch else self._decode_lg
             with otrace.span("device.decode", tid=self.trace_tid,
                              kind="single", greedy=greedy_batch):
@@ -752,24 +775,28 @@ class ServeEngine:
                     out, _ = decode(self.params, self._ints(toks),
                                     self._ints(pos), self.cache,
                                     torch.tensor(live, device=self.device))
+                timer.stop()
                 otrace.fence((out, self.cache))
             out = out.cpu().numpy() if greedy_batch else \
                 out.float().cpu().numpy()
-            for s in live:
-                req = self.active[s]
-                self.pos[s] += 1
-                self.budget[s] -= 1
-                tok = int(out[s]) if greedy_batch else \
-                    self._sample_safe(req, out[s])
-                if isinstance(tok, Exception):
-                    self.budget[s] = 0
-                    self._retire(s)
-                    continue
-                hit_eos = req.eos_id is not None and tok == req.eos_id
-                if not hit_eos:
-                    self._emit(req, tok)
-                if hit_eos or self.budget[s] <= 0:
-                    self._retire(s)
+            timer.attach(span)
+            with otrace.span("engine.reconcile", tid=self.trace_tid,
+                             step="decode", live=len(live)):
+                for s in live:
+                    req = self.active[s]
+                    self.pos[s] += 1
+                    self.budget[s] -= 1
+                    tok = int(out[s]) if greedy_batch else \
+                        self._sample_safe(req, out[s])
+                    if isinstance(tok, Exception):
+                        self.budget[s] = 0
+                        self._retire(s)
+                        continue
+                    hit_eos = req.eos_id is not None and tok == req.eos_id
+                    if not hit_eos:
+                        self._emit(req, tok)
+                    if hit_eos or self.budget[s] <= 0:
+                        self._retire(s)
         self._observe_step("decode", t0, shares)
         return len(live)
 
@@ -871,12 +898,14 @@ class ServeEngine:
         steps taken, finished slots retired."""
         t0 = time.perf_counter()
         with otrace.span("engine.step", tid=self.trace_tid, step="fused",
-                         live=len(live), fused_tokens=self.fused_tokens):
-            n, shares = self._step_fused_impl(live, toks, pos)
+                         live=len(live), fused_tokens=self.fused_tokens) \
+                as span:
+            n, shares = self._step_fused_impl(live, toks, pos, span)
         self._observe_step("fused", t0, shares)
         return n
 
-    def _step_fused_impl(self, live, toks, pos):
+    def _step_fused_impl(self, live, toks, pos, span):
+        timer = otrace.device_timer(self.device)
         eos = np.full((self.slots,), -1, np.int32)
         steps = np.zeros((self.slots,), np.int32)
         alive = np.zeros((self.slots,), bool)
@@ -892,26 +921,31 @@ class ServeEngine:
                 self._ints(self.table), self._ints(eos),
                 torch.as_tensor(alive, device=self.device),
                 self._ints(steps))
+            timer.stop()
             otrace.fence((emitted, self.cache))
         emitted = emitted.cpu().numpy()
         live_out = live_out.cpu().numpy()
         steps_out = steps_out.cpu().numpy()
+        timer.attach(span)
         shares = []
-        for s in live:
-            req = self.active[s]
-            used = int(steps[s] - steps_out[s])
-            # ledger share = steps this slot actually advanced in the
-            # burst; blocks read before a possible retire releases them
-            shares.append((req.request_id, used, self._blocks_held(s)))
-            self.pos[s] += used
-            self.budget[s] -= used
-            for t in range(emitted.shape[0]):
-                tok = int(emitted[t, s])
-                if tok < 0:
-                    break
-                self._emit(req, tok)
-            if not live_out[s]:
-                self._retire(s)
+        with otrace.span("engine.reconcile", tid=self.trace_tid,
+                         step="fused", live=len(live)):
+            for s in live:
+                req = self.active[s]
+                used = int(steps[s] - steps_out[s])
+                # ledger share = steps this slot actually advanced in the
+                # burst; blocks read before a possible retire releases
+                # them
+                shares.append((req.request_id, used, self._blocks_held(s)))
+                self.pos[s] += used
+                self.budget[s] -= used
+                for t in range(emitted.shape[0]):
+                    tok = int(emitted[t, s])
+                    if tok < 0:
+                        break
+                    self._emit(req, tok)
+                if not live_out[s]:
+                    self._retire(s)
         return len(live), shares
 
     def _step_spec(self, live, toks, pos) -> int:

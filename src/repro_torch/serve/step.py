@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.obs import trace as otrace
 from repro_torch.sharding import spmd
 from repro_torch.sharding import tp as TP
 
@@ -283,6 +284,8 @@ def build_decode_fused(cfg, n_tokens: int, *, window=None,
       live   (B,)  bool:  slots taking part in this dispatch
       steps  (B,)  int32: per-slot remaining token budget
       emitted (n_tokens, B) int32: generated tokens, -1 past a slot's end
+    Only the first step's `obs.trace` regions are timed (`trace.cover`):
+    each timing event between two kernels costs device time.
     The engine reconciles on exit: per slot it takes the emitted tokens up
     to the first -1, advances pos and budget by the steps taken (steps_in
     - steps_out), and retires slots whose live flag dropped. Greedy only:
@@ -290,18 +293,19 @@ def build_decode_fused(cfg, n_tokens: int, *, window=None,
     def fused(params, tokens, pos, cache, table, eos, live, steps):
         tok, p, lv, st = tokens, pos, live, steps
         emitted = []
-        for _ in range(n_tokens):
-            tbl = torch.where(lv[:, None], table, 0)
-            logits, cache = T.decode_step_paged(params, cfg, tok, p, cache,
-                                                tbl, window=window,
-                                                kernel=kernel)
-            nxt = _greedy(logits[:, -1, :])
-            hit_eos = lv & (eos >= 0) & (nxt == eos)
-            emitted.append(torch.where(lv & ~hit_eos, nxt, -1))
-            st = torch.where(lv, st - 1, st)
-            lv = lv & ~hit_eos & (st > 0)
-            tok = torch.where(lv, nxt, tok[:, 0])[:, None]
-            p = torch.where(lv, p + 1, p)
+        for i in range(n_tokens):
+            with otrace.cover(i == 0):
+                tbl = torch.where(lv[:, None], table, 0)
+                logits, cache = T.decode_step_paged(
+                    params, cfg, tok, p, cache, tbl, window=window,
+                    kernel=kernel)
+                nxt = _greedy(logits[:, -1, :])
+                hit_eos = lv & (eos >= 0) & (nxt == eos)
+                emitted.append(torch.where(lv & ~hit_eos, nxt, -1))
+                st = torch.where(lv, st - 1, st)
+                lv = lv & ~hit_eos & (st > 0)
+                tok = torch.where(lv, nxt, tok[:, 0])[:, None]
+                p = torch.where(lv, p + 1, p)
         return torch.stack(emitted), lv, st, cache
     return fused
 

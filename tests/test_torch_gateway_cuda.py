@@ -22,6 +22,7 @@ from repro_torch.gateway.gateway import Gateway
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.models import transformer as T
 from repro_torch.obs import trace as otrace
+from repro_torch.serve import engine as engine_mod
 from repro_torch.serve.engine import ServeEngine
 
 pytestmark = pytest.mark.gpu
@@ -211,3 +212,47 @@ def test_async_gateway_crash_recaptures_while_the_peer_replays(device,
                  for r in gw.replicas if "decode" in r.engine.step_times)
     assert pa_ops.paged_attention.launches == cfg.n_layers * (
         N * sum(g.replays + g.warmup_runs for g in graphs) + single)
+
+
+def test_graph_regions_read_after_traced_replays_only(device, model,
+                                                      monkeypatch):
+    """The timed fused graph's regions, captured as timing events, give
+    positive times after a traced replay: the first decode step's
+    (`covered_ms`), within the replay's device time. Untraced replays run
+    the plain graph and read nothing. A capture after `reset()` is a
+    `graph.capture` span and times its regions as the first did."""
+    monkeypatch.setattr(engine_mod, "EAGER_TIMING_EVERY", 1)
+    eng = _engine(model, device, True)
+    reads = []
+    elapsed = torch.cuda.Event.elapsed_time
+
+    def counted(self, end):
+        reads.append(1)
+        return elapsed(self, end)
+    monkeypatch.setattr(torch.cuda.Event, "elapsed_time", counted)
+    want = _serve(eng, PROMPTS)
+    assert eng._decode_fused.replays > 0 and reads == []
+    names = {"attn.proj", "attn.core", "ffn", "logits"}
+    for capture in (False, True):
+        if capture:
+            eng.reset()
+        tr = otrace.enable()
+        try:
+            assert _serve(eng, PROMPTS) == want
+        finally:
+            otrace.disable()
+        assert reads
+        spans = list(tr._ring)
+        assert sum(s.name == "graph.capture" for s in spans) == capture
+        steps = [s for s in spans if s.name == "engine.step"]
+        assert {"prefill", "fused"} <= {s.args["step"] for s in steps}
+        for s in steps:
+            d = s.args["device"]
+            regions = {k: v for k, v in d.items()
+                       if k not in ("total_ms", "covered_ms")}
+            assert set(regions) == names and min(regions.values()) > 0, d
+            covered = d.get("covered_ms", d["total_ms"])
+            assert sum(regions.values()) <= 1.01 * covered, d
+            assert 0 < covered <= d["total_ms"] <= 1e3 * s.dur, d
+        reads.clear()
+    assert eng._decode_fused.captures == 2

@@ -178,17 +178,6 @@ class TestTracer:
         assert st == {"enabled": True, "capacity": 8, "spans_recorded": 1,
                       "spans_buffered": 1, "spans_dropped": 0}
 
-    def test_traced_decorator(self):
-        tr = otrace.enable()
-
-        @otrace.traced("labelled")
-        def f(x):
-            return x + 1
-
-        assert f(1) == 2
-        assert [e["name"] for e in tr.events() if e["ph"] == "X"] \
-            == ["labelled"]
-
     def test_export_is_valid_chrome_trace(self, tmp_path):
         tr = otrace.enable()
         tr.set_track_name(otrace.HOST_PID, 0, "replica0")
