@@ -414,6 +414,21 @@ FLASH_CASES = [
     (1, 256, 16, 8, 128, None),         # qwen3-1.7b prefill
     (1, 2560, 16, 1, 256, 2048),        # recurrentgemma-9b prefill
 ]
+# the paged flash variant (the paged bulk prefill's read, no TPU
+# counterpart) on its benchmark's tables: mistral-nemo-12b's heads over
+# 4,352 positions, a 2,048-token document from position 0 and a 64-token
+# question on a 4,000-token cached prefix; granite-moe-3b's over 2,048, a
+# 512-token prompt from 0: S, start, n_tok, nh, nkv, hd, bs, nb
+PAGED_FLASH_CASES = [
+    (2048, 0, 2048, 32, 8, 128, 16, 272),
+    (64, 4000, 64, 32, 8, 128, 16, 272),
+    (512, 0, 512, 24, 8, 64, 16, 128),
+]
+# its bf16 check: the widest error of one (real row, head) output vector,
+# |got - want| / |want| over head_dim; a sound kernel reads a few bf16
+# roundings, a planted fault (one page read from the wrong block, or the
+# causal mask one key late) tens of percent (PERF.md section 6, row 5)
+PAGED_FLASH_REL_TOL = 0.02
 # RG-LRU scan: the reference's (RGLRU_CASES) and recurrentgemma-9b's: B, S, C
 SCAN_CASES = [(2, 32, 64), (1, 100, 130), (2, 16, 16), (1, 2560, 4096)]
 # SSD scan: the reference's (tests/test_kernels.py SSD_CASES), a ragged
@@ -857,6 +872,89 @@ def time_flash(device, case) -> dict:
             "bytes": bytes_, "flops": flops, "pairs": pairs}
 
 
+def row_rel_err(got, want) -> float:
+    """The widest relative error of one output vector: max over the rows
+    and heads of |got - want| / |want|, the norms over head_dim."""
+    diff = (got.float() - want.float()).norm(dim=-1)
+    return (diff / want.float().norm(dim=-1)).max().item()
+
+
+def paged_flash_errs(case, q, kpool, vpool, table) -> dict:
+    """The paged flash kernel's error against the plain gather on the real
+    rows ("err"), beside two planted faults of the plain gather against
+    itself: the middle page the rows attend read from its neighbour's
+    block ("page"), and the causal mask one key late ("mask")."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_paged
+    from repro_torch.kernels.flash_attention.ref import paged_prefill_ref
+    _, start, n_tok, _, _, _, bs, _ = case
+    want = paged_prefill_ref(q, kpool, vpool, table, start, n_tok)[:, :n_tok]
+    got = flash_attention_paged(q, kpool, vpool, table, start, n_tok)
+    col = (start + n_tok) // bs // 2
+    misread = table.clone()
+    misread[col] = table[col + 1]
+    page = paged_prefill_ref(q, kpool, vpool, misread, start, n_tok)
+    late = paged_prefill_ref(q, kpool, vpool, table, start + 1, n_tok)
+    return {"err": row_rel_err(got[:, :n_tok], want),
+            "page": row_rel_err(page[:, :n_tok], want),
+            "mask": row_rel_err(late[:, :n_tok], want)}
+
+
+def paged_flash_inputs(device, case, seed):
+    """bf16 q (1, S, nh, hd), pools of the table's pages plus the null
+    block, and a shuffled table of every non-null block."""
+    S, _, _, nh, nkv, hd, bs, nb = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def t(*shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32).to(torch.bfloat16)
+    table = (torch.randperm(nb, generator=gen, device=device) + 1).to(
+        torch.int32)
+    return t(1, S, nh, hd), t(nb + 1, bs, nkv, hd), t(nb + 1, bs, nkv, hd), \
+        table
+
+
+def time_flash_paged(device, case) -> dict:
+    """Phase 11 (paged flash): one paged bulk prefill read in bf16, against
+    the plain gather it replaced. Its error must stay within
+    PAGED_FLASH_REL_TOL, which both planted faults must exceed. Three
+    input sets (q and both pools: 136 MB at the 2,048-token case, above
+    the 50 MB L2) are cycled. The bound is the attention term of
+    portbench/counts.py's `prefill_flops` (4 x heads x head_dim per
+    attended (query, key) pair) at the tensor cores' peak, or the bytes
+    the read needs (q, the K/V rows it attends, the table, the output),
+    whichever is longer."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_paged
+    from repro_torch.kernels.flash_attention.ref import paged_prefill_ref
+    S, start, n_tok, nh, nkv, hd, bs, nb = case
+    sets = [paged_flash_inputs(device, case, SEED + i) for i in range(3)]
+    errs = paged_flash_errs(case, *sets[0])
+    if not errs["err"] <= PAGED_FLASH_REL_TOL < min(errs["page"],
+                                                    errs["mask"]):
+        raise AssertionError(f"paged flash {case}: relative errors {errs} "
+                             f"against the limit {PAGED_FLASH_REL_TOL}")
+    nxt = cycle(sets)
+
+    def kernel():
+        return flash_attention_paged(*nxt(), start, n_tok)
+
+    def plain():
+        return paged_prefill_ref(*nxt(), start, n_tok)
+    kernel_ms = time_cuda(kernel, iters=50, warmup=5)
+    kernel_card_ms = time_graph(kernel, iters=20)
+    plain_ms = time_cuda(plain, iters=5, warmup=1)
+    attended = n_tok * start + n_tok * (n_tok + 1) // 2
+    flops = 4 * nh * hd * attended
+    bytes_ = (2 * S * nh * hd * 2 + 2 * (start + n_tok) * nkv * hd * 2
+              + nb * 4)
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
+    return {"ms": kernel_ms, "card_ms": kernel_card_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": bytes_, "flops": flops, **errs}
+
+
 def time_scan(device) -> dict:
     """Phase 11 (scan): recurrentgemma's shape (1, 2560, 4096) with f32
     inputs, as the model's gates give them; three input sets (377 MB) are
@@ -974,6 +1072,7 @@ def serve(engine, requests) -> dict:
         torch.cuda.synchronize()
     for fn in fns.values():
         fn.launches = 0
+    zero_paged_prefills()
     t0 = time.perf_counter()
     engine.run()
     wall = time.perf_counter() - t0
@@ -996,11 +1095,13 @@ def serve(engine, requests) -> dict:
     if launches != cfg.n_layers * decode.n:
         raise AssertionError(f"kernel launches {launches} != {cfg.n_layers} "
                              f"layers x {decode.n} decode dispatches")
+    prefill_launches = check_paged_prefills(cfg, prefill.n, "phase 3")
     m = engine.cache_metrics
     if m.hits < 1 or m.cow_copies < 1:
         raise AssertionError(f"radix reuse did not run: {m.as_dict()}")
     decode_tokens = sum(len(r.output) - 1 for r in reqs)
     return {"requests": len(reqs), "launches": launches,
+            "prefill_launches": prefill_launches,
             "decode_dispatches": decode.n,
             "decode_step_ms_mean": decode.total / decode.n,
             "decode_step_ms_p50": decode.percentile(50),
@@ -1121,6 +1222,24 @@ def counters() -> dict:
     return {"paged_attention": paged_attention,
             "flash_attention": flash_attention, "rglru_scan": rglru_scan,
             "ssd_scan": ssd_scan}
+
+
+def check_paged_prefills(cfg, prefills: int, what: str):
+    """The paged bulk prefill's read launches the paged flash kernel once
+    per attention layer per bulk prefill (its own counter, apart from
+    `counters()`, whose checks stay as they were)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_paged
+    n = flash_attention_paged.launches
+    if n != cfg.n_layers * prefills:
+        raise AssertionError(f"{what}: flash_attention_paged launched {n}, "
+                             f"expected {cfg.n_layers} layers x {prefills} "
+                             "bulk prefills")
+    return n
+
+
+def zero_paged_prefills():
+    from repro_torch.kernels.flash_attention.ops import flash_attention_paged
+    flash_attention_paged.launches = 0
 
 
 def make_dense_engine(params, cfg, device, batch_slots, cache_len):
@@ -1393,6 +1512,7 @@ def serve_variant(engine, requests) -> dict:
     sync(engine)
     for fn in fns.values():
         fn.launches = 0
+    zero_paged_prefills()
     t0 = time.perf_counter()
     engine.run()
     sync(engine)
@@ -1422,6 +1542,7 @@ def serve_variant(engine, requests) -> dict:
             f"{cfg.n_layers} x ({engine.fused_tokens} x ({replays} replays "
             f"+ {warmups} warm-up runs) + {kinds.get('decode', 0)} single "
             f"+ {kinds.get('mixed', 0)} mixed dispatches)")
+    check_paged_prefills(cfg, kinds.get("prefill", 0), "variant run")
     times = {k: h.total / h.n for k, h in engine.step_times.items()}
     return {"requests": len(reqs), "launches": launches["paged_attention"],
             "dispatches": kinds, "replays": replays, "warmups": warmups,
@@ -1628,6 +1749,7 @@ def serve_gateway(gw, requests, chaos=None) -> dict:
     sync(engines[0])
     for fn in fns.values():
         fn.launches = 0
+    zero_paged_prefills()
     t0 = time.perf_counter()
     handles = [gw.submit(p, max_new_tokens=n, sampling=s)
                for p, s, n in requests]
@@ -1650,9 +1772,10 @@ def serve_gateway(gw, requests, chaos=None) -> dict:
         if not all(0 <= t < cfg.vocab_size for t in h.output):
             raise AssertionError(f"request {h.gid}: token out of the "
                                  "vocabulary")
-    per_replica, want = [], 0
+    per_replica, want, prefills = [], 0, 0
     for e, g, b in zip(engines, graphs, before):
         kinds = {k: h.n for k, h in e.step_times.items()}
+        prefills += kinds.get("prefill", 0)
         run = {k: getattr(g, k) - b[k] for k in stats} if g is not None \
             else dict.fromkeys(stats, 0)
         if run["replays"] != kinds.get("fused", 0):
@@ -1670,10 +1793,12 @@ def serve_gateway(gw, requests, chaos=None) -> dict:
                              f"{want} = {cfg.n_layers} x (fused_tokens x "
                              "(replays + warm-up runs) + single dispatches) "
                              f"over the replicas {per_replica}")
+    prefill_launches = check_paged_prefills(cfg, prefills, "gateway run")
     summ = gw.summary()
     ttfts = [h.metrics.ttft for h in handles if h.metrics.ttft is not None]
     ttft_p95 = percentile(ttfts, 95)
     return {"requests": len(handles), "launches": launches["paged_attention"],
+            "prefill_launches": prefill_launches,
             "replicas": per_replica, "wall_s": wall,
             "tokens_per_s": sum(len(h.output) for h in handles) / wall,
             "ttft_p50_ms": summ["ttft_p50_ms"],
@@ -1690,7 +1815,8 @@ def log_gateway(s: dict):
         f"to end over {s['wall_s']:.3f} s; time to first token p50 "
         f"{s['ttft_p50_ms']:.3f} ms, p95 {s['ttft_p95_ms']:.3f} ms; between "
         f"tokens p50 {s['itl_p50_ms']:.3f} ms, p95 {s['itl_p95_ms']:.3f} ms; "
-        f"{s['retried']} retried; paged kernel launches {s['launches']}")
+        f"{s['retried']} retried; paged kernel launches {s['launches']}, "
+        f"paged flash (bulk prefill) launches {s['prefill_launches']}")
     for i, r in enumerate(s["replicas"]):
         log(f"  replica {i}: dispatches by kind {r['dispatches']}, graph "
             f"captures {r['captures']}, replays {r['replays']}, warm-up runs "
@@ -3987,7 +4113,9 @@ def main(device: str = "cuda") -> int:
     requests = make_requests(cfg)
     served = serve(eng, requests)
     log(f"  {served['requests']} requests, {served['decode_dispatches']} "
-        f"decode dispatches, {served['launches']} kernel launches, cache "
+        f"decode dispatches, {served['launches']} kernel launches, "
+        f"{served['prefill_launches']} paged flash launches (= "
+        f"{cfg.n_layers} x bulk prefills), cache "
         f"hits {served['cache']['hits']}, CoW copies "
         f"{served['cache']['cow_copies']}, tokens reused "
         f"{served['cache']['tokens_reused']}")
@@ -4287,6 +4415,19 @@ def main(device: str = "cuda") -> int:
             f"by {t['bound_by']} ({t['flops']} flops over {t['pairs']} "
             f"visible pairs at {BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s, "
             f"{t['bytes']} bytes)")
+    paged_flash_t = {}
+    for case in PAGED_FLASH_CASES:
+        t = paged_flash_t[case] = time_flash_paged(device, case)
+        log(f"  paged flash S,start,n_tok,nh,nkv,hd,bs,nb={case} (port "
+            f"only, no TPU counterpart): kernel {t['ms']:.4f} ms per call "
+            f"from Python, {t['card_ms']:.4f} ms on the card alone; plain "
+            f"gather {t['plain_ms']:.4f} ms ({t['plain_ms'] / t['card_ms']:.1f}"
+            f"x the card time); bound {t['bound_ms']:.4f} ms by "
+            f"{t['bound_by']} ({t['flops']} flops, {t['bytes']} bytes), card "
+            f"/ bound {t['card_ms'] / t['bound_ms']:.2f}; widest row "
+            f"error {t['err']:.3g} (limit {PAGED_FLASH_REL_TOL}; planted "
+            f"faults: page misread {t['page']:.3g}, mask one late "
+            f"{t['mask']:.3g})")
     scan_t = time_scan(device)
     log_scan_timing(f"rglru_scan B,S,C={SCAN_CASES[-1]}", scan_t,
                     PREVIOUS_SCAN_MS["rglru_scan"])
@@ -4467,6 +4608,17 @@ def main(device: str = "cuda") -> int:
         f"prefills x {n_attn} layers + {fam_flash}); f32 max abs err "
         f"{flash_errs[torch.float32]:.3g}, bf16 "
         f"{flash_errs[torch.bfloat16]:.3g}")
+    long_t, suffix_t, granite_t = (paged_flash_t[c]
+                                   for c in PAGED_FLASH_CASES)
+    log(f"kernels: flash_attention_paged (port only, the paged bulk "
+        f"prefill's read) launches={served['prefill_launches']} (phase 3's "
+        f"bulk prefills x {cfg.n_layers} layers), through the gateway "
+        f"{gw_sync['prefill_launches']} and "
+        f"{gw_async['prefill_launches']}; on the card {long_t['card_ms']:.4f}"
+        f" ms at 2,048 tokens from 0 (plain {long_t['plain_ms']:.4f}), "
+        f"{suffix_t['card_ms']:.4f} ms at 64 on 4,000 (plain "
+        f"{suffix_t['plain_ms']:.4f}), {granite_t['card_ms']:.4f} ms at "
+        f"granite's 512 from 0 (plain {granite_t['plain_ms']:.4f})")
     log(f"kernels: rglru_scan launches={kernels[2]['launches']} "
         f"({dense_r['prefills']} prefills x {cfg_r.n_layers - n_attn} "
         f"layers + on tensor-parallel rank 0's channels {rglru_paths}); "

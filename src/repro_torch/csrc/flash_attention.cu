@@ -70,6 +70,27 @@
 // up to the tile of the last query (causal) and from the tile of the first
 // query's window start.
 //
+// The paged variant (template parameter PAGED, entry points
+// flash_attention_paged_*; wrapper ops.flash_attention_paged) is the paged
+// bulk prefill's attention read (models/layers.py::attention_prefill_paged),
+// a port-only kernel: the reference computes that read with its dense XLA
+// composition. One sequence (B = 1) of S bucketed query rows, n_tok of them
+// real, whose row i sits at absolute position start + i; its keys are the
+// positions 0 .. start + n_tok - 1 of a paged pool (n_blocks, bs, nkv, hd),
+// key j read in place from pool[table[j / bs], j % bs, kv head] (the reused
+// prefix and the rows just written). Only three things differ from the dense
+// instantiation, which compiles to the same code as before:
+//   * the loaders look each key row's page up in the table (a 64-key tile
+//     spans four 16-row pages; every row is still one 16-byte cp.async per
+//     chunk, since pool rows are nkv * hd elements apart);
+//   * the mask and the tile bounds use absolute positions (query start + i,
+//     Sk = start + n_tok), so the work is the causal triangle of the real
+//     rows plus the prefix, never the whole table;
+//   * rows at or past n_tok are written as zeros: a query tile wholly past
+//     them loads nothing and only stores its zeros (the padded rows feed the
+//     FFN and scatter K/V into the null block, where a NaN would survive a
+//     zero weight).
+//
 // What bounds the bf16 template now: instruction throughput. mma.sync is a
 // small part of the loop's instructions (the rest: ldmatrix, softmax,
 // copies, address arithmetic), every warp reads each K and V tile
@@ -92,6 +113,16 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the reference kernel's NEG_INF
+
+// the paged variant's extra arguments (unused by the dense instantiations):
+// the slot's block table, the page size, the absolute position of query row
+// 0 and the number of real query rows
+struct Paged {
+  const int* table;
+  int bs;
+  int start;
+  int n_tok;
+};
 
 // ------------------------------------------------ shared by both templates
 
@@ -162,7 +193,29 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ src,
   }
 }
 
+// As load_tile, for the `rows` keys j0 .. j0 + rows - 1 of a paged pool:
+// key j at base + table[j / bs] * blk_stride + (j % bs) * row_stride.
 template <int HD>
+__device__ __forceinline__ void load_pages(const float* __restrict__ base,
+                                           Paged pg,
+                                           int64_t blk_stride,
+                                           int64_t row_stride, int j0,
+                                           int rows, int valid, float* dst,
+                                           int dst_stride) {
+  for (int idx = threadIdx.x; idx < rows * HD; idx += kThreads) {
+    const int r = idx / HD;
+    const int d = idx - r * HD;
+    const int j = j0 + r;
+    dst[r * dst_stride + d] =
+        r < valid ? base[(int64_t)__ldg(pg.table + j / pg.bs) * blk_stride +
+                         (int64_t)(j % pg.bs) * row_stride + d]
+                  : 0.f;
+  }
+}
+
+// PAGED: k and v are the pools, k_sb / v_sb their block strides (see the
+// header); otherwise pg is unused.
+template <int HD, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_simt(const float* __restrict__ q,
                          const float* __restrict__ k,
@@ -171,7 +224,7 @@ __global__ void __launch_bounds__(kThreads)
                          int64_t q_ss, int64_t q_sh, int64_t k_sb,
                          int64_t k_ss, int64_t k_sh, int64_t v_sb,
                          int64_t v_ss, int64_t v_sh, float scale,
-                         int window) {
+                         int window, Paged pg) {
   using S = Smem<HD>;
   constexpr int kQS = S::kQS;
   constexpr int kPS = S::kPS;
@@ -182,17 +235,19 @@ __global__ void __launch_bounds__(kThreads)
   float* v_s = k_s + kBK * kQS;
   float* p_s = v_s + kBK * HD;
 
-  const int q_start = blockIdx.x * kBQ;
+  const int q_start = blockIdx.x * kBQ;  // query row index
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / rep;
   const int ty = threadIdx.x / 16;  // query rows ty*4 .. ty*4+3
   const int tx = threadIdx.x % 16;  // keys tx + 16*jj, dims tx + 16*dd
+  const int q_off = PAGED ? pg.start : 0;    // position of query row 0
+  const int q_valid = PAGED ? pg.n_tok : Sq;  // rows that attend
 
   load_tile<HD>(q + b * q_sb + (int64_t)q_start * q_ss + h * q_sh, q_ss,
-                kBQ, Sq - q_start, q_s, kQS);
-  const float* kb = k + b * k_sb + kvh * k_sh;
-  const float* vb = v + b * v_sb + kvh * v_sh;
+                kBQ, q_valid - q_start, q_s, kQS);
+  const float* kb = k + (PAGED ? 0 : b * k_sb) + kvh * k_sh;
+  const float* vb = v + (PAGED ? 0 : b * v_sb) + kvh * v_sh;
 
   float m[4], l[4], acc[4][kDD];
 #pragma unroll
@@ -203,17 +258,25 @@ __global__ void __launch_bounds__(kThreads)
     for (int dd = 0; dd < kDD; ++dd) acc[ii][dd] = 0.f;
   }
 
-  int kt_begin, kt_end;
-  k_tiles(q_start, min(q_start + kBQ, Sq) - 1, Sk, window, kBK, &kt_begin,
-          &kt_end);
+  int kt_begin = 0, kt_end = 0;  // a paged tile past n_tok: no keys
+  if (!PAGED || q_start < q_valid)
+    k_tiles(q_off + q_start, q_off + min(q_start + kBQ, q_valid) - 1, Sk,
+            window, kBK, &kt_begin, &kt_end);
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k_start = kt * kBK;
     __syncthreads();  // the last tile's readers are done (and q_s is loaded)
-    load_tile<HD>(kb + (int64_t)k_start * k_ss, k_ss, kBK, Sk - k_start, k_s,
-                  kQS);
-    load_tile<HD>(vb + (int64_t)k_start * v_ss, v_ss, kBK, Sk - k_start, v_s,
-                  HD);
+    if constexpr (PAGED) {
+      load_pages<HD>(kb, pg, k_sb, k_ss, k_start, kBK, Sk - k_start, k_s,
+                     kQS);
+      load_pages<HD>(vb, pg, v_sb, v_ss, k_start, kBK, Sk - k_start, v_s,
+                     HD);
+    } else {
+      load_tile<HD>(kb + (int64_t)k_start * k_ss, k_ss, kBK, Sk - k_start,
+                    k_s, kQS);
+      load_tile<HD>(vb + (int64_t)k_start * v_ss, v_ss, kBK, Sk - k_start,
+                    v_s, HD);
+    }
     __syncthreads();
 
     // scores: rows ty*4+ii, keys tx+16*jj
@@ -247,7 +310,7 @@ __global__ void __launch_bounds__(kThreads)
     // mask, online softmax, P into shared memory, rescale the accumulator
 #pragma unroll
     for (int ii = 0; ii < 4; ++ii) {
-      const int qp = q_start + ty * 4 + ii;
+      const int qp = q_off + q_start + ty * 4 + ii;  // its position
       bool ok[4];
       float mx = kNegInf;
 #pragma unroll
@@ -302,12 +365,13 @@ __global__ void __launch_bounds__(kThreads)
   // out is (B, Sq, nh, HD), contiguous
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii) {
-    const int qp = q_start + ty * 4 + ii;
-    if (qp >= Sq) continue;
-    float* o = out + (((int64_t)b * Sq + qp) * nh + h) * HD;
+    const int row = q_start + ty * 4 + ii;
+    if (row >= Sq) continue;
+    const bool attends = l[ii] > 0.f && (!PAGED || row < q_valid);
+    float* o = out + (((int64_t)b * Sq + row) * nh + h) * HD;
 #pragma unroll
     for (int dd = 0; dd < kDD; ++dd)
-      o[tx + 16 * dd] = l[ii] > 0.f ? acc[ii][dd] / l[ii] : 0.f;
+      o[tx + 16 * dd] = attends ? acc[ii][dd] / l[ii] : 0.f;
   }
 }
 
@@ -356,6 +420,34 @@ __device__ __forceinline__ void load_tile_async(const bf16* __restrict__ src,
   }
 }
 
+// As load_tile_async, for the ROWS keys j0 .. j0 + ROWS - 1 of a paged pool:
+// key j at base + table[j / bs] * blk_stride + (j % bs) * row_stride.
+template <int ROWS, int HD>
+__device__ __forceinline__ void load_pages_async(const bf16* __restrict__ base,
+                                                 Paged pg,
+                                                 int64_t blk_stride,
+                                                 int64_t row_stride, int j0,
+                                                 int valid, bf16* dst) {
+  constexpr int kChunks = HD / 8;
+  constexpr int kStep = kThreads / kChunks;
+  static_assert((ROWS * kChunks) % kThreads == 0, "tile must split evenly");
+  const int tid = threadIdx.x % kThreads;
+  const int r0 = tid / kChunks;
+  const int col = (tid % kChunks) * 8;
+  uint32_t s = smem_addr(dst + r0 * (HD + 8) + col);
+#pragma unroll
+  for (int r = r0; r < ROWS; r += kStep) {
+    const bf16* g = base;
+    if (r < valid) {
+      const int j = j0 + r;
+      g += (int64_t)__ldg(pg.table + j / pg.bs) * blk_stride +
+           (int64_t)(j % pg.bs) * row_stride + col;
+    }
+    cp_async16(s, g, r < valid);
+    s += kStep * (HD + 8) * sizeof(bf16);
+  }
+}
+
 // the barrier of one half: its own named barrier (1 or 2), 128 threads
 __device__ __forceinline__ void half_sync(int half) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(half + 1), "n"(kThreads)
@@ -365,14 +457,17 @@ __device__ __forceinline__ void half_sync(int half) {
 // Two halves of 4 warps each take the same 64 query rows; half i walks the
 // block's K tiles i, i + 2, i + 4, ... with its own Q copy, K/V stages and
 // barrier, and the halves' (m, l, O) are merged in half order at the end.
-template <int HD>
+// PAGED: k and v are the pools, k_sb / v_sb their block strides (see the
+// header); otherwise pg is unused.
+template <int HD, bool PAGED>
 __global__ void __launch_bounds__(kThreads * kHalves)
     flash_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, bf16* __restrict__ out,
                         int Sq, int Sk, int nh, int rep, int64_t q_sb,
                         int64_t q_ss, int64_t q_sh, int64_t k_sb,
                         int64_t k_ss, int64_t k_sh, int64_t v_sb,
-                        int64_t v_ss, int64_t v_sh, float scale, int window) {
+                        int64_t v_ss, int64_t v_sh, float scale, int window,
+                        Paged pg) {
   constexpr int kBK = Cfg<HD>::kBK;
   constexpr int kS = Cfg<HD>::kStride;
   constexpr int kNT = kBK / 8;  // n8 score tiles per warp
@@ -384,18 +479,47 @@ __global__ void __launch_bounds__(kThreads * kHalves)
   bf16* v_s = k_s + 2 * kBK * kS;  // stages 0 and 1
 
   // the query tiles with the most K tiles first (causal: the last ones)
-  const int q_start = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int q_start = (gridDim.x - 1 - blockIdx.x) * kBQ;  // row index
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / rep;
   const int warp = (threadIdx.x % kThreads) / 32;
   const int lane = threadIdx.x % 32;
-  const bf16* kb = k + b * k_sb + kvh * k_sh;
-  const bf16* vb = v + b * v_sb + kvh * v_sh;
+  const int q_off = PAGED ? pg.start : 0;    // position of query row 0
+  const int q_valid = PAGED ? pg.n_tok : Sq;  // rows that attend
+  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
+  if (PAGED && q_start >= q_valid) {  // padded rows only: zeros, no keys
+    const int rows = min(kBQ, Sq - q_start);
+    for (int c = threadIdx.x; c < rows * kChunks; c += kThreads * kHalves)
+      *reinterpret_cast<uint4*>(
+          out + (((int64_t)b * Sq + q_start + c / kChunks) * nh + h) * HD +
+          (c % kChunks) * 8) = make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
+  const bf16* kb = k + (PAGED ? 0 : b * k_sb) + kvh * k_sh;
+  const bf16* vb = v + (PAGED ? 0 : b * v_sb) + kvh * v_sh;
+  // K (V) tile kt into the stage at dst: rows kt * kBK .. of the sequence,
+  // or of the slot's pages
+  auto load_k = [=](int kt, bf16* dst) {
+    if constexpr (PAGED)
+      load_pages_async<kBK, HD>(kb, pg, k_sb, k_ss, kt * kBK, Sk - kt * kBK,
+                                dst);
+    else
+      load_tile_async<kBK, HD>(kb + (int64_t)kt * kBK * k_ss, k_ss,
+                               Sk - kt * kBK, dst);
+  };
+  auto load_v = [=](int kt, bf16* dst) {
+    if constexpr (PAGED)
+      load_pages_async<kBK, HD>(vb, pg, v_sb, v_ss, kt * kBK, Sk - kt * kBK,
+                                dst);
+    else
+      load_tile_async<kBK, HD>(vb + (int64_t)kt * kBK * v_ss, v_ss,
+                               Sk - kt * kBK, dst);
+  };
 
   int kt_begin, kt_end;
-  k_tiles(q_start, min(q_start + kBQ, Sq) - 1, Sk, window, kBK, &kt_begin,
-          &kt_end);
+  k_tiles(q_off + q_start, q_off + min(q_start + kBQ, q_valid) - 1, Sk,
+          window, kBK, &kt_begin, &kt_end);
   const int kt0 = kt_begin + half;  // this half's first tile
 
   // copy groups, per thread, are committed in tile order, K then V, one
@@ -404,18 +528,16 @@ __global__ void __launch_bounds__(kThreads * kHalves)
   // once its own K is in, and the next V once its own V is in, each into
   // the stage the previous tile has finished with.
   load_tile_async<kBQ, HD>(q + b * q_sb + (int64_t)q_start * q_ss + h * q_sh,
-                           q_ss, Sq - q_start, q_s);
-  if (kt0 < kt_end)
-    load_tile_async<kBK, HD>(kb + (int64_t)kt0 * kBK * k_ss, k_ss,
-                             Sk - kt0 * kBK, k_s);
+                           q_ss, q_valid - q_start, q_s);
+  if (kt0 < kt_end) load_k(kt0, k_s);
   cp_async_commit();
-  if (kt0 < kt_end)
-    load_tile_async<kBK, HD>(vb + (int64_t)kt0 * kBK * v_ss, v_ss,
-                             Sk - kt0 * kBK, v_s);
+  if (kt0 < kt_end) load_v(kt0, v_s);
   cp_async_commit();
 
-  // this thread's rows of the warp's 16: r0 and r0 + 8 (mma C layout)
-  const int w0 = q_start + warp * 16;
+  // this thread's rows of the warp's 16: r0 and r0 + 8 (mma C layout), as
+  // positions; w_row is the warp's first row index
+  const int w_row = q_start + warp * 16;
+  const int w0 = q_off + w_row;
   const int r0 = w0 + lane / 4;
   const float sl2 = scale * kLog2e;  // softmax in base 2
   float o[kDT][4];
@@ -441,9 +563,7 @@ __global__ void __launch_bounds__(kThreads * kHalves)
 
     cp_async_wait<1>();  // this K tile (and Q) landed; V may be in flight
     half_sync(half);  // ... for the whole half; the last K reads are done
-    if (nxt < kt_end)
-      load_tile_async<kBK, HD>(kb + (int64_t)nxt * kBK * k_ss, k_ss,
-                               Sk - nxt * kBK, k_s + (st ^ 1) * kBK * kS);
+    if (nxt < kt_end) load_k(nxt, k_s + (st ^ 1) * kBK * kS);
     cp_async_commit();
 
     // S = Q K^T: 16 rows x kBK keys per warp
@@ -527,9 +647,7 @@ __global__ void __launch_bounds__(kThreads * kHalves)
 
     cp_async_wait<1>();  // this V tile landed; the next K may be in flight
     half_sync(half);  // ... for the whole half; the last V reads are done
-    if (nxt < kt_end)
-      load_tile_async<kBK, HD>(vb + (int64_t)nxt * kBK * v_ss, v_ss,
-                               Sk - nxt * kBK, v_s + (st ^ 1) * kBK * kS);
+    if (nxt < kt_end) load_v(nxt, v_s + (st ^ 1) * kBK * kS);
     cp_async_commit();
 
     // O += P V, V^T fragments by ldmatrix.trans
@@ -587,13 +705,14 @@ __global__ void __launch_bounds__(kThreads * kHalves)
       o[d][e] = o[d][e] * a0[e / 2] +
                 xs[(4 + d * 4 + e) * kThreads + tid] * a1[e / 2];
 
-  // finalize: 1/l, or 0 for a row that attended nothing. The warp stages
-  // its 16 bf16 rows in its own rows of q_s (only this warp read them) and
-  // stores them as 16-byte chunks.
+  // finalize: 1/l, or 0 for a row that attended nothing (or, paged, a row
+  // at or past n_tok). The warp stages its 16 bf16 rows in its own rows of
+  // q_s (only this warp read them) and stores them as 16-byte chunks.
   bf16* stage = q_s + warp * 16 * kS;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    const bool real = !PAGED || w_row + lane / 4 + 8 * i < q_valid;
+    const float inv = real && l[i] > 0.f ? 1.f / l[i] : 0.f;
     bf16* row = stage + (lane / 4 + 8 * i) * kS + (lane % 4) * 2;
 #pragma unroll
     for (int d = 0; d < kDT; ++d)
@@ -601,14 +720,13 @@ __global__ void __launch_bounds__(kThreads * kHalves)
           __floats2bfloat162_rn(o[d][2 * i] * inv, o[d][2 * i + 1] * inv);
   }
   __syncwarp();
-  constexpr int kChunks = HD / 8;
 #pragma unroll
   for (int c = lane; c < 16 * kChunks; c += 32) {
     const int r = c / kChunks;
     const int col = (c % kChunks) * 8;
-    const int qp = w0 + r;
-    if (qp < Sq)
-      *reinterpret_cast<uint4*>(out + (((int64_t)b * Sq + qp) * nh + h) * HD +
+    const int row = w_row + r;
+    if (row < Sq)
+      *reinterpret_cast<uint4*>(out + (((int64_t)b * Sq + row) * nh + h) * HD +
                                 col) =
           *reinterpret_cast<const uint4*>(stage + r * kS + col);
   }
@@ -623,76 +741,77 @@ struct Kernel;
 
 template <>
 struct Kernel<float> {
-  template <int HD>
+  template <int HD, bool PAGED>
   static int launch(const void* q, const void* k, const void* v, void* out,
                     int B, int Sq, int Sk, int nh, int nkv,
-                    const int64_t* st, float scale, int window,
+                    const int64_t* st, float scale, int window, Paged pg,
                     cudaStream_t stream) {
     const size_t smem = simt::Smem<HD>::kBytes;
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
-          simt::flash_attention_simt<HD>,
+          simt::flash_attention_simt<HD, PAGED>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
     const dim3 grid((Sq + simt::kBQ - 1) / simt::kBQ, nh, B);
-    simt::flash_attention_simt<HD><<<grid, simt::kThreads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, nh,
-        nh / nkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-        st[8], scale, window);
+    simt::flash_attention_simt<HD, PAGED>
+        <<<grid, simt::kThreads, smem, stream>>>(
+            static_cast<const float*>(q), static_cast<const float*>(k),
+            static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk,
+            nh, nh / nkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+            st[7], st[8], scale, window, pg);
     return (int)cudaGetLastError();
   }
 };
 
 template <>
 struct Kernel<__nv_bfloat16> {
-  template <int HD>
+  template <int HD, bool PAGED>
   static int launch(const void* q, const void* k, const void* v, void* out,
                     int B, int Sq, int Sk, int nh, int nkv,
-                    const int64_t* st, float scale, int window,
+                    const int64_t* st, float scale, int window, Paged pg,
                     cudaStream_t stream) {
     using mma::bf16;
     const size_t smem =
         (size_t)mma::kHalves * mma::Cfg<HD>::kHalfElems * sizeof(bf16);
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
-          mma::flash_attention_mma<HD>,
+          mma::flash_attention_mma<HD, PAGED>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
     const dim3 grid((Sq + mma::kBQ - 1) / mma::kBQ, nh, B);
-    mma::flash_attention_mma<HD>
+    mma::flash_attention_mma<HD, PAGED>
         <<<grid, mma::kThreads * mma::kHalves, smem, stream>>>(
             static_cast<const bf16*>(q), static_cast<const bf16*>(k),
             static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, nh,
             nh / nkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-            st[7], st[8], scale, window);
+            st[7], st[8], scale, window, pg);
     return (int)cudaGetLastError();
   }
 };
 
-template <typename T>
+template <typename T, bool PAGED>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int nh, int nkv, int hd, const int64_t* strides,
-           float scale, int window, void* stream) {
+           float scale, int window, Paged pg, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16:
-      return Kernel<T>::template launch<16>(q, k, v, out, B, Sq, Sk, nh, nkv,
-                                            strides, scale, window, s);
+      return Kernel<T>::template launch<16, PAGED>(
+          q, k, v, out, B, Sq, Sk, nh, nkv, strides, scale, window, pg, s);
     case 32:
-      return Kernel<T>::template launch<32>(q, k, v, out, B, Sq, Sk, nh, nkv,
-                                            strides, scale, window, s);
+      return Kernel<T>::template launch<32, PAGED>(
+          q, k, v, out, B, Sq, Sk, nh, nkv, strides, scale, window, pg, s);
     case 64:
-      return Kernel<T>::template launch<64>(q, k, v, out, B, Sq, Sk, nh, nkv,
-                                            strides, scale, window, s);
+      return Kernel<T>::template launch<64, PAGED>(
+          q, k, v, out, B, Sq, Sk, nh, nkv, strides, scale, window, pg, s);
     case 128:
-      return Kernel<T>::template launch<128>(q, k, v, out, B, Sq, Sk, nh, nkv,
-                                             strides, scale, window, s);
+      return Kernel<T>::template launch<128, PAGED>(
+          q, k, v, out, B, Sq, Sk, nh, nkv, strides, scale, window, pg, s);
     case 256:
-      return Kernel<T>::template launch<256>(q, k, v, out, B, Sq, Sk, nh, nkv,
-                                             strides, scale, window, s);
+      return Kernel<T>::template launch<256, PAGED>(
+          q, k, v, out, B, Sq, Sk, nh, nkv, strides, scale, window, pg, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -710,8 +829,8 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* out, int B, int Sq, int Sk, int nh,
                                    int nkv, int hd, const int64_t* strides,
                                    float scale, int window, void* stream) {
-  return launch<float>(q, k, v, out, B, Sq, Sk, nh, nkv, hd, strides, scale,
-                       window, stream);
+  return launch<float, false>(q, k, v, out, B, Sq, Sk, nh, nkv, hd, strides,
+                              scale, window, Paged{}, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
@@ -719,8 +838,35 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     int Sk, int nh, int nkv, int hd,
                                     const int64_t* strides, float scale,
                                     int window, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, nh, nkv, hd, strides,
-                               scale, window, stream);
+  return launch<__nv_bfloat16, false>(q, k, v, out, B, Sq, Sk, nh, nkv, hd,
+                                      strides, scale, window, Paged{}, stream);
+}
+
+// The paged variant: q (1, S, nh, hd), its row i at position start + i and
+// rows at or past n_tok padding; kpool and vpool (n_blocks, bs, nkv, hd);
+// table (nb,) int32 device block ids, nb * bs >= start + n_tok; strides =
+// {q_b, q_s, q_h, k_block, k_row, k_h, v_block, v_row, v_h} under the dense
+// entry points' rules; out (1, S, nh, hd) contiguous, zero at rows >= n_tok.
+// n_tok >= 1 (ops.py returns zeros itself otherwise).
+extern "C" int flash_attention_paged_f32(
+    const void* q, const void* kpool, const void* vpool, const int* table,
+    void* out, int S, int nh, int nkv, int hd, int bs,
+    const int64_t* strides, int start, int n_tok, float scale, int window,
+    void* stream) {
+  return launch<float, true>(q, kpool, vpool, out, 1, S, start + n_tok, nh,
+                             nkv, hd, strides, scale, window,
+                             Paged{table, bs, start, n_tok}, stream);
+}
+
+extern "C" int flash_attention_paged_bf16(
+    const void* q, const void* kpool, const void* vpool, const int* table,
+    void* out, int S, int nh, int nkv, int hd, int bs,
+    const int64_t* strides, int start, int n_tok, float scale, int window,
+    void* stream) {
+  return launch<__nv_bfloat16, true>(q, kpool, vpool, out, 1, S,
+                                     start + n_tok, nh, nkv, hd, strides,
+                                     scale, window,
+                                     Paged{table, bs, start, n_tok}, stream);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -23,15 +23,26 @@ too, as the reference's kernel refuses `jax.grad`.
 
 `flash_attention.launches` counts kernel launches (CUDA tensors only), so
 a run can show that its main path went through the kernel.
+
+`flash_attention_paged` is the paged variant, the paged bulk prefill's
+attention read (`models/layers.py::attention_prefill_paged`), a port-only
+kernel: the reference computes that read with its dense XLA composition,
+which CPU tensors run here (`ref.paged_prefill_ref`). It takes the same
+rules: the device alone picks the path, no backward, the same dtypes, head
+dims and alignment. Its own counter, `flash_attention_paged.launches`,
+counts one launch per call on CUDA tensors; gateway replicas prefill on
+threads of their own, so it grows under a lock.
 """
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
 from repro_torch.kernels import refuse_grad
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     paged_prefill_ref)
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -105,3 +116,91 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
 
 
 flash_attention.launches = 0
+
+
+_PAGED_COUNT_LOCK = threading.Lock()
+
+
+def _check_paged_args(q, kpool, vpool, table, start, n_tok, window):
+    """Raise ValueError on anything the paged CUDA kernel does not take.
+    Reads host attributes only: no device sync."""
+    dev, dt = q.device, q.dtype
+    for name, t in (("kpool", kpool), ("vpool", vpool), ("table", table)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    if dt not in DTYPES:
+        raise ValueError(f"q dtype {dt} not in {DTYPES}")
+    if kpool.dtype != dt or vpool.dtype != dt:
+        raise ValueError(f"kpool/vpool dtypes {kpool.dtype}/{vpool.dtype} "
+                         f"must equal q's {dt}")
+    if table.dtype != torch.int32:
+        raise ValueError(f"table must be int32, got {table.dtype}")
+    qs, ks = q.shape, kpool.shape
+    if len(qs) != 4 or qs[0] != 1 or len(ks) != 4 or table.dim() != 1:
+        raise ValueError("expected q (1,S,nh,hd), pools (n_blocks,bs,nkv,hd) "
+                         "and table (nb,)")
+    _, S, nh, hd = qs
+    _, bs, nkv, hd_kv = ks
+    if vpool.shape != ks:
+        raise ValueError(f"vpool {tuple(vpool.shape)} != kpool {tuple(ks)}")
+    if hd_kv != hd or hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} (pool {hd_kv}) must match and be "
+                         f"one of {HEAD_DIMS}")
+    if nkv < 1 or nh % nkv:
+        raise ValueError(f"n_heads {nh} not a multiple of n_kv_heads {nkv}")
+    if start < 0 or not 0 <= n_tok <= S:
+        raise ValueError(f"need start >= 0 and 0 <= n_tok <= {S}, got "
+                         f"start={start} n_tok={n_tok}")
+    if start + n_tok > table.shape[0] * bs:
+        raise ValueError(f"positions up to {start + n_tok} run past the "
+                         f"table's {table.shape[0]} pages of {bs}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if not table.is_contiguous():
+        raise ValueError("table must be contiguous")
+    bf16 = dt == torch.bfloat16
+    for name, t in (("q", q), ("kpool", kpool), ("vpool", vpool)):
+        st, n = t.stride(), t.shape
+        if st[3] != 1:
+            raise ValueError(f"{name}'s last dim must be contiguous")
+        # as the dense kernel: 16-byte cp.async rows in bf16
+        if bf16 and (t.data_ptr() % 16 or any(
+                st[i] % 8 and n[i] > 1 for i in range(3))):
+            raise ValueError(f"{name}: the bf16 kernel needs a 16-byte-"
+                             f"aligned base and strides that are multiples "
+                             f"of 8 elements, got strides {st}")
+
+
+def flash_attention_paged(q, kpool, vpool, table, start: int, n_tok: int, *,
+                          window=None, scale=None):
+    """The paged bulk prefill's attention read. q: (1, S, nh, hd), row i at
+    absolute position start + i, the first `n_tok` rows real and the rest
+    padding; kpool, vpool: (n_blocks, bs, nkv, hd); table: (nb,) int32, the
+    slot's block ids, page p holding positions [p * bs, (p + 1) * bs).
+    Query head h attends KV head h // (nh // nkv) at keys j <= start + i
+    and, with a window, j > start + i - window. Returns (1, S, nh, hd) in
+    q's dtype. The kernel writes rows at or past n_tok as zeros; the plain
+    version (CPU tensors) leaves them what the mask gives. Forward only, on
+    every device (`refuse_grad`)."""
+    refuse_grad("flash_attention_paged", q, kpool, vpool)
+    if q.device.type == "cpu":
+        return paged_prefill_ref(q, kpool, vpool, table, start, n_tok,
+                                 window=window, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_paged takes CUDA or CPU tensors, "
+                         f"got {q.device}")
+    start, n_tok = int(start), int(n_tok)
+    _check_paged_args(q, kpool, vpool, table, start, n_tok, window)
+    if q.numel() == 0 or n_tok == 0:
+        return torch.zeros_like(q)
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_paged_kernel
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    out = flash_attention_paged_kernel(q, kpool, vpool, table, start, n_tok,
+                                       window=window, scale=scale)
+    with _PAGED_COUNT_LOCK:
+        flash_attention_paged.launches += 1
+    return out
+
+
+flash_attention_paged.launches = 0

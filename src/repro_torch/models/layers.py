@@ -458,7 +458,8 @@ def attention_decode_paged(params, cfg, x, pos, kpool, vpool, table, *,
 
 
 def attention_prefill_paged(params, cfg, x, q_pos, n_tok, kpool, vpool,
-                            table, *, window=None, rope=True):
+                            table, *, window=None, rope=True, kernel="cuda",
+                            start=None):
     """Suffix prefill over a paged cache: run `n_tok` real tokens (of the
     S=x.shape[1] bucketed batch, rest padding) whose absolute positions are
     `q_pos`, attending to everything already resident in this slot's pages
@@ -467,13 +468,35 @@ def attention_prefill_paged(params, cfg, x, q_pos, n_tok, kpool, vpool,
     a time.
 
     x: (1, S, d); q_pos: (S,) absolute positions (start + arange(S));
-    table: (nb,) this slot's block ids. Padded positions (index >= n_tok)
-    scatter into null block 0 (repeated indices; see
-    `attention_decode_paged`) and their outputs are garbage the caller
-    ignores. Returns (out, kpool, vpool).
+    table: (nb,) this slot's block ids; `start` (= q_pos[0]) the position
+    of the first token, required on CUDA tensors (reading it from q_pos
+    would stall the host on the device) and read from q_pos on CPU
+    tensors where not given. Padded
+    positions (index >= n_tok) scatter into null block 0 (repeated
+    indices; see `attention_decode_paged`) and their outputs are garbage
+    the caller ignores. Returns (out, kpool, vpool).
+
+    The attention read is kernel-switched: ``kernel="cuda"`` is
+    `flash_attention_paged` (the hand-written kernel reads the pages in
+    place on CUDA tensors; CPU tensors run its plain version), and
+    ``kernel="reference"`` the plain gather of every page of the table
+    with the dense composition, on any device.
     """
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import paged_prefill_ref
+    reads = {"cuda": fa_ops.flash_attention_paged,
+             "reference": paged_prefill_ref}
+    if kernel not in reads:
+        raise ValueError(f"kernel must be one of {tuple(reads)}, got "
+                         f"{kernel!r}")
+    read = reads[kernel]
+    if start is None:
+        if q_pos.is_cuda:
+            raise ValueError("attention_prefill_paged: pass start= on CUDA "
+                             "tensors")
+        start = int(q_pos[0])
     B, S, d = x.shape
-    hd, nh, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd, nh = cfg.resolved_head_dim, cfg.n_heads
     bs = kpool.shape[1]
     nb = table.shape[0]
     with otrace.region("attn.proj") as rg:
@@ -490,13 +513,8 @@ def attention_prefill_paged(params, cfg, x, q_pos, n_tok, kpool, vpool,
         kpool.index_put_((blk, off), k[0])
         vpool.index_put_((blk, off), v[0])
         rg.switch("attn.core")
-        kall = kpool[table.long()].reshape(1, nb * bs, nkv, hd)
-        vall = vpool[table.long()].reshape(1, nb * bs, nkv, hd)
-        kv_pos = torch.arange(nb * bs, device=x.device)
-        mask = kv_pos[None, :] <= q_pos[:, None]         # causal, absolute
-        if window is not None:
-            mask &= kv_pos[None, :] > (q_pos[:, None] - window)
-        out = _sdpa_xla(q, kall, vall, mask[None], 1.0 / math.sqrt(hd))
+        out = read(q, kpool, vpool, table, start, n_tok, window=window,
+                   scale=1.0 / math.sqrt(hd))
         rg.switch("attn.proj")
         out = out.reshape(B, S, nh * hd) @ params["wo"]
     return out, kpool, vpool

@@ -605,25 +605,28 @@ def decode_step_paged(params, cfg, tokens, pos, cache, table, window=None,
     return _final_logits(params, cfg, x), cache
 
 
-def _layer_prefill_paged(lp, cfg, x, q_pos, n_tok, pool, table, window):
+def _layer_prefill_paged(lp, cfg, x, q_pos, n_tok, pool, table, window,
+                         kernel, start):
     h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
     att, _, _ = L.attention_prefill_paged(
         lp["attn"], cfg, h, q_pos, n_tok, pool["k"], pool["v"], table,
-        window=window)
+        window=window, kernel=kernel, start=start)
     x = x + att
     h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
     return x + _ffn_apply(lp, cfg, h)[0]
 
 
 def forward_prefill_paged(params, cfg, tokens, start, n_tok, cache, table,
-                          window=None):
+                          window=None, kernel="cuda"):
     """Prefill only the *uncached suffix* of a prompt against a paged cache
     whose pages [0, start) are already resident (radix prefix hit).
 
     tokens: (1, S) suffix tokens, right-padded to the bucket length S;
-    start: absolute position of tokens[0, 0]; n_tok: number of real
-    (non-pad) tokens; table: (nb,) the slot's block chain. Returns
+    start: absolute position of tokens[0, 0] (an int); n_tok: number of
+    real (non-pad) tokens; table: (nb,) the slot's block chain. Returns
     (logits (1, S, V), cache) — only logits[:, :n_tok] are meaningful.
+    `kernel` switches each layer's attention read
+    (`layers.attention_prefill_paged`: "cuda" or "reference").
     """
     window = cfg.window if window is None else window
     S = tokens.shape[1]
@@ -631,7 +634,7 @@ def forward_prefill_paged(params, cfg, tokens, start, n_tok, cache, table,
     q_pos = start + torch.arange(S, dtype=torch.int32, device=x.device)
     for lp, pool in zip(params["layers"], cache):
         x = _layer_prefill_paged(lp, cfg, x, q_pos, n_tok, pool, table,
-                                 window)
+                                 window, kernel, start)
     return _final_logits(params, cfg, x), cache
 
 

@@ -30,10 +30,11 @@ greedy, the argmax taken on the device): each request carries its own
 top-p with independent seeded streams. Logits reach the host sampler as
 float32 numpy (numpy has no bf16).
 
-`decode_kernel` picks the paged layout's per-token attention read: "cuda"
-(the paged default) is the hand-written kernel (`kernels/paged_attention`,
-csrc/paged_attention.cu) on the card and its plain version for CPU
-tensors; "reference" is the dense-gather oracle. The dense layout reads its
+`decode_kernel` picks the paged layout's attention reads: "cuda" (the
+paged default) is the hand-written kernels on the card (per token
+`kernels/paged_attention`, csrc/paged_attention.cu; the bulk prefill the
+paged variant of `kernels/flash_attention`) and their plain versions for
+CPU tensors; "reference" is the dense-gather oracle for both. The dense layout reads its
 cache with plain torch and takes only "reference", as the reference does.
 Everything runs on `device` ("cuda" unless the caller passes another); the
 engine never moves work to the CPU on its own. On a CUDA device the engine
@@ -141,9 +142,10 @@ class ServeEngine:
         pages with radix prefix reuse; pure-attention decoder archs only;
         window must be None; pool_blocks sizes the pool, by default 2x the
         slots' worth of pages + the null block, so retired prefixes stay
-        cached). decode_kernel is the paged read, "cuda" (the default
-        there) or "reference"; the dense layout takes "reference" (its
-        default) only, as the reference does. fused_tokens (> 1),
+        cached). decode_kernel picks the paged reads (decode and bulk
+        prefill), "cuda" (the default there) or "reference"; the dense
+        layout takes "reference" (its default) only, as the reference
+        does. fused_tokens (> 1),
         spec_tokens (>= 1, with `drafter`: an instance or a "ngram[:n]" /
         "model:<arch_id>" spec) and scheduler="chunked" (with
         `chunk_budget`) are the paged layout's decode variants (see the
@@ -246,9 +248,11 @@ class ServeEngine:
             self._decode_lg = build_decode_paged(cfg, window=window,
                                                  return_logits=True,
                                                  kernel=decode_kernel)
-            self._prefill_tok = build_prefill_paged(cfg, window=window)
+            self._prefill_tok = build_prefill_paged(cfg, window=window,
+                                                    kernel=decode_kernel)
             self._prefill_lg = build_prefill_paged(cfg, window=window,
-                                                   return_logits=True)
+                                                   return_logits=True,
+                                                   kernel=decode_kernel)
             if self.fused_tokens > 1:
                 self._decode_fused = FusedDecodeGraph(build_decode_fused(
                     cfg, self.fused_tokens, window=window,

@@ -246,15 +246,18 @@ def build_decode_paged(cfg, *, window=None, return_logits: bool = False,
     return decode
 
 
-def build_prefill_paged(cfg, *, window=None, return_logits: bool = False):
+def build_prefill_paged(cfg, *, window=None, return_logits: bool = False,
+                        kernel: str = "cuda"):
     """Suffix-only prefill on a prefix-cache hit: `tokens` (1, S_bucket) are
     the uncached prompt tail starting at absolute position `start`
     (`n_tok` real, rest right-pad); the resident prefix pages are attended
-    through the slot's block `table`. Emits the last real position's
-    greedy token / logits plus the updated pool."""
+    through the slot's block `table`, read by `kernel` ("cuda": the paged
+    flash kernel; "reference": the plain gather). Emits the last real
+    position's greedy token / logits plus the updated pool."""
     def prefill(params, tokens, start, n_tok, cache, table):
         logits, cache = T.forward_prefill_paged(
-            params, cfg, tokens, start, n_tok, cache, table, window=window)
+            params, cfg, tokens, start, n_tok, cache, table, window=window,
+            kernel=kernel)
         last = logits[0, n_tok - 1]
         return (last if return_logits else _greedy(last)), cache
     return prefill

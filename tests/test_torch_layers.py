@@ -168,3 +168,30 @@ def test_attention_prefill_paged(model, start, n_tok):
     _close(to[:, :n_tok], jo[:, :n_tok], ATTN_TOL)
     _close_pools(tk2, jk2)
     _close_pools(tv2, jv2)
+
+
+@pytest.mark.parametrize("kernel", ["reference", "cuda"])
+@pytest.mark.parametrize("start,n_tok", [(0, 5), (6, 3)])
+def test_attention_prefill_paged_kernel_switch(model, start, n_tok, kernel):
+    """`test_attention_prefill_paged`'s cases through each side of the
+    read's switch, `start` passed as the model passes it: "reference" (the
+    plain gather, any device) and "cuda" (on CPU tensors the paged flash
+    wrapper's plain version) both equal the reference's real rows."""
+    jcfg, tcfg, ja, ta = _layer0(model)
+    rng = np.random.default_rng(5)
+    bs, S = 4, 8
+    (jk, tk), (jv, tv) = _pools(rng, 12, bs, tcfg.n_kv_heads,
+                                tcfg.resolved_head_dim)
+    table = np.array([3, 8, 1, 0, 0], np.int32)
+    q_pos = (start + np.arange(S)).astype(np.int32)
+    jt, tt = _both(table)
+    jq, tq = _both(q_pos)
+    jx, tx = _both(_rand(rng, 1, S, tcfg.d_model))
+    jo, jk2, jv2 = _jit(JL.attention_prefill_paged)(ja, jcfg, jx, jq, n_tok,
+                                                    jk, jv, jt)
+    to, tk2, tv2 = TL.attention_prefill_paged(ta, tcfg, tx, tq, n_tok,
+                                              tk, tv, tt, kernel=kernel,
+                                              start=start)
+    _close(to[:, :n_tok], jo[:, :n_tok], ATTN_TOL)
+    _close_pools(tk2, jk2)
+    _close_pools(tv2, jv2)
