@@ -5,6 +5,8 @@
 line. Everything that belongs to one configuration, traffic mix, cell
 limit or per-layer metric is a file of its own, found by its name
 (`spec.py`): `configs/<config>.json`, `traffic/<mix>.json`,
-`limits/<cell>.json`, `metrics/<metric>.py`. Nothing here imports JAX or
-the JAX package `repro`; `reference/` imports nothing of `repro_torch`.
+`limits/<cell>.json`, `metrics/<metric>.py`, and a configuration's model
+side `families/<harness_family>.py`. Nothing here imports JAX or the JAX
+package `repro`; `reference/` and `families/` import nothing of
+`repro_torch`.
 """

@@ -2,21 +2,21 @@
 
 Once the window has closed and the program's state is freed, a sample of
 the requests it finished, drawn from the seed with the longest among them,
-is run through the plain f32 reference (`reference.lm`) over each prompt
-and the tokens served after it. The number compared is the widest gap by
-which a served token's reference logit lies below the reference's best at
-that position (greedy decoding serves the best token, so a sound program
-reads 0 but where rounding turns a near tie). The control reads the same
-gap for the token that the reference computed in float8 puts first.
+is run through the plain f32 reference (the configuration's family's
+`reference_logits`) over each prompt and the tokens served after it. The
+number compared is the widest gap by which a served token's reference
+logit lies below the reference's best at that position (greedy decoding
+serves the best token, so a sound program reads 0 but where rounding
+turns a near tie). The control reads the same gap for the token that the
+reference computed in float8 puts first.
 """
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-
-from portbench.reference import lm
 
 
 def bucket(n: int, cap: int) -> int:
@@ -48,16 +48,6 @@ def sample(reqs, seed: int, min_tokens: int, max_requests: int) -> List:
     return out
 
 
-def reference_logits(w, m: dict, mix: dict, r, quant=None) -> torch.Tensor:
-    if m.get("moe") and mix.get("shared"):
-        raise ValueError("the MoE reference groups a prefill by its whole "
-                         "prompt; a mix that reuses prefixes needs the "
-                         "reused length")
-    P = len(r.prompt)
-    return lm.logits(w, m, r.prompt + r.tokens[:-1], P,
-                     bucket(P, mix["cache_len"]), quant=quant)
-
-
 def gaps(ref: torch.Tensor, chosen: torch.Tensor) -> torch.Tensor:
     """Per position: the reference's best logit less its logit of the
     chosen token."""
@@ -65,20 +55,20 @@ def gaps(ref: torch.Tensor, chosen: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def readings(w, m: dict, mix: dict, picked, control: bool = False
-             ) -> Dict[str, Optional[float]]:
+def readings(family: ModuleType, w, m: dict, mix: dict, picked,
+             control: bool = False) -> Dict[str, Optional[float]]:
     """{"max_logit_gap": program's widest gap, "tokens": served tokens
     compared, "control_gap": the float8 control's (with `control`)}."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst, ctrl, n = 0.0, 0.0, 0
     for r in picked:
-        ref = reference_logits(w, m, mix, r)
+        ref = family.reference_logits(w, m, mix, r)
         served = torch.as_tensor(r.tokens, device=ref.device)
         worst = max(worst, float(gaps(ref, served).max()))
         n += len(r.tokens)
         if control:
-            low = reference_logits(w, m, mix, r, quant="fp8")
+            low = family.reference_logits(w, m, mix, r, quant="fp8")
             ctrl = max(ctrl, float(gaps(ref, low.argmax(dim=-1)).max()))
             del low
         del ref

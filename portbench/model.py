@@ -1,41 +1,47 @@
 """The system under test's side of a configuration: its `ModelConfig`
 built from the configuration file's `model` section, and its parameter
-dict as views of the benchmark's weights (`weights.make`), checked leaf
-by leaf against the program's own `param_shapes`."""
+dict as views of the benchmark's weights (`weights.make`) in the layout
+the configuration's family gives, checked leaf by leaf against the
+program's own `param_shapes`."""
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+import typing
+from types import ModuleType
+from typing import Dict, Optional
 
 import torch
 
+from portbench import spec
+
 
 def model_config(m: dict):
-    """The program's `ModelConfig` for the sizes as run."""
-    from repro_torch.configs.base import ModelConfig, MoEConfig
-    kw = {k: v for k, v in m.items() if k != "moe"}
-    moe = m.get("moe")
-    return ModelConfig(**kw, moe=MoEConfig(**moe) if moe else None)
+    """The program's `ModelConfig` for the sizes as run: a nested group
+    (`moe`, `ssm`, ...) becomes the sub-config its field holds, a list
+    a tuple."""
+    from repro_torch.configs.base import ModelConfig
+    hints = typing.get_type_hints(ModelConfig)
+    kw = {}
+    for k, v in m.items():
+        if isinstance(v, dict):
+            sub = [t for t in typing.get_args(hints[k])
+                   if dataclasses.is_dataclass(t)]
+            v = sub[0](**v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kw[k] = v
+    return ModelConfig(**kw)
 
 
-def program_params(w: Dict[str, torch.Tensor], m: dict, cfg) -> dict:
+def program_params(w: Dict[str, torch.Tensor], m: dict, cfg,
+                   family: Optional[ModuleType] = None) -> dict:
     """The program's parameter layout over the benchmark's tensors (views,
-    no copies)."""
+    no copies), as the family lays it out (the decoder's where none is
+    named, as in `weights.make`)."""
     from repro_torch.models.transformer import param_shapes
-    layers = []
-    for l in range(m["n_layers"]):
-        if m.get("moe"):
-            ffn = {"router": w["router"][l], "w_gate": w["moe_gate"][l],
-                   "w_up": w["moe_up"][l], "w_down": w["moe_down"][l]}
-        else:
-            ffn = {"w_gate": w["w_gate"][l], "w_up": w["w_up"][l],
-                   "w_down": w["w_down"][l]}
-        layers.append({"norm1": {"scale": w["norm1"][l]},
-                       "attn": {n: w[n][l] for n in ("wq", "wk", "wv", "wo")},
-                       "norm2": {"scale": w["norm2"][l]}, "ffn": ffn})
-    params = {"embed": {"table": w["embed"]}, "layers": layers,
-              "final_norm": {"scale": w["final_norm"]}}
-    if not m["tie_embeddings"]:
-        params["lm_head"] = w["lm_head"]
+    if family is None:
+        family = spec.family("decoder")
+    params = family.program_params(w, m, cfg)
     _check(params, param_shapes(cfg), "params")
     return params
 

@@ -3,9 +3,10 @@ trace, the comparison, and the result line's contents.
 
 Set-up (all of it counted in `setup_s`, from the process's start): the
 kernels built or found in the checkout's `build/`, the weights drawn on
-the device (`weights.make`), one gateway over one paged, fused engine,
-the warm-up of the prefill lengths the mix can send and of the fused and
-single decode steps, and a shared mix's documents prefilled once.
+the device as the configuration's family names them (`weights.make`),
+one gateway over one paged, fused engine, the warm-up of the prefill
+lengths the mix can send and of the fused and single decode steps, and a
+shared mix's documents prefilled once.
 
 The window is a closed loop: `clients` clients each submit a request, wait
 until it has finished, and submit the next; no request is submitted after
@@ -230,9 +231,9 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         from repro_torch.kernels import build
         build.build()
         torch.cuda.reset_peak_memory_stats(dev)
-    w = weights.make(m, seed, dev)
+    w = weights.make(m, seed, dev, cell.family)
     cfg = model.model_config(m)
-    params = model.program_params(w, m, cfg)
+    params = model.program_params(w, m, cfg, cell.family)
     gw = build_gateway(params, cfg, mix, dev)
     requests = traffic.Traffic(mix, m["vocab_size"], seed)
     warm(gw, mix, m["vocab_size"], seed)
@@ -263,7 +264,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
             else 0)
     record = None
     if trace:
-        record = {"model": m, "mix": mix, "t0": t0, "t1": t1,
+        record = {"model": m, "family": cell.family, "mix": mix,
+                  "t0": t0, "t1": t1,
                   "window_s": t1 - t0, "spans": _spans(tracer, t_window),
                   "spans_dropped": tracer.dropped,
                   "gateway_steps": probe.steps, "fused": probe.fused,
@@ -283,7 +285,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
 
     picked = check.sample(reqs, seed, cell.limits["sample_tokens"],
                           cell.limits["sample_requests"])
-    readings = check.readings(w, m, mix, picked, control=control)
+    readings = check.readings(cell.family, w, m, mix, picked,
+                              control=control)
     attempted = len(reqs)
     failed = sum(r.status in ("rejected", "failed") for r in reqs)
     short = sum(len(r.tokens) != r.max_new for r in reqs

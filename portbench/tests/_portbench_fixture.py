@@ -1,6 +1,7 @@
 """A tiny cell for the CPU tests: its configuration, traffic mix and
 limits as new files in a copy of `portbench/`, and a BENCHMARK.json that
 names them beside the real cells."""
+import hashlib
 import json
 import shutil
 import sys
@@ -42,16 +43,18 @@ def tiny_mix(shared: bool = False) -> dict:
 
 
 def make_root(tmp: Path, moe: bool = True, shared: bool = False,
-              metric_src: str = None) -> Path:
+              metric_src: str = None, family: str = "decoder") -> Path:
     """A checkout-like root in `tmp`: a copy of portbench/ with the tiny
     cell's files added, and BENCHMARK.json naming them. With
-    `metric_src`, a new per-layer metric `tiny.counted` read by it."""
+    `metric_src`, a new per-layer metric `tiny.counted` read by it; the
+    tiny configuration's model side is `families/<family>.py`."""
     root = Path(tmp) / "root"
     shutil.copytree(ROOT / "portbench", root / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     pb = root / "portbench"
     (pb / "configs" / "tiny.json").write_text(json.dumps(
-        {"name": "tiny", "model": tiny_model(moe), "reduced": []}))
+        {"name": "tiny", "model": tiny_model(moe), "reduced": [],
+         "harness_family": family}))
     (pb / "traffic" / "tiny.json").write_text(json.dumps(tiny_mix(shared)))
     (pb / "limits" / f"{CELL}.json").write_text(json.dumps(
         {"max_logit_gap": {"limit": 1e-3}, "sample_tokens": 150,
@@ -74,6 +77,14 @@ def make_root(tmp: Path, moe: bool = True, shared: bool = False,
             "moves": "output_tokens_per_s", "workloads": [CELL]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return root
+
+
+def tree_hashes(path: Path) -> dict:
+    """{relative path: sha256} of every file under `path`."""
+    return {p.relative_to(path).as_posix():
+            hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(path.rglob("*")) if p.is_file()
+            and "__pycache__" not in p.parts}
 
 
 def tiny_cell(tmp: Path, **kw):

@@ -7,7 +7,7 @@ import pytest
 import torch
 
 from _portbench_fixture import tiny_cell, tiny_model
-from portbench import check, model, session, weights
+from portbench import check, model, session, spec, weights
 from portbench.reference import lm
 
 SEED = 2 ** 31 + 41
@@ -19,9 +19,10 @@ def one_thread():
 
 
 def _program(m):
-    w = weights.make(m, 3, torch.device("cpu"))
+    fam = spec.family("decoder")
+    w = weights.make(m, 3, torch.device("cpu"), fam)
     cfg = model.model_config(m)
-    return w, cfg, model.program_params(w, m, cfg)
+    return w, cfg, model.program_params(w, m, cfg, fam)
 
 
 @pytest.mark.parametrize("moe", [False, True])

@@ -2,8 +2,9 @@
 per-layer readers on hand-made records."""
 import pytest
 
-from _portbench_fixture import ROOT  # noqa: F401
-from portbench import counts, spec
+from portbench import spec
+
+D = spec.family("decoder")
 
 DENSE = {"n_layers": 2, "d_model": 8, "n_heads": 2, "n_kv_heads": 1,
          "head_dim": 4, "d_ff": 16, "vocab_size": 10, "dtype": "bfloat16"}
@@ -13,33 +14,34 @@ MOE = dict(DENSE, d_ff=0, moe={"n_experts": 4, "top_k": 2,
 
 def test_layer_params_by_hand():
     # attention: 8*8 + 2*8*4 + 8*8 = 192; FFN 3*8*16 = 384
-    assert counts.layer_matmul_params(DENSE) == 192 + 384
+    assert D.layer_matmul_params(DENSE) == 192 + 384
     # MoE: router 8*4 = 32, top-2 experts 2 * 3*8*3 = 144
-    assert counts.layer_matmul_params(MOE) == 192 + 32 + 144
+    assert D.layer_matmul_params(MOE) == 192 + 32 + 144
 
 
 def test_token_and_step_flops_by_hand():
     # one token at context 3: 2 layers * (2 * 576 + 4*2*4*3) = 2496
-    assert counts.token_flops(DENSE, 3) == 2 * (2 * 576 + 96)
-    assert counts.logits_flops(DENSE) == 160
-    assert counts.decode_flops(DENSE, [2]) == 2496 + 160
+    assert D.token_flops(DENSE, 3) == 2 * (2 * 576 + 96)
+    assert D.logits_flops(DENSE) == 160
+    assert D.decode_flops(DENSE, [2]) == 2496 + 160
     # prefill of positions 2..4 after a reused prefix of 2: contexts 3,4,5
     want = (3 * 2 * 2 * 576 + 2 * 4 * 2 * 4 * (3 + 4 + 5) + 160)
-    assert counts.prefill_flops(DENSE, 2, 3) == want
-    assert counts.prefill_flops(DENSE, 0, 3) == sum(
-        counts.token_flops(DENSE, c) for c in (1, 2, 3)) + 160
+    assert D.prefill_flops(DENSE, 2, 3) == want
+    assert D.prefill_flops(DENSE, 0, 3) == sum(
+        D.token_flops(DENSE, c) for c in (1, 2, 3)) + 160
 
 
 def test_paged_read_bytes_by_hand():
     # position 17, pages of 16: K and V of 18 positions, 1 kv head of 4,
     # bf16: 2*18*4*2 = 288; q and out 2*2*4*2 = 32; 2 block ids and the
-    # position: 12
-    assert counts.paged_read_bytes(DENSE, 17, 16) == 288 + 32 + 12
+    # position: 12; in each of the 2 layers
+    assert D.layer_read_bytes(DENSE, 17, 16) == 288 + 32 + 12
+    assert D.paged_read_bytes(DENSE, 17, 16) == 2 * (288 + 32 + 12)
 
 
 def _rec(spans, **kw):
-    rec = {"model": DENSE, "mix": {"block_size": 16}, "window_s": 2.0,
-           "spans": spans, "gateway_steps": [(0.0, 1.5)], "fused": [],
+    rec = {"model": DENSE, "family": D, "mix": {"block_size": 16},
+           "window_s": 2.0, "spans": spans, "gateway_steps": [(0.0, 1.5)], "fused": [],
            "single": [], "profile": None,
            "cache": {"start": {"tokens_reused": 0, "tokens_computed": 0},
                      "end": {"tokens_reused": 0, "tokens_computed": 0}}}
@@ -62,9 +64,9 @@ def test_span_readers_by_hand():
     assert read("engine.prefill_ms", rec) == pytest.approx(100.0)
     # 1.5 s inside Gateway.step, 0.6 s of it engine steps, over 2 s
     assert read("gateway.host_share", rec) == pytest.approx(45.0)
-    want = counts.decode_flops(DENSE, [4, 5]) / (0.5 * 989e12) * 100
+    want = D.decode_flops(DENSE, [4, 5]) / (0.5 * 989e12) * 100
     assert read("mfu.decode", rec) == pytest.approx(want)
-    want = counts.prefill_flops(DENSE, 0, 3) / (0.1 * 989e12) * 100
+    want = D.prefill_flops(DENSE, 0, 3) / (0.1 * 989e12) * 100
     assert read("mfu.prefill", rec) == pytest.approx(want)
     assert read("engine.fused_ms", _rec([])) is None
 
@@ -84,8 +86,8 @@ def test_counter_and_trace_readers_by_hand():
         {"profiled": True, "slots": [(15, 2)]},
         {"profiled": False, "slots": [(99, 8)]}])
     assert read("device.idle_share", rec) == pytest.approx(65.0)
-    need = 2 * (counts.paged_read_bytes(DENSE, 15, 16)
-                + counts.paged_read_bytes(DENSE, 16, 16))
+    need = (D.paged_read_bytes(DENSE, 15, 16)
+            + D.paged_read_bytes(DENSE, 16, 16))
     want = 100 * need / 3.35e12 / 0.25
     assert read("paged_attn.roofline", rec) == pytest.approx(want)
     assert read("paged_attn.roofline", _rec([])) is None

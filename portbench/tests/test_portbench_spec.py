@@ -1,7 +1,6 @@
 """The harness finds what BENCHMARK.json names by name, the file keeps to
 the benchmark's contract, and a cell, a mix and a metric are taken as new
 files alone."""
-import hashlib
 import json
 import math
 import re
@@ -9,7 +8,7 @@ import re
 import pytest
 import torch
 
-from _portbench_fixture import CELL, ROOT, make_root, tiny_cell
+from _portbench_fixture import CELL, ROOT, make_root, tiny_cell, tree_hashes
 from portbench import session, spec
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -74,13 +73,6 @@ def test_benchmark_json_keeps_to_the_contract():
     assert runs * (BENCH["run_seconds"] + 60) + n * 180 + 1200 <= 43200
 
 
-def _tree_hashes(path):
-    return {p.relative_to(path).as_posix():
-            hashlib.sha256(p.read_bytes()).hexdigest()
-            for p in sorted(path.rglob("*")) if p.is_file()
-            and "__pycache__" not in p.parts}
-
-
 COUNTED = '''
 def read(rec):
     n = sum(1 for name, *_ in rec["spans"] if name == "engine.step")
@@ -91,8 +83,8 @@ def read(rec):
 def test_a_new_cell_mix_and_metric_run_as_new_files_only(tmp_path):
     torch.set_num_threads(1)
     root = make_root(tmp_path, metric_src=COUNTED)
-    before = _tree_hashes(ROOT / "portbench")
-    copied = _tree_hashes(root / "portbench")
+    before = tree_hashes(ROOT / "portbench")
+    copied = tree_hashes(root / "portbench")
     # the fixture only added files; every existing file is as it was
     assert {k: v for k, v in copied.items() if k in before} == before
     added = set(copied) - set(before)
