@@ -9,6 +9,7 @@ MongoDB document, made typed.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -39,11 +40,29 @@ class MoEConfig:
                                 # axis -> expert-parallel sharding (§Perf-5);
                                 # padded experts are dead (router never
                                 # selects them)
+    # port only (the reference has neither field):
+    shared_d_ff: int = 0        # a SiLU-gated shared expert of this width,
+                                # added to the routed output (0: none)
+    held_experts: int = 0       # this device's share of an expert-parallel
+                                # deployment: experts first_held ..
+                                # first_held + held - 1 (0: all). The
+    first_held: int = 0         # router keeps all n_experts; what the
+                                # others would add is left out
 
     @property
     def padded_n_experts(self) -> int:
         m = self.pad_experts_to
         return ((self.n_experts + m - 1) // m) * m
+
+    @property
+    def n_held(self) -> int:
+        """Experts whose weights are held here (the expert weights' lead
+        dim)."""
+        return self.held_experts or self.padded_n_experts
+
+    @property
+    def held(self) -> range:
+        return range(self.first_held, self.first_held + self.n_held)
 
 
 @dataclass(frozen=True)
@@ -126,6 +145,15 @@ class ModelConfig:
                                           # reference runs there (dense SDPA,
                                           # log-depth scan, chunked SSD)
     source: str = ""                      # citation bracket from the assignment
+    # ----- port only (the reference has none of these; each default
+    # leaves a model as the reference runs it) -----
+    ssm_ffn: bool = False                 # Mamba2 layers end in norm2 + FFN
+    nope: bool = False                    # no positional encoding (no RoPE)
+    embedding_multiplier: float = 1.0     # Granite's four multipliers:
+    attention_multiplier: float = 0.0     # the embedding, the attention
+    residual_multiplier: float = 1.0      # scale (0: 1/sqrt(head_dim)),
+    logits_scaling: float = 1.0           # each residual branch, and the
+                                          # logits' divisor
 
     # ----- derived -----
     @property
@@ -133,6 +161,11 @@ class ModelConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // self.n_heads if self.n_heads else 0
+
+    @property
+    def attention_scale(self) -> float:
+        return self.attention_multiplier or \
+            1.0 / math.sqrt(self.resolved_head_dim)
 
     @property
     def is_encdec(self) -> bool:
@@ -175,9 +208,14 @@ class ModelConfig:
         attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
         mlp = (3 if self.mlp_gated else 2) * d * ff
         if self.moe:
-            mlp = self.moe.n_experts * 3 * d * self.moe.expert_d_ff + d * self.moe.n_experts
+            m = self.moe
+            held = m.held_experts or m.n_experts
+            mlp = held * 3 * d * m.expert_d_ff + d * m.n_experts \
+                + 3 * d * m.shared_d_ff
         total = 0
         for t in self.layer_types():
+            if t == "ssm" and self.ssm_ffn:
+                total += mlp + d
             if t == "attn":
                 total += attn + mlp + 2 * d
             elif t == "rglru":

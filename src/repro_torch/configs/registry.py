@@ -6,7 +6,9 @@ decoders, the MoE decoders (granite-moe-*), the RG-LRU hybrid
 (seamless-m4t-large-v2) and the modality-prefix decoder (pixtral-12b), so
 `ARCH_IDS` equals the reference's. `reduce_config` is the reference's, so
 a reduced config here equals the reduced config there field for field
-(the parity tests rely on it).
+(the parity tests rely on it). `PORT_ONLY` holds the archs the port runs
+and the reference does not (granite-4.0-h-small); `get` finds both, and
+`SERVE_ARCH_IDS` lists both for the launchers.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
 
+from repro_torch.configs.granite_4_0_h_small import CONFIG as _granite4h
 from repro_torch.configs.granite_moe_1b_a400m import CONFIG as _granite1b
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as _granite3b
 from repro_torch.configs.mamba2_130m import CONFIG as _mamba2
@@ -33,6 +36,10 @@ REGISTRY: Dict[str, ModelConfig] = {c.arch_id: c for c in [
 
 ARCH_IDS = sorted(REGISTRY)
 
+PORT_ONLY: Dict[str, ModelConfig] = {c.arch_id: c for c in [_granite4h]}
+
+SERVE_ARCH_IDS = sorted(REGISTRY) + sorted(PORT_ONLY)
+
 
 def reduce_config(cfg: ModelConfig) -> ModelConfig:
     """Same family, CPU-smoke scale."""
@@ -48,6 +55,8 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
     if cfg.moe:
         kw["moe"] = dataclasses.replace(cfg.moe, n_experts=4, top_k=2,
                                         expert_d_ff=128)
+        if cfg.moe.shared_d_ff:           # port only
+            kw["moe"] = dataclasses.replace(kw["moe"], shared_d_ff=128)
     if cfg.ssm:
         kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=32, head_dim=32,
                                         chunk_size=16)
@@ -68,5 +77,5 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
 
 
 def get(arch_id: str, *, reduced: bool = False) -> ModelConfig:
-    cfg = REGISTRY[arch_id]
+    cfg = REGISTRY[arch_id] if arch_id in REGISTRY else PORT_ONLY[arch_id]
     return reduce_config(cfg) if reduced else cfg

@@ -183,8 +183,12 @@ def gateway_dashboard(summary: Dict[str, float],
 def engine_steps_table(steps: Dict[str, float]) -> str:
     """Markdown table of the engine's host-side step-latency histogram
     stats (`Gateway.engine_step_summary`): ``<kind>_<stat>`` rows in ms,
-    one group per step type (prefill/decode/fused/spec/mixed)."""
-    return _metric_table(steps, ("engine step metric", "value (ms)"))
+    one group per step type (prefill/decode/fused/spec/mixed), and for a
+    model with recurrent state on the paged layout the ``state_*``
+    counters (slots cleared on admission, bytes held)."""
+    unit = "value (ms; state_*: count, bytes)" if any(
+        k.startswith("state_") for k in steps) else "value (ms)"
+    return _metric_table(steps, ("engine step metric", unit))
 
 
 def trace_stats_table(tr: Dict[str, float]) -> str:

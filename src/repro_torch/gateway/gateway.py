@@ -1138,7 +1138,9 @@ class Gateway:
         """Host-side engine step-latency histograms, merged exactly across
         replicas (bucket-wise addition) and keyed by step type — prefill /
         decode / fused / spec / mixed — then flattened to
-        ``<kind>_<stat>`` (ms) for the snapshot. None before any step."""
+        ``<kind>_<stat>`` (ms) for the snapshot; engines with recurrent
+        state on the paged layout add ``state_slots_cleared`` and
+        ``state_bytes_held`` (counts, summed). None before any step."""
         merged: Dict[str, object] = {}
         for r in self.replicas:
             for kind, h in r.engine.step_times.items():
@@ -1150,6 +1152,10 @@ class Gateway:
         for kind in sorted(merged):
             for stat, v in merged[kind].summary().items():
                 out[f"{kind}_{stat}"] = v
+        states = [st for st in (r.engine.state_summary()
+                                for r in self.replicas) if st is not None]
+        for key in ("slots_cleared", "bytes_held") if states else ():
+            out[f"state_{key}"] = sum(st[key] for st in states)
         return out
 
     def graph_summary(self) -> Optional[dict]:

@@ -14,6 +14,11 @@ The manager never touches device memory: an `Admission` tells the engine
 ops on its pool arrays. That split keeps every invariant (refcount
 conservation, no double free, eviction-safety of in-use chains) testable
 with plain-Python property tests.
+
+`reuse=False` (the port's, for a model with recurrent layers: no state
+exists for a reused prefix) makes every admission a miss with fresh
+blocks only: no radix lookup, no copy-on-write, and `commit` indexes
+nothing, so retired chains return to the pool at once.
 """
 from __future__ import annotations
 
@@ -46,10 +51,11 @@ class Admission:
 
 
 class KVCacheManager:
-    def __init__(self, n_blocks: int, block_size: int):
+    def __init__(self, n_blocks: int, block_size: int, reuse: bool = True):
         self.pool = BlockPool(n_blocks, block_size)
         self.radix = RadixTree(block_size, self.pool)
         self.metrics = CacheMetrics()
+        self.reuse = reuse
 
     # ------------------------------------------------------------ admission
     def admit(self, prompt, total_tokens: int) -> Admission:
@@ -61,7 +67,8 @@ class KVCacheManager:
         n_total = max(1, -(-total_tokens // bs))        # ceil
         # cap reuse at len(prompt)-1: at least one prompt token must run
         # through the model so there are last-position logits to sample
-        shared, partial = self.radix.match(prompt[:max(len(prompt) - 1, 0)])
+        shared, partial = (self.radix.match(prompt[:max(len(prompt) - 1, 0)])
+                           if self.reuse else ([], None))
         n_new = n_total - len(shared)
         if n_new < 0:                                   # tiny total budget
             shared, partial, n_new = shared[:n_total], None, 0
@@ -130,6 +137,8 @@ class KVCacheManager:
         """Index the blocks fully covered by `tokens` in the radix tree so
         future prompts sharing the prefix reuse them. Safe to call with a
         chain longer than the token run — only full chunks are stored."""
+        if not self.reuse:
+            return
         n_full = len(tokens) // self.pool.block_size
         if n_full:
             self.metrics.inserts += self.radix.insert(tokens, blocks[:n_full])

@@ -88,7 +88,8 @@ DECODE_KERNEL_NAMES = {"reference": "reference", "pallas": "cuda",
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=registry.ARCH_IDS)
+    ap.add_argument("--arch", required=True,
+                    choices=registry.SERVE_ARCH_IDS)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--replicas", type=int, default=1)

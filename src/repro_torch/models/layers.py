@@ -228,7 +228,7 @@ def attention(params, cfg, x, positions, *, kv=None, kv_positions=None,
         x = TP.copy_to_model(x, tp)
     src = x if kv is None else kv
     q, k, v = _project_qkv(params, cfg, x, src, tp, all_kv)
-    if rope:
+    if rope and not cfg.nope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, kv_positions, cfg.rope_theta)
     if constrain_kv:
@@ -240,12 +240,13 @@ def attention(params, cfg, x, positions, *, kv=None, kv_positions=None,
         kr, vr = k[:, :, heads], v[:, :, heads]
     if cfg.attention_impl == "pallas" and kv is None and causal:
         from repro_torch.kernels.flash_attention import ops as fa_ops
-        out = fa_ops.flash_attention(q, kr, vr, causal=True, window=window)
+        out = fa_ops.flash_attention(q, kr, vr, causal=True, window=window,
+                                     scale=cfg.attention_scale)
     else:
         mask = _attn_mask(torch.broadcast_to(positions, (B, S)),
                           torch.broadcast_to(kv_positions, (B, src.shape[1])),
                           causal, window)
-        out = _sdpa_xla(q, kr, vr, mask, 1.0 / math.sqrt(hd))
+        out = _sdpa_xla(q, kr, vr, mask, cfg.attention_scale)
     out = out.reshape(B, S, nh * hd) @ params["wo"]
     if tp is not None:
         out = TP.reduce_from_model(out, tp)
@@ -291,7 +292,7 @@ def attention_decode(params, cfg, x, pos, cache_k, cache_v, cache_pos, *,
     rep = nh // nkv
     qr = q.reshape(B, nkv, rep, hd)
     logits = torch.einsum("bkrh,bskh->bkrs", qr.float(),
-                          cache_k.float()) * (1.0 / math.sqrt(hd))
+                          cache_k.float()) * cfg.attention_scale
     logits = logits.masked_fill(~valid[:, None, None, :],
                                 torch.finfo(torch.float32).min)
     w = torch.softmax(logits, dim=-1)
@@ -341,7 +342,7 @@ def _attention_decode_tp(params, cfg, x, pos, cache_k, cache_v, cache_pos,
     else:
         valid = _write_token(cache_k, cache_v, cache_pos, k_new, v_new, pos,
                              rows, window, tp.size if split else 1, tp.rank)
-    scale = 1.0 / math.sqrt(hd)
+    scale = cfg.attention_scale
     rep = nh // nkv
     if split:
         q_read = q_all if heads else q
@@ -374,7 +375,7 @@ def _decode_qkv(params, cfg, x, pos, rope, cross, tp=None):
     roped at `pos`."""
     q, k, v = _project_qkv(params, cfg, x, None if cross else x, tp,
                            all_kv=True)
-    if rope:
+    if rope and not cfg.nope:
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
         if k is not None:
             k = apply_rope(k, pos[:, None], cfg.rope_theta)
@@ -442,7 +443,7 @@ def attention_decode_paged(params, cfg, x, pos, kpool, vpool, table, *,
     bs = kpool.shape[1]
     with otrace.region("attn.proj") as rg:
         q, k_new, v_new = _project_qkv(params, cfg, x, x)
-        if rope:
+        if rope and not cfg.nope:
             q = apply_rope(q, pos[:, None], cfg.rope_theta)
             k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
         blk = torch.gather(table, 1, (pos // bs).long()[:, None])[:, 0].long()
@@ -451,7 +452,8 @@ def attention_decode_paged(params, cfg, x, pos, kpool, vpool, table, *,
         vpool.index_put_((blk, off), v_new[:, 0])
         rg.switch("attn.core")
         out = pa_ops.paged_attention(q[:, 0].contiguous(), kpool, vpool,
-                                     table, pos, window=window, kernel=kernel)
+                                     table, pos, scale=cfg.attention_scale,
+                                     window=window, kernel=kernel)
         rg.switch("attn.proj")
         out = out.reshape(B, 1, nh * hd).to(x.dtype) @ params["wo"]
     return out, kpool, vpool
@@ -501,7 +503,7 @@ def attention_prefill_paged(params, cfg, x, q_pos, n_tok, kpool, vpool,
     nb = table.shape[0]
     with otrace.region("attn.proj") as rg:
         q, k, v = _project_qkv(params, cfg, x, x)
-        if rope:
+        if rope and not cfg.nope:
             q = apply_rope(q, q_pos[None, :], cfg.rope_theta)
             k = apply_rope(k, q_pos[None, :], cfg.rope_theta)
         real = torch.arange(S, device=x.device) < n_tok
@@ -514,7 +516,7 @@ def attention_prefill_paged(params, cfg, x, q_pos, n_tok, kpool, vpool,
         vpool.index_put_((blk, off), v[0])
         rg.switch("attn.core")
         out = read(q, kpool, vpool, table, start, n_tok, window=window,
-                   scale=1.0 / math.sqrt(hd))
+                   scale=cfg.attention_scale)
         rg.switch("attn.proj")
         out = out.reshape(B, S, nh * hd) @ params["wo"]
     return out, kpool, vpool
@@ -550,7 +552,7 @@ def attention_verify_paged(params, cfg, x, pos, kpool, vpool, table, *,
     q, k, v = _project_qkv(params, cfg, x, x)
     q_pos = pos[:, None] + torch.arange(T, dtype=pos.dtype,
                                         device=x.device)[None, :]   # (B, T)
-    if rope:
+    if rope and not cfg.nope:
         q = apply_rope(q, q_pos, cfg.rope_theta)
         k = apply_rope(k, q_pos, cfg.rope_theta)
     in_span = q_pos < nb * bs
@@ -565,7 +567,7 @@ def attention_verify_paged(params, cfg, x, pos, kpool, vpool, table, *,
         mask &= kv_pos[None, None, :] > (q_pos[:, :, None] - window)
     mask &= (table != 0).repeat_interleave(bs, dim=1)[:, None, :]  # null pages
     out = _sdpa_xla(q, _gather_chain(kpool, table),
-                    _gather_chain(vpool, table), mask, 1.0 / math.sqrt(hd))
+                    _gather_chain(vpool, table), mask, cfg.attention_scale)
     return out.reshape(B, T, nh * hd) @ params["wo"], kpool, vpool
 
 
@@ -602,7 +604,7 @@ def attention_mixed_paged(params, cfg, x, pos, n_chunk, kpool, vpool, table,
     C = R - B
     nbc = ctable.shape[0]
     q, k, v = (t[0] for t in _project_qkv(params, cfg, x, x))  # (R, h, hd)
-    if rope:
+    if rope and not cfg.nope:
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
     # one combined scatter: decode rows land in their slots' frontier
@@ -618,7 +620,8 @@ def attention_mixed_paged(params, cfg, x, pos, n_chunk, kpool, vpool, table,
     vpool.index_put_((blk, off), v)
     # read 1: per-slot decode attention, kernel-switched
     out_dec = pa_ops.paged_attention(q[:B].contiguous(), kpool, vpool, table,
-                                     pos[:B], window=window, kernel=kernel)
+                                     pos[:B], scale=cfg.attention_scale,
+                                     window=window, kernel=kernel)
     # read 2: the chunk attends its truncated chain, causal by position
     kv_pos = torch.arange(nbc * bs, device=x.device)
     mask = kv_pos[None, :] <= cpos[:, None]
@@ -627,7 +630,7 @@ def attention_mixed_paged(params, cfg, x, pos, n_chunk, kpool, vpool, table,
     mask &= (ctable != 0).repeat_interleave(bs)[None, :]
     out_chk = _sdpa_xla(q[None, B:], _gather_chain(kpool, ctable)[None],
                         _gather_chain(vpool, ctable)[None], mask[None],
-                        1.0 / math.sqrt(hd))[0]
+                        cfg.attention_scale)[0]
     out = torch.cat([out_dec.reshape(B, nh * hd).to(x.dtype),
                      out_chk.reshape(C, nh * hd)])
     return (out @ params["wo"])[None], kpool, vpool
@@ -655,7 +658,7 @@ def attention_prefill_chunk_paged(params, cfg, x, start, n_tok, kpool, vpool,
     nb = table.shape[0]
     q, k, v = _project_qkv(params, cfg, x, x)
     q_pos = start + torch.arange(S, device=x.device)
-    if rope:
+    if rope and not cfg.nope:
         q = apply_rope(q, q_pos[None, :], cfg.rope_theta)
         k = apply_rope(k, q_pos[None, :], cfg.rope_theta)
     real = (torch.arange(S, device=x.device) < n_tok) & (q_pos < nb * bs)
@@ -671,7 +674,7 @@ def attention_prefill_chunk_paged(params, cfg, x, start, n_tok, kpool, vpool,
     mask &= (table != 0).repeat_interleave(bs)[None, :]
     out = _sdpa_xla(q, _gather_chain(kpool, table)[None],
                     _gather_chain(vpool, table)[None], mask[None],
-                    1.0 / math.sqrt(hd))
+                    cfg.attention_scale)
     return out.reshape(B, S, nh * hd) @ params["wo"], kpool, vpool
 
 

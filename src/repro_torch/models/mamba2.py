@@ -19,6 +19,16 @@ tp=)`, `mamba2_decode(..., tp=)`) the block runs this rank's heads
 (`_rank_params`); the gated RMSNorm sums its squares over the model
 ranks. A decode step takes and returns the whole state, the reference's
 layout (`rank_state`, `whole_state`).
+
+On the paged layout (`transformer.init_paged_cache`) each slot's state is
+a row of {"ssm", "conv"} tensors allocated once with the KV pools:
+`mamba2_prefill_paged` writes a prompt's final state into its slot's row
+and `mamba2_decode_paged` steps the live rows in place, with no fresh
+state tensor, so the fused decode's CUDA graph holds the state's
+addresses as it holds the pools'. Device regions (`obs.trace`):
+"mamba.proj" (in_proj and the conv), "mamba.scan" (a full sequence's
+SSD), "mamba.state" (a decode step's state update) and "mamba.out" (the
+skip, the gated norm and out_proj).
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.obs import trace as otrace
 from repro_torch.sharding import tp as TP
 
 # float32 leaves whatever cfg.param_dtype (the weight bridge reads this)
@@ -276,25 +287,28 @@ def mamba2_forward(params, cfg, u, tp=None):
         params, g = _rank_params(params, cfg, tp)
         di, nh = di // tp.size, nh // tp.size
     gn = g * s.d_state
-    proj = u @ params["in_proj"]
-    z, xBC_raw, dt = torch.split(proj, [di, di + 2 * gn, nh], dim=-1)
-    xBC = _causal_conv(xBC_raw, params["conv_w"], params["conv_b"])
-    x, Bm, Cm = torch.split(xBC, [di, gn, gn], dim=-1)
-    # views of xBC: the kernel reads them through their strides
-    x = x.reshape(B_, S, nh, s.head_dim)
-    Bm = Bm.reshape(B_, S, g, s.d_state)
-    Cm = Cm.reshape(B_, S, g, s.d_state)
-    dt = F.softplus(dt.float() + params["dt_bias"][None, None, :])
-    A = -torch.exp(params["A_log"])
-    if cfg.attention_impl == "pallas":
-        from repro_torch.kernels.ssd_scan import ops as ssd_ops
-        y, state = ssd_ops.ssd_scan(x, dt, A, Bm, Cm)
-    else:
-        y, state = ssd_chunked(x, dt, A, Bm, Cm, s.chunk_size)
-    y = y + x * params["D"][None, None, :, None]
-    y = y.reshape(B_, S, di)
-    y = rms_norm(y * F.silu(z), params["norm_scale"], cfg.norm_eps, tp)
-    out = y @ params["out_proj"]
+    with otrace.region("mamba.proj") as rg:
+        proj = u @ params["in_proj"]
+        z, xBC_raw, dt = torch.split(proj, [di, di + 2 * gn, nh], dim=-1)
+        xBC = _causal_conv(xBC_raw, params["conv_w"], params["conv_b"])
+        x, Bm, Cm = torch.split(xBC, [di, gn, gn], dim=-1)
+        # views of xBC: the kernel reads them through their strides
+        x = x.reshape(B_, S, nh, s.head_dim)
+        Bm = Bm.reshape(B_, S, g, s.d_state)
+        Cm = Cm.reshape(B_, S, g, s.d_state)
+        dt = F.softplus(dt.float() + params["dt_bias"][None, None, :])
+        A = -torch.exp(params["A_log"])
+        rg.switch("mamba.scan")
+        if cfg.attention_impl == "pallas":
+            from repro_torch.kernels.ssd_scan import ops as ssd_ops
+            y, state = ssd_ops.ssd_scan(x, dt, A, Bm, Cm)
+        else:
+            y, state = ssd_chunked(x, dt, A, Bm, Cm, s.chunk_size)
+        rg.switch("mamba.out")
+        y = y + x * params["D"][None, None, :, None]
+        y = y.reshape(B_, S, di)
+        y = rms_norm(y * F.silu(z), params["norm_scale"], cfg.norm_eps, tp)
+        out = y @ params["out_proj"]
     if tp is not None:
         out = TP.reduce_from_model(out, tp)
     hist = s.d_conv - 1
@@ -341,3 +355,58 @@ def mamba2_decode(params, cfg, u, cache, tp=None):
         out = TP.reduce_from_model(out, tp)
         new = whole_state(cfg, new, tp)
     return out, new
+
+
+def mamba2_prefill_paged(params, cfg, u, state, slot: int):
+    """A whole prompt u (1, S, d) from zero state (`mamba2_forward`): its
+    final SSM state and conv window are written into row `slot` of the
+    paged layout's state {"ssm": (slots, h, p, n) f32, "conv": (slots,
+    d_conv-1, cd)}, overwriting what the slot held. Returns the block's
+    output (1, S, d)."""
+    out, new = mamba2_forward(params, cfg, u)
+    with otrace.region("mamba.scan"):
+        state["ssm"][slot].copy_(new["ssm"][0])
+        state["conv"][slot].copy_(new["conv"][0])
+    return out
+
+
+def mamba2_decode_paged(params, cfg, u, state, live):
+    """One decode token per row, u (B, 1, d), over the paged layout's
+    state (row b is slot b's), stepped in place for the rows where `live`
+    (B,) bool holds; the other rows' state is left as it is (a dead or
+    empty slot's output is garbage its caller ignores). The arithmetic is
+    `mamba2_decode`'s: h <- exp(dt A) h + (dt x) B^T, y = C h + D x, the
+    gated norm and out_proj. Returns the block's output (B, 1, d)."""
+    s = cfg.ssm
+    B_, _, d = u.shape
+    di, nh, g, n = s.d_inner(d), s.n_heads(d), s.n_groups, s.d_state
+    gn, rep = g * n, nh // g
+    ssm, conv = state["ssm"], state["conv"]
+    with otrace.region("mamba.proj") as rg:
+        z, xBC_raw, dt = torch.split(u @ params["in_proj"],
+                                     [di, di + 2 * gn, nh], dim=-1)
+        conv_buf = torch.cat([conv, xBC_raw], dim=1)        # (B, d_conv, cd)
+        xBC = F.silu(torch.einsum("bwc,wc->bc", conv_buf, params["conv_w"])
+                     + params["conv_b"])
+        rg.switch("mamba.state")
+        conv.copy_(torch.where(live[:, None, None], conv_buf[:, 1:], conv))
+        x, Bm, Cm = torch.split(xBC, [di, gn, gn], dim=-1)
+        x = x.reshape(B_, nh, s.head_dim)
+        dtv = F.softplus(dt[:, 0].float() + params["dt_bias"][None, :])
+        A = -torch.exp(params["A_log"])
+        on = live[:, None]
+        decay = torch.where(on, torch.exp(dtv * A[None, :]), 1.0)   # (B, h)
+        xdt = torch.where(on[..., None], dtv[..., None] * x, 0.0)   # (B,h,p)
+        # heads grouped as (g, rep) so B and C broadcast over a group's
+        # heads: no per-head copies of them
+        h5 = ssm.view(B_, g, rep, s.head_dim, n)
+        ssm.mul_(decay[:, :, None, None])
+        h5.addcmul_(xdt.view(B_, g, rep, s.head_dim, 1),
+                    Bm.float().view(B_, g, 1, 1, n))
+        y = torch.einsum("bgrpn,bgn->bgrp", h5, Cm.float().view(B_, g, n))
+        rg.switch("mamba.out")
+        y = y.reshape(B_, nh, s.head_dim).to(x.dtype) \
+            + x * params["D"][None, :, None]
+        y = rms_norm(y.reshape(B_, 1, di) * F.silu(z), params["norm_scale"],
+                     cfg.norm_eps)
+        return y @ params["out_proj"]

@@ -21,6 +21,14 @@ reference's arithmetic choices are copied, not re-derived:
 * The buffer and the expert weights are `padded_n_experts` wide; the
   router stays `n_experts` wide, so a padded expert is never chosen.
 
+Two port-only parts (`MoEConfig`'s `held_experts`/`first_held` and
+`shared_d_ff`, off by default): a layer told that it holds a range of the
+experts of an expert-parallel deployment routes over all `n_experts` with
+the same slots and drops, and computes its own experts' part of the
+result (the rest is left out: on one device it runs without the
+exchange), and a SiLU-gated shared expert runs on every token and is
+added to the routed output (granite-4.0-h).
+
 Everything has fixed shapes and no host synchronisation (no `.item()`,
 `nonzero` or boolean-mask indexing), so the fused decode step that runs
 it can be captured as one CUDA graph. The aux losses (Switch/GShard load
@@ -50,7 +58,8 @@ import math
 
 import torch
 
-from repro_torch.models.layers import ACTIVATIONS, dense_init, uniform_init
+from repro_torch.models.layers import (ACTIVATIONS, dense_init, init_mlp,
+                                      mlp, uniform_init)
 from repro_torch.obs import trace as otrace
 from repro_torch.sharding import spmd
 from repro_torch.sharding import tp as TP
@@ -59,24 +68,34 @@ from repro_torch.sharding.rules import constrain
 
 def init_moe(gen: torch.Generator, cfg) -> dict:
     """Router (d, E) at scale 0.02 and expert weights stacked on a leading
-    `padded_n_experts` axis, uniform +-1/sqrt(d_in) as the reference's."""
+    `padded_n_experts` axis (`n_held` where the layer holds a share),
+    uniform +-1/sqrt(d_in) as the reference's; a shared expert as a gated
+    MLP."""
     m = cfg.moe
     d, ff = cfg.d_model, m.expert_d_ff
-    E, Ep = m.n_experts, m.padded_n_experts
+    E, Ep = m.n_experts, m.n_held
     pdt = cfg.parameter_dtype
-    return {
+    p = {
         "router": dense_init(gen, d, E, pdt, scale=0.02),
         "w_gate": uniform_init(gen, (Ep, d, ff), 1.0 / math.sqrt(d), pdt),
         "w_up": uniform_init(gen, (Ep, d, ff), 1.0 / math.sqrt(d), pdt),
         "w_down": uniform_init(gen, (Ep, ff, d), 1.0 / math.sqrt(ff), pdt),
     }
+    if m.shared_d_ff:
+        p["shared"] = init_mlp(gen, d, m.shared_d_ff, pdt)
+    return p
 
 
 def param_shapes(cfg) -> dict:
     m = cfg.moe
-    d, ff, Ep = cfg.d_model, m.expert_d_ff, m.padded_n_experts
-    return {"router": (d, m.n_experts), "w_gate": (Ep, d, ff),
-            "w_up": (Ep, d, ff), "w_down": (Ep, ff, d)}
+    d, ff, Ep = cfg.d_model, m.expert_d_ff, m.n_held
+    out = {"router": (d, m.n_experts), "w_gate": (Ep, d, ff),
+           "w_up": (Ep, d, ff), "w_down": (Ep, ff, d)}
+    if m.shared_d_ff:
+        fs = m.shared_d_ff
+        out["shared"] = {"w_gate": (d, fs), "w_up": (d, fs),
+                         "w_down": (fs, d)}
+    return out
 
 
 def capacity(cfg, S: int) -> int:
@@ -101,7 +120,24 @@ def moe_ffn(params, cfg, x, *, want_aux: bool = False, tp=None,
     `batch_groups` (`spmd.batch_groups`: x is this rank's rows of a split
     batch) the load balance is the global batch's. With a
     tensor-parallel context whose experts split (`tp.experts`), params
-    hold this rank's shards of the expert weights and the router whole."""
+    hold this rank's shards of the expert weights and the router whole.
+    A layer holding a share of the experts (`held_experts`) computes
+    theirs; a shared expert's output is added last ("moe.shared")."""
+    m = cfg.moe
+    if tp is not None and (m.held_experts or m.shared_d_ff):
+        raise ValueError(f"{cfg.arch_id}: no tensor-parallel MoE with held "
+                         "experts or a shared expert")
+    if m.held.stop > m.padded_n_experts:
+        raise ValueError(f"{cfg.arch_id}: experts {m.held} held, the router "
+                         f"has {m.padded_n_experts}")
+    out, aux = _routed(params, cfg, x, want_aux, tp, batch_groups)
+    if m.shared_d_ff:
+        with otrace.region("moe.shared"):
+            out = out + mlp(params["shared"], x, cfg.act)
+    return out, aux
+
+
+def _routed(params, cfg, x, want_aux, tp, batch_groups):
     m = cfg.moe
     B, S, d = x.shape
     E, K, Ep = m.n_experts, m.top_k, m.padded_n_experts
@@ -137,7 +173,7 @@ def moe_ffn(params, cfg, x, *, want_aux: bool = False, tp=None,
 
         if tp is None:
             return _experts(params, cfg, x, weights, flat_e, pos, keep,
-                            range(Ep), C, rg), aux
+                            m.held, C, rg), aux
         return TP.reduce_from_model(_experts(
             params, cfg, TP.copy_to_model(x, tp),
             TP.copy_to_model(weights, tp), flat_e, pos, keep,

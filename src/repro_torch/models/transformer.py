@@ -43,7 +43,8 @@ Params: {"embed": {"table"}, "layers": [per-layer dict], "final_norm":
 An attention layer dict is {"norm1", "attn", "norm2", "ffn"} plus
 {"norm_cross", "cross_attn"} in an encoder-decoder's decoder, an RG-LRU
 layer dict {"norm1", "rglru", "norm2", "ffn"}, a Mamba2 layer dict
-{"norm1", "mamba"} (no FFN, as in the reference), with the reference's
+{"norm1", "mamba"} (no FFN, as in the reference; {"norm1", "mamba",
+"norm2", "ffn"} where `cfg.ssm_ffn`, granite-4.0-h), with the reference's
 leaf names. An MoE FFN is {"router" (d, E), "w_gate", "w_up" (Ep, d, ff),
 "w_down" (Ep, ff, d)} (`models/moe.py`).
 
@@ -53,7 +54,15 @@ plus {"cross_k", "cross_v": (B, Se, nkv, hd), "cross_pos": (B, Se)} in an
 encoder-decoder (written once by the prefill, read by every decode step),
 {"h": (B, w) f32, "conv": (B, d_conv-1, w)} for RG-LRU, {"ssm": (B, nh,
 hd, d_state) f32, "conv": (B, d_conv-1, conv_dim)} for Mamba2. Paged:
-{"k", "v"} pools of (P, bs, nkv, hd) per attention layer.
+{"k", "v"} pools of (P, bs, nkv, hd) per attention layer and, in a stack
+of attention and Mamba2 layers, the Mamba2 state as on the dense layout
+with one row per engine slot.
+
+Granite's port-only settings (`configs.base.ModelConfig`): the embedding
+times `embedding_multiplier`, each residual branch times
+`residual_multiplier`, the logits divided by `logits_scaling`, the
+attention scaled by `attention_multiplier` and no RoPE under `nope`. Each
+is skipped at its default, so the other models run the same operations.
 """
 from __future__ import annotations
 
@@ -70,11 +79,19 @@ from repro_torch.sharding.rules import constrain
 
 
 def paged_supported(cfg) -> bool:
-    """The paged KV path covers pure-attention decoder stacks: recurrent
-    mixers (ssm/rglru) carry O(1) state that a prefix block chain cannot
-    capture, and enc-dec adds cross caches the block table doesn't model."""
-    return (not cfg.is_encdec
-            and all(t == "attn" for t in cfg.layer_types()))
+    """The paged KV path covers decoder stacks of attention layers, and
+    of attention and Mamba2 layers together: a Mamba2 layer's O(1) state
+    lives beside the pools, one row per slot (`init_paged_cache`).
+    RG-LRU layers, a stack with no attention layer to page, and enc-dec
+    (cross caches the block table doesn't model) take the dense layout."""
+    types = cfg.layer_types()
+    return (not cfg.is_encdec and "attn" in types
+            and all(t in ("attn", "ssm") for t in types))
+
+
+def recurrent(cfg) -> bool:
+    """Whether a layer of the stack carries recurrent state."""
+    return any(t != "attn" for t in cfg.layer_types())
 
 
 def _attn_shapes(cfg) -> dict:
@@ -88,20 +105,28 @@ def _attn_shapes(cfg) -> dict:
     return attn
 
 
-def _layer_shapes(cfg, ltype: str, with_cross: bool = False) -> dict:
+def _ffn_shapes(cfg) -> dict:
     d = cfg.d_model
-    if ltype == "ssm":
-        return {"norm1": {"scale": (d,)}, "mamba": M2.param_shapes(cfg)}
     if cfg.moe:
         ffn = MOE.param_shapes(cfg)
     else:
         ffn = {"w_up": (d, cfg.d_ff), "w_down": (cfg.d_ff, d)}
         if cfg.mlp_gated:
             ffn["w_gate"] = (d, cfg.d_ff)
+    return ffn
+
+
+def _layer_shapes(cfg, ltype: str, with_cross: bool = False) -> dict:
+    d = cfg.d_model
+    if ltype == "ssm":
+        out = {"norm1": {"scale": (d,)}, "mamba": M2.param_shapes(cfg)}
+        if cfg.ssm_ffn:
+            out.update(norm2={"scale": (d,)}, ffn=_ffn_shapes(cfg))
+        return out
     mixer = (_attn_shapes(cfg) if ltype == "attn"
              else RG.param_shapes(cfg))
     out = {"norm1": {"scale": (d,)}, ltype: mixer,
-           "norm2": {"scale": (d,)}, "ffn": ffn}
+           "norm2": {"scale": (d,)}, "ffn": _ffn_shapes(cfg)}
     if ltype == "attn" and with_cross:
         out["norm_cross"] = {"scale": (d,)}
         out["cross_attn"] = _attn_shapes(cfg)
@@ -125,11 +150,21 @@ def param_shapes(cfg) -> dict:
     return out
 
 
+def _init_ffn(gen, cfg):
+    return (MOE.init_moe(gen, cfg) if cfg.moe
+            else L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.parameter_dtype,
+                            cfg.mlp_gated))
+
+
 def _init_layer(gen, cfg, ltype: str, with_cross: bool = False):
     pdt, d = cfg.parameter_dtype, cfg.d_model
     if ltype == "ssm":
-        return {"norm1": L.init_rms_norm(d, pdt, gen.device),
-                "mamba": M2.init_mamba2(gen, cfg)}
+        p = {"norm1": L.init_rms_norm(d, pdt, gen.device),
+             "mamba": M2.init_mamba2(gen, cfg)}
+        if cfg.ssm_ffn:
+            p.update(norm2=L.init_rms_norm(d, pdt, gen.device),
+                     ffn=_init_ffn(gen, cfg))
+        return p
     if ltype == "attn":
         name, mixer = "attn", L.init_attention(gen, cfg)
     else:
@@ -137,8 +172,7 @@ def _init_layer(gen, cfg, ltype: str, with_cross: bool = False):
     p = {"norm1": L.init_rms_norm(d, pdt, gen.device),
          name: mixer,
          "norm2": L.init_rms_norm(d, pdt, gen.device),
-         "ffn": (MOE.init_moe(gen, cfg) if cfg.moe
-                 else L.init_mlp(gen, d, cfg.d_ff, pdt, cfg.mlp_gated))}
+         "ffn": _init_ffn(gen, cfg)}
     if ltype == "attn" and with_cross:
         p["norm_cross"] = L.init_rms_norm(d, pdt, gen.device)
         p["cross_attn"] = L.init_attention(gen, cfg)
@@ -190,6 +224,38 @@ def _ffn_apply(lp, cfg, h, want_aux: bool = False, tp=None,
         return L.mlp(lp["ffn"], h, cfg.act, _split(tp, "ffn")), None
 
 
+def _res(cfg, x, branch):
+    """x plus a residual branch, the branch times `residual_multiplier`
+    where that is set."""
+    m = cfg.residual_multiplier
+    return x + branch if m == 1.0 else x + branch * m
+
+
+def _ffn_block(lp, cfg, x, want_aux=False, tp=None, batch_groups=()):
+    """norm2, the FFN and its residual add: (x, aux)."""
+    h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
+    ff, aux = _ffn_apply(lp, cfg, h, want_aux, tp, batch_groups)
+    return _res(cfg, x, ff), aux
+
+
+def _ssm_tail(lp, cfg, x, out, want_aux=False, tp=None, batch_groups=()):
+    """A Mamba2 layer after its mixer: the residual add of `out`, then
+    norm2 and the FFN where the config gives it one: (x, aux)."""
+    x = _res(cfg, x, out)
+    if not cfg.ssm_ffn:
+        return x, None
+    return _ffn_block(lp, cfg, x, want_aux, tp, batch_groups)
+
+
+def _embed(params, cfg, tokens, tp=None):
+    """Token embeddings in the activation dtype, times
+    `embedding_multiplier` where that is set."""
+    x = L.embed(params["embed"], tokens, _split(tp, "vocab")).to(
+        cfg.activation_dtype)
+    m = cfg.embedding_multiplier
+    return x if m == 1.0 else x * m
+
+
 def _logits(params, cfg, x, tp=None):
     """Logits over the (padded) vocabulary; with a tensor-parallel context
     whose vocabulary splits, this rank's (..., V/tp) slice of them, the
@@ -199,6 +265,8 @@ def _logits(params, cfg, x, tp=None):
         x = TP.copy_to_model(x, tp)
     out = L.unembed(params["embed"], x, tp) if cfg.tie_embeddings \
         else x @ params["lm_head"]
+    if cfg.logits_scaling != 1.0:
+        out = out / cfg.logits_scaling
     if cfg.padded_vocab_size != cfg.vocab_size:
         # padded vocab entries can never win argmax / contribute to lse
         lo = 0 if tp is None else tp.rank * out.shape[-1]
@@ -238,7 +306,8 @@ def _layer_full(lp, cfg, ltype, x, positions, window, enc=None,
         out, cache = M2.mamba2_forward(lp["mamba"], cfg, h, tp=part)
         if want_cache and part is not None:
             cache = M2.whole_state(cfg, cache, part)
-        return x + out, cache, None
+        x, aux = _ssm_tail(lp, cfg, x, out, want_aux, tp, batch_groups)
+        return x, cache, aux
     if ltype == "attn":
         att, (k, v) = L.attention(lp["attn"], cfg, h, positions,
                                   causal=True, window=window,
@@ -252,7 +321,7 @@ def _layer_full(lp, cfg, ltype, x, positions, window, enc=None,
         att, cache = RG.rglru_block_forward(lp["rglru"], cfg, h, tp=part)
         if want_cache and part is not None:
             cache = RG.whole_state(cache, part)
-    x = x + att
+    x = _res(cfg, x, att)
     if ltype == "attn" and enc is not None:
         h = L.apply_rms_norm(lp["norm_cross"], x, cfg.norm_eps)
         catt, (ck, cv) = L.attention(lp["cross_attn"], cfg, h, positions,
@@ -263,9 +332,8 @@ def _layer_full(lp, cfg, ltype, x, positions, window, enc=None,
                                      all_kv=want_cache)
         x = x + catt
         cache["cross_k"], cache["cross_v"] = ck, cv
-    h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
-    ff, aux = _ffn_apply(lp, cfg, h, want_aux, tp, batch_groups)
-    return x + ff, cache, aux
+    x, aux = _ffn_block(lp, cfg, x, want_aux, tp, batch_groups)
+    return x, cache, aux
 
 
 def _encode(params, cfg, enc_embeds, tp=None):
@@ -290,8 +358,7 @@ def _encode(params, cfg, enc_embeds, tp=None):
 def _inputs_to_x(params, cfg, batch, tp=None):
     """Token embedding after the optional modality prefix. Returns (x,
     positions (1, P + S), P)."""
-    x = L.embed(params["embed"], batch["tokens"], _split(tp, "vocab")
-                ).to(cfg.activation_dtype)
+    x = _embed(params, cfg, batch["tokens"], tp)
     n_prefix = 0
     if batch.get("embeds") is not None:
         pre = batch["embeds"].to(cfg.activation_dtype)
@@ -431,7 +498,7 @@ def forward_train(params, cfg, batch, window=None, tp=None, batch_groups=()):
         x = _seq_parallel(cfg, x)
     x, aux = _run_layers(x, aux, layers[n_scan:], types[n_scan:], cfg,
                          positions, window, enc, tp, batch_groups)
-    n_ffn_layers = sum(1 for t in types if t != "ssm")
+    n_ffn_layers = sum(1 for t in types if t != "ssm" or cfg.ssm_ffn)
     aux = {k: v / max(n_ffn_layers, 1) for k, v in aux.items()}
     return _head(params, cfg, x, n_prefix, tp), aux
 
@@ -462,20 +529,24 @@ def init_cache(cfg, batch_size: int, cache_len: int, device="cuda",
                                              dtype=torch.int32, device=device)
             return c
         if ltype == "ssm":
-            s = cfg.ssm
-            nh = s.n_heads(cfg.d_model)
-            return {"ssm": torch.zeros((batch_size, nh, s.head_dim,
-                                        s.d_state), dtype=torch.float32,
-                                       device=device),
-                    "conv": torch.zeros((batch_size, s.d_conv - 1,
-                                         M2.conv_dim(cfg)), dtype=adt,
-                                        device=device)}
+            return _ssm_state(cfg, batch_size, device)
         w = cfg.rglru.lru_width or cfg.d_model
         return {"h": torch.zeros((batch_size, w), dtype=torch.float32,
                                  device=device),
                 "conv": torch.zeros((batch_size, cfg.rglru.d_conv - 1, w),
                                     dtype=adt, device=device)}
     return [one(t) for t in cfg.layer_types()]
+
+
+def _ssm_state(cfg, batch_size: int, device):
+    """A Mamba2 layer's zero state: {"ssm": (B, nh, hd, d_state) f32,
+    "conv": (B, d_conv-1, conv_dim)}."""
+    s = cfg.ssm
+    nh = s.n_heads(cfg.d_model)
+    return {"ssm": torch.zeros((batch_size, nh, s.head_dim, s.d_state),
+                               dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch_size, s.d_conv - 1, M2.conv_dim(cfg)),
+                                dtype=cfg.activation_dtype, device=device)}
 
 
 def _write_rows(cache, new, rows):
@@ -494,7 +565,7 @@ def _layer_decode(lp, cfg, ltype, x, pos, cache, window, rows, tp=None,
         out, new = M2.mamba2_decode(lp["mamba"], cfg, h, cache,
                                     tp=_split(tp, "ssm"))
         _write_rows(cache, new, rows)
-        return x + out
+        return _ssm_tail(lp, cfg, x, out, tp=tp)[0]
     if ltype == "attn":
         att, _, _, _ = L.attention_decode(
             lp["attn"], cfg, h, pos, cache["k"], cache["v"], cache["pos"],
@@ -503,7 +574,7 @@ def _layer_decode(lp, cfg, ltype, x, pos, cache, window, rows, tp=None,
         att, new = RG.rglru_block_decode(lp["rglru"], cfg, h, cache,
                                          tp=_split(tp, "lru"))
         _write_rows(cache, new, rows)
-    x = x + att
+    x = _res(cfg, x, att)
     if cfg.is_encdec and "cross_k" in cache:
         h = L.apply_rms_norm(lp["norm_cross"], x, cfg.norm_eps)
         catt, _, _, _ = L.attention_decode(
@@ -511,8 +582,7 @@ def _layer_decode(lp, cfg, ltype, x, pos, cache, window, rows, tp=None,
             cache["cross_v"], cache["cross_pos"], rope=False, cross=True,
             tp=tp, split=split[1])
         x = x + catt
-    h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
-    return x + _ffn_apply(lp, cfg, h, tp=tp)[0]
+    return _ffn_block(lp, cfg, x, tp=tp)[0]
 
 
 def decode_step(params, cfg, tokens, pos, cache, window=None, rows=None,
@@ -538,8 +608,7 @@ def decode_step(params, cfg, tokens, pos, cache, window=None, rows=None,
         raise ValueError(f"{cfg.arch_id}: no tensor-parallel forward for "
                          "this family")
     window = cfg.window if window is None else window
-    x = L.embed(params["embed"], tokens, _split(tp, "vocab")).to(
-        cfg.activation_dtype)
+    x = _embed(params, cfg, tokens, tp)
     if rows is None:
         rows = torch.arange(x.shape[0], device=x.device)
     for lp, t, c in zip(params["layers"], cfg.layer_types(), cache):
@@ -551,21 +620,31 @@ def decode_step(params, cfg, tokens, pos, cache, window=None, rows=None,
 # ============================================================== paged cache
 
 def init_paged_cache(cfg, n_pool_blocks: int, block_size: int,
-                     device="cuda"):
+                     device="cuda", slots: int = 0):
     """Pool-shaped KV cache: per attention layer, row b of the (P, bs, nkv,
     hd) pool tensors is the bs-token page named by block id b. The same
     block id indexes every layer, so one host-side block table describes a
     sequence across the whole stack. No "pos" leaf: a paged page's gather
-    index *is* its absolute position."""
+    index *is* its absolute position. Per Mamba2 layer, `slots` rows of
+    state, row s slot s's: {"ssm": (slots, nh, hd, d_state) f32, "conv":
+    (slots, d_conv-1, conv_dim)}, zeros (`paged_supported`)."""
     if not paged_supported(cfg):
-        raise ValueError(f"{cfg.arch_id}: paged KV cache requires a pure-"
-                         "attention decoder (no ssm/rglru/enc-dec layers)")
+        raise ValueError(f"{cfg.arch_id}: paged KV cache requires a decoder "
+                         "of attention layers, or of attention and Mamba2 "
+                         "layers (no rglru/enc-dec layers)")
+    if recurrent(cfg) and slots < 1:
+        raise ValueError(f"{cfg.arch_id}: a paged cache with Mamba2 layers "
+                         "needs the slot count for their state")
     hd, nkv = cfg.resolved_head_dim, cfg.n_kv_heads
     shape = (n_pool_blocks, block_size, nkv, hd)
     adt = cfg.activation_dtype
-    return [{"k": torch.zeros(shape, dtype=adt, device=device),
-             "v": torch.zeros(shape, dtype=adt, device=device)}
-            for _ in range(cfg.n_layers)]
+
+    def one(ltype):
+        if ltype == "ssm":
+            return _ssm_state(cfg, slots, device)
+        return {"k": torch.zeros(shape, dtype=adt, device=device),
+                "v": torch.zeros(shape, dtype=adt, device=device)}
+    return [one(t) for t in cfg.layer_types()]
 
 
 def copy_pool_blocks(cache, src_ids, dst_ids):
@@ -586,9 +665,8 @@ def _layer_decode_paged(lp, cfg, x, pos, pool, table, window,
     att, _, _ = L.attention_decode_paged(
         lp["attn"], cfg, h, pos, pool["k"], pool["v"], table, window=window,
         kernel=kernel)
-    x = x + att
-    h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
-    return x + _ffn_apply(lp, cfg, h)[0]
+    x = _res(cfg, x, att)
+    return _ffn_block(lp, cfg, x)[0]
 
 
 def decode_step_paged(params, cfg, tokens, pos, cache, table, window=None,
@@ -597,11 +675,21 @@ def decode_step_paged(params, cfg, tokens, pos, cache, table, window=None,
     (B,) int32; table: (B, nb) int32 block ids per slot (see
     `init_paged_cache`). Returns (logits (B,1,V), cache). The scatter plus
     kernel-switched attention read per layer is
-    `layers.attention_decode_paged`."""
+    `layers.attention_decode_paged`. A Mamba2 layer steps row b of its
+    state in place where slot b is live, i.e. where its table row names a
+    page (`table[:, 0] != 0`: an empty or dead slot's row is all zeros),
+    so B is the engine's slot count there."""
     window = cfg.window if window is None else window
-    x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
-    for lp, pool in zip(params["layers"], cache):
-        x = _layer_decode_paged(lp, cfg, x, pos, pool, table, window, kernel)
+    x = _embed(params, cfg, tokens)
+    live = (table[:, 0] != 0) if recurrent(cfg) else None
+    for lp, t, pool in zip(params["layers"], cfg.layer_types(), cache):
+        if t == "ssm":
+            h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
+            x = _ssm_tail(lp, cfg, x, M2.mamba2_decode_paged(
+                lp["mamba"], cfg, h, pool, live))[0]
+        else:
+            x = _layer_decode_paged(lp, cfg, x, pos, pool, table, window,
+                                    kernel)
     return _final_logits(params, cfg, x), cache
 
 
@@ -611,13 +699,12 @@ def _layer_prefill_paged(lp, cfg, x, q_pos, n_tok, pool, table, window,
     att, _, _ = L.attention_prefill_paged(
         lp["attn"], cfg, h, q_pos, n_tok, pool["k"], pool["v"], table,
         window=window, kernel=kernel, start=start)
-    x = x + att
-    h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
-    return x + _ffn_apply(lp, cfg, h)[0]
+    x = _res(cfg, x, att)
+    return _ffn_block(lp, cfg, x)[0]
 
 
 def forward_prefill_paged(params, cfg, tokens, start, n_tok, cache, table,
-                          window=None, kernel="cuda"):
+                          window=None, kernel="cuda", slot=None):
     """Prefill only the *uncached suffix* of a prompt against a paged cache
     whose pages [0, start) are already resident (radix prefix hit).
 
@@ -627,15 +714,38 @@ def forward_prefill_paged(params, cfg, tokens, start, n_tok, cache, table,
     (logits (1, S, V), cache) — only logits[:, :n_tok] are meaningful.
     `kernel` switches each layer's attention read
     (`layers.attention_prefill_paged`: "cuda" or "reference").
+
+    A stack with Mamba2 layers prefills a whole prompt (start 0) at its
+    exact length (S == n_tok: a pad token would advance the state), and
+    each Mamba2 layer writes its final state into row `slot` of its state
+    (`mamba2.mamba2_prefill_paged`), overwriting what the slot held.
     """
+    if recurrent(cfg) and (slot is None or start != 0 or
+                           tokens.shape[1] != n_tok):
+        raise ValueError(f"{cfg.arch_id}: a prefill with Mamba2 layers runs "
+                         "a whole prompt, unpadded, into a slot (slot=, "
+                         f"start 0, S == n_tok); got slot={slot}, start="
+                         f"{start}, S={tokens.shape[1]}, n_tok={n_tok}")
     window = cfg.window if window is None else window
     S = tokens.shape[1]
-    x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
+    x = _embed(params, cfg, tokens)
     q_pos = start + torch.arange(S, dtype=torch.int32, device=x.device)
-    for lp, pool in zip(params["layers"], cache):
-        x = _layer_prefill_paged(lp, cfg, x, q_pos, n_tok, pool, table,
-                                 window, kernel, start)
+    for lp, t, pool in zip(params["layers"], cfg.layer_types(), cache):
+        if t == "ssm":
+            h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
+            x = _ssm_tail(lp, cfg, x, M2.mamba2_prefill_paged(
+                lp["mamba"], cfg, h, pool, slot))[0]
+        else:
+            x = _layer_prefill_paged(lp, cfg, x, q_pos, n_tok, pool, table,
+                                     window, kernel, start)
     return _final_logits(params, cfg, x), cache
+
+
+def _attention_only(cfg, what: str):
+    if recurrent(cfg):
+        raise ValueError(f"{cfg.arch_id}: {what} runs attention stacks "
+                         "only; a stack with recurrent layers has no "
+                         "per-position state to verify, chunk or roll back")
 
 
 def _layer_verify_paged(lp, cfg, x, pos, pool, table, window):
@@ -656,6 +766,7 @@ def verify_step_paged(params, cfg, tokens, pos, cache, table, window=None):
     caller decides afterwards which written positions survive and rewinds
     its frontier past the rest: stale rows beyond the frontier are masked
     by every later read."""
+    _attention_only(cfg, "the speculative verify")
     window = cfg.window if window is None else window
     x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
     for lp, pool in zip(params["layers"], cache):
@@ -683,6 +794,7 @@ def mixed_step_paged(params, cfg, tokens, pos, n_chunk, cache, table, ctable,
     combined pool write per layer. The decode rows' read is kernel-
     switched like `decode_step_paged`'s. Returns (logits (B + C, V),
     cache)."""
+    _attention_only(cfg, "the chunked mixed step")
     window = cfg.window if window is None else window
     x = L.embed(params["embed"], tokens)[None].to(cfg.activation_dtype)
     for lp, pool in zip(params["layers"], cache):
@@ -710,6 +822,7 @@ def prefill_chunk_paged(params, cfg, tokens, start, n_tok, cache, table,
     table: (nb,) the slot's block chain, with positions [0, start) already
     resident. Returns (logits (1, C, V), cache); only logits[:, :n_tok]
     are meaningful."""
+    _attention_only(cfg, "a prefill chunk")
     window = cfg.window if window is None else window
     x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
     for lp, pool in zip(params["layers"], cache):

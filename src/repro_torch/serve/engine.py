@@ -21,8 +21,17 @@ admitted. `kv_layout` picks the cache:
     never touches a live peer's cache.
   * "paged": KV in a pool of `block_size`-token pages; a request reuses
     the longest prompt prefix already in the pool through the radix index
-    (copy-on-write for a partially matching page). Pure-attention decoders
-    only, no sliding window.
+    (copy-on-write for a partially matching page). Decoders of attention
+    layers, or of attention and Mamba2 layers (granite-4.0-h), no sliding
+    window. Beside the pools each Mamba2 layer holds one row of state per
+    slot (`transformer.init_paged_cache`), overwritten by the slot's bulk
+    prefill (cleared first for a prefill by decode steps) and stepped in
+    place by every decode step, the fused graph's included. Such a model
+    makes no radix lookup and no copy-on-write (no state exists for a
+    reused prefix), prefills prompts at their exact length, and takes
+    neither the chunked scheduler nor speculative decoding; its pool
+    defaults to one slots' worth of pages, since no retired prefix is
+    kept.
 
 The decode step returns last-position logits (or, when every live slot is
 greedy, the argmax taken on the device): each request carries its own
@@ -181,7 +190,19 @@ class ServeEngine:
                 raise ValueError("chunked prefill scatters bounded chunks "
                                  "into paged block tables; use "
                                  "kv_layout='paged'")
+        self._recurrent = T.recurrent(cfg)
         if kv_layout == "paged":
+            if self._recurrent and spec_tokens > 0:
+                raise ValueError(f"{cfg.arch_id}: speculative decoding "
+                                 "rolls back KV positions; a model with "
+                                 "recurrent layers cannot roll its state "
+                                 "back (spec_tokens must be 0)")
+            if self._recurrent and scheduler == "chunked":
+                raise ValueError(f"{cfg.arch_id}: the chunked scheduler "
+                                 "prefills a prompt in pieces beside decode "
+                                 "steps, which a model with recurrent "
+                                 "layers does not take; use scheduler="
+                                 "'phased'")
             if (window if window is not None else cfg.window) is not None:
                 raise ValueError("paged KV cache does not support sliding-"
                                  "window (ring) caches; use kv_layout=dense")
@@ -235,11 +256,13 @@ class ServeEngine:
         if kv_layout == "paged":
             nb = cache_len // block_size
             if pool_blocks is None:
-                pool_blocks = 2 * batch_slots * nb + 1
+                pool_blocks = (1 if self._recurrent else 2) \
+                    * batch_slots * nb + 1
             with self._on_stream():
                 self.cache = T.init_paged_cache(cfg, pool_blocks, block_size,
-                                                self.device)
-            self.manager = KVCacheManager(pool_blocks, block_size)
+                                                self.device, batch_slots)
+            self.manager = KVCacheManager(pool_blocks, block_size,
+                                          reuse=not self._recurrent)
             # per-slot block tables; row of ids into the pool tensors.
             # Retired/empty slots are all-zero -> the reserved null block
             self.table = np.zeros((batch_slots, nb), np.int32)
@@ -279,7 +302,10 @@ class ServeEngine:
                                                       return_logits=True)
         # pad bulk prompts only where padding cannot distort state:
         # recurrent mixers (rglru, ssm) advance over pad tokens
-        self._bucket_prompts = T.paged_supported(cfg)
+        self._bucket_prompts = T.paged_supported(cfg) and not self._recurrent
+        # recurrent state on the paged layout: slots whose state an
+        # admission overwrote or cleared, and the state's bytes
+        self.state_slots_cleared = 0
         self.pos = np.full((batch_slots,), -1, np.int64)   # last written pos
         self.budget = np.zeros((batch_slots,), np.int64)
         self.active: List[Optional[Request]] = [None] * batch_slots
@@ -393,8 +419,10 @@ class ServeEngine:
                 self._decode_fused.release()
             with self._on_stream():
                 self.cache = T.init_paged_cache(self.cfg, pool_blocks,
-                                                self.block_size, self.device)
-            self.manager = KVCacheManager(pool_blocks, self.block_size)
+                                                self.block_size, self.device,
+                                                self.slots)
+            self.manager = KVCacheManager(pool_blocks, self.block_size,
+                                          reuse=not self._recurrent)
             self.table = np.zeros_like(self.table)
         else:
             with self._on_stream():
@@ -464,12 +492,27 @@ class ServeEngine:
         """KV blocks this slot pins (0 on the dense layout)."""
         return len(self._slot_blocks[slot])
 
+    def state_summary(self) -> Optional[dict]:
+        """Recurrent state on the paged layout (None without): slots whose
+        state an admission overwrote or cleared, and the bytes held."""
+        if not (self._recurrent and self.kv_layout == "paged"):
+            return None
+        return {"slots_cleared": self.state_slots_cleared,
+                "bytes_held": sum(t.numel() * t.element_size()
+                                  for c in self.cache if "k" not in c
+                                  for t in c.values())}
+
     def step_summary(self) -> Optional[dict]:
         """Per-step-kind wall-time stats (None before the first step):
-        {kind: {count, mean, p50, p95, max}} in milliseconds."""
+        {kind: {count, mean, p50, p95, max}} in milliseconds, and
+        "state": `state_summary()` where there is one."""
         if not self.step_times:
             return None
-        return {k: h.summary() for k, h in sorted(self.step_times.items())}
+        out = {k: h.summary() for k, h in sorted(self.step_times.items())}
+        state = self.state_summary()
+        if state is not None:
+            out["state"] = state
+        return out
 
     def _ints(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
@@ -655,17 +698,27 @@ class ServeEngine:
         self._wire_slot_table(slot, adm)
         start, P = adm.n_reused, len(req.prompt)
         self.prefill_tokens_computed += P - start
+        bulk = self.prefill_mode == "bulk" and req.prompt
+        if self._recurrent:
+            # a bulk prefill overwrites the slot's state; anything else
+            # starts from zeros
+            if not bulk:
+                self._clear_slot_state(slot)
+            self.state_slots_cleared += 1
         if not req.prompt:
             # degenerate empty prompt: argmax of a zero logits row
             return 0 if greedy else self._sample_safe(
                 req, np.zeros((self.cfg.vocab_size,), np.float32))
-        if self.prefill_mode == "bulk":
+        if bulk:
             suffix = req.prompt[start:]
-            Sb = bucket_len(len(suffix), self.cache_len)
+            Sb = bucket_len(len(suffix), self.cache_len) \
+                if self._bucket_prompts else len(suffix)
             toks = self._ints([suffix + [0] * (Sb - len(suffix))])
             prefill = self._prefill_tok if greedy else self._prefill_lg
+            # a recurrent stack's prefill writes the slot's state row
+            kw = {"slot": slot} if self._recurrent else {}
             out, _ = prefill(self.params, toks, start, len(suffix),
-                             self.cache, self._ints(self.table[slot]))
+                             self.cache, self._ints(self.table[slot]), **kw)
             otrace.stop_timer()
             first = int(out) if greedy else \
                 self._sample_safe(req, self._host_logits(out))
@@ -690,6 +743,13 @@ class ServeEngine:
         # prefix reuses them instead of re-running prefill
         self.manager.commit(req.prompt, self._slot_blocks[slot])
         return first
+
+    def _clear_slot_state(self, slot: int):
+        """Zero row `slot` of every recurrent layer's paged state."""
+        for c in self.cache:
+            if "k" not in c:
+                for t in c.values():
+                    t[slot].zero_()
 
     def _release_slot_blocks(self, slot: int, req: Optional[Request],
                              commit: bool = True):

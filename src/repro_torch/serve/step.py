@@ -253,11 +253,13 @@ def build_prefill_paged(cfg, *, window=None, return_logits: bool = False,
     (`n_tok` real, rest right-pad); the resident prefix pages are attended
     through the slot's block `table`, read by `kernel` ("cuda": the paged
     flash kernel; "reference": the plain gather). Emits the last real
-    position's greedy token / logits plus the updated pool."""
-    def prefill(params, tokens, start, n_tok, cache, table):
+    position's greedy token / logits plus the updated pool. A stack with
+    Mamba2 layers prefills a whole unpadded prompt into `slot`'s state row
+    (`transformer.forward_prefill_paged`)."""
+    def prefill(params, tokens, start, n_tok, cache, table, slot=None):
         logits, cache = T.forward_prefill_paged(
             params, cfg, tokens, start, n_tok, cache, table, window=window,
-            kernel=kernel)
+            kernel=kernel, slot=slot)
         last = logits[0, n_tok - 1]
         return (last if return_logits else _greedy(last)), cache
     return prefill

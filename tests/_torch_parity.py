@@ -6,6 +6,7 @@ Inputs and weights cross between the two frameworks as numpy arrays: the
 weights are the reference's own `init_lm` draws, bridged with
 `repro_torch.params.params_from_jax`, never re-initialised.
 """
+import dataclasses
 import functools
 
 import jax
@@ -36,6 +37,30 @@ def bridged_model(arch="qwen3-1.7b", seed=0):
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
                               device="cpu")
     return jcfg, tcfg, jparams, tparams
+
+
+def assert_config_is_the_references(port, ref):
+    """Every field of the reference's config, nested configs included,
+    has the reference's value in the port's config, and every field only
+    the port has (Granite's settings, `configs.base`) stands at its
+    default, so that the port runs the reference's model."""
+    _same_or_default(port, dataclasses.asdict(ref), type(port).__name__)
+
+
+def _same_or_default(port, ref: dict, where: str):
+    names = {f.name for f in dataclasses.fields(port)}
+    assert set(ref) <= names, f"{where}: the port lacks {set(ref) - names}"
+    for f in dataclasses.fields(port):
+        v = getattr(port, f.name)
+        if f.name not in ref:
+            assert v == f.default, \
+                f"{where}.{f.name}: port-only field at {v!r}, not its " \
+                f"default {f.default!r}"
+        elif dataclasses.is_dataclass(v) and isinstance(ref[f.name], dict):
+            _same_or_default(v, ref[f.name], f"{where}.{f.name}")
+        else:
+            assert v == ref[f.name], f"{where}.{f.name}: {v!r} against " \
+                f"the reference's {ref[f.name]!r}"
 
 
 def to_np(x):

@@ -14,7 +14,6 @@ cases of tests/test_models.py.
 float32 on the CPU. Tolerance 1e-4 (a few layers of f32 sums in another
 order); an MoE's aux values 1e-5.
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -33,6 +32,7 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serve.step import prefill_into_cache  # noqa: E402
 from repro_torch.train.step import build_lm_train_step  # noqa: E402
+from _torch_parity import assert_config_is_the_references  # noqa: E402
 from _torch_parity import bridged_model, jax_layer_caches, to_np  # noqa: E402
 from _torch_parity import one_torch_thread  # noqa: E402,F401
 
@@ -120,9 +120,9 @@ def test_reduced_decode_step(arch):
 @pytest.mark.parametrize("arch", registry.ARCH_IDS)
 def test_full_config_matches_the_reference(arch):
     """The full configs carry the exact assigned hyper-parameters: every
-    field, nested MoE/SSM/RG-LRU configs included, is the reference's."""
-    assert dataclasses.asdict(registry.get(arch)) == \
-        dataclasses.asdict(jreg.get(arch))
+    field of the reference's, nested MoE/SSM/RG-LRU configs included, is
+    the reference's, and every port-only field stands at its default."""
+    assert_config_is_the_references(registry.get(arch), jreg.get(arch))
 
 
 def test_arch_ids_are_the_references():

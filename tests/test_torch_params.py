@@ -5,7 +5,6 @@
 every leaf of the reference's `init_lm` tree across once, unstacked per
 layer, and refuse a tree with a missing, misshapen or extra leaf.
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -18,6 +17,7 @@ from repro.models import transformer as JT  # noqa: E402
 from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.params import params_from_jax, params_to_jax  # noqa: E402
+from _torch_parity import assert_config_is_the_references  # noqa: E402
 from _torch_parity import one_torch_thread  # noqa: E402,F401
 
 # tied + qk-norm, untied lm_head, ungated GELU MLP, stacked experts, the
@@ -30,7 +30,7 @@ ARCHS = ["qwen3-1.7b", "mistral-nemo-12b", "starcoder2-7b",
 @pytest.mark.parametrize("arch", sorted(treg.REGISTRY))
 def test_config_matches_reference(arch, reduced):
     t, j = treg.get(arch, reduced=reduced), jreg.get(arch, reduced=reduced)
-    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert_config_is_the_references(t, j)
     assert t.param_count() == j.param_count()
     assert t.activation_dtype == getattr(torch, t.dtype)
     assert TT.paged_supported(t) == JT.paged_supported(j)

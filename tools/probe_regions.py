@@ -274,10 +274,11 @@ def main(argv=None) -> int:
     m, mix = cell.config["model"], cell.traffic
     dev = torch.device("cuda")
     build.build()
-    w = weights.make(m, args.seed, dev)
+    # the configuration's model side, as the benchmark draws and lays it out
+    w = weights.make(m, args.seed, dev, cell.family)
     cfg = model.model_config(m)
-    gw = session.build_gateway(model.program_params(w, m, cfg), cfg, mix,
-                               dev)
+    gw = session.build_gateway(model.program_params(w, m, cfg, cell.family),
+                               cfg, mix, dev)
     requests = traffic.Traffic(mix, m["vocab_size"], args.seed)
     session.warm(gw, mix, m["vocab_size"], args.seed)
     if requests.docs:
