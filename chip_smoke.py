@@ -219,12 +219,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    launch 24 x the bulk prefills; a profiled greedy batch-8 decode step
    with the MoE FFNs' time at its shape on the card alone; and in f32 the
    paged kernel against the dense-gather oracle in lockstep, as in phase
-   4. The MoE's expert products are batched matrix products, as the
-   reference's are einsums outside any Pallas kernel.
+   4, with the oracle's MoE on the GShard buffer path in every group, so
+   that the lockstep also holds the grouped MoE experts kernel (phase 38)
+   against the buffer path. A decode position is a group no entry of
+   which can be dropped, so on every one of these paths each layer's MoE
+   runs the grouped kernel in each decode step: its launches must be 24 x
+   the decode steps (single, fused as the paged kernel's, dense; the f32
+   run's "cuda" side), 0 on the oracle's side; the prompts (64-256 tokens)
+   keep the buffer path. The MoE at S > C runs batched matrix products, as
+   the reference's are einsums outside any Pallas kernel.
 25. granite-moe-3b-a800m at full width and depth (32 layers, d_model 1536,
    24/8 heads, 40 experts top-8) in bf16: four requests on the paged path
    (launches 32 x the decode dispatches), then fused (at least one graph
-   replay).
+   replay); the grouped MoE experts kernel 32 x the decode steps on both.
+   Every other serving phase's model has no MoE: the grouped kernel must
+   not launch there.
 26. The encoder-decoder: seamless-m4t-large-v2 at full width and depth
    (24 encoder + 24 decoder layers, d_model 1024, 16/16 heads, d_ff 8192
    ReLU, vocab 256206, tied) in bf16 with "pallas": `forward_prefill` on
@@ -375,6 +384,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    a rank: flash 1 and the RG-LRU scan 2 (recurrentgemma), SSD 24 on the
    CUDA-core route (mamba2, f32). Phases 35-37 share one pair of rank
    processes. `tools/probe_tp.py --phases 35,36,37` runs 35-37 alone.
+38. The grouped MoE experts kernel (csrc/moe_experts.cu: the one-block
+   dispatch sort, then gate/up and down over each held expert's rows)
+   against its plain version (MOE_CASES): at the benchmark cells' decode
+   shapes in bf16, granite-moe-3b-a800m's (64 rows, 40 experts top-8, d
+   1,536, ff 512) and granite-4.0-h-small's (64 rows, experts 0-35 of 72
+   held, top-10, d 4,096, ff 768); at granite-moe-1b-a400m's (32 experts
+   top-8, d 1,024, ff 512) at 64 rows and at phases 24-25's batch of 8
+   rows (most experts 0-2 rows: the early exit and partial M tiles), and
+   granite-moe-3b-a800m's at 8; and granite-moe-1b-a400m's at 8 rows in
+   f32 (TF32 off), the CUDA-core route phase 24's f32 lockstep runs. The
+   dispatch equals the plain stable sort exactly; the widest row's
+   relative error stays within MOE_REL_TOL of the dtype (bf16 0.02, f32
+   1e-5), which two planted faults of the plain version must exceed (an
+   entry's row read from the next token's, an expert's rows run on the
+   next expert's weights). Timed per call from Python, on the card alone (a CUDA graph),
+   with the dispatch, beside the bound (the held experts' three matrices
+   once / 3.35 TB/s) and the plain version. Runs after phase 12;
+   `tools/probe_moe_experts.py` runs it alone.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; above it
 stand the card's name and power limit and one JSON line with each
@@ -383,6 +410,7 @@ kernel's also by path).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -715,6 +743,128 @@ def check_ssd(device) -> dict:
                 f"({which} route): max abs err {err:.3g} (tol {tol})")
             errs[dtype] = err
     return errs
+
+
+# phase 38: (name, rows, experts routed, top_k, held, d, ff, dtype)
+MOE_CASES = [
+    ("granite-moe-3b decode", 64, 40, 8, 40, 1536, 512, torch.bfloat16),
+    ("granite-4.0-h-small decode", 64, 72, 10, 36, 4096, 768,
+     torch.bfloat16),
+    ("granite-moe-1b decode", 64, 32, 8, 32, 1024, 512, torch.bfloat16),
+    ("granite-moe-1b batch 8", 8, 32, 8, 32, 1024, 512, torch.bfloat16),
+    ("granite-moe-3b batch 8", 8, 40, 8, 40, 1536, 512, torch.bfloat16),
+    ("granite-moe-1b batch 8 f32", 8, 32, 8, 32, 1024, 512, torch.float32)]
+# the widest row's relative error: bf16 rounds g, u, silu(g) and h as the
+# plain version's ops do, but sums in another order; f32 sums in k order on
+# the CUDA cores against the library's f32 product
+MOE_REL_TOL = {torch.bfloat16: 0.02, torch.float32: 1e-5}
+
+
+def moe_experts_inputs(case, device, seed=SEED):
+    """Phase 38: tokens in the case's dtype routed to top_k distinct
+    experts each (the top of random logits) and the held experts' weights
+    drawn as `init_moe` draws them."""
+    _, T, E, K, n, d, ff, dtype = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    logits = torch.randn((T, E), generator=gen, device=device)
+    flat_e = torch.sort(logits, dim=-1, descending=True,
+                        stable=True).indices[:, :K].reshape(T * K)
+    x = torch.randn((T, d), generator=gen, device=device).to(dtype)
+
+    def uniform(shape, fan_in):
+        return ((torch.rand(shape, generator=gen, device=device) * 2 - 1)
+                / fan_in ** 0.5).to(dtype)
+    w = {"w_gate": uniform((n, d, ff), d), "w_up": uniform((n, d, ff), d),
+         "w_down": uniform((n, ff, d), ff)}
+    return x, flat_e.contiguous(), w
+
+
+def moe_experts_errs(case, x, flat_e, w) -> dict:
+    """Phase 38: the kernel's widest row error against the plain version
+    over the held experts' entries ("err"), beside two planted faults of
+    the plain version against itself: the first expert with rows reads
+    its first entry's row from the next token ("row"), and runs its rows
+    on the next expert's weights ("weights"). The dispatch must equal the
+    plain stable sort, the entries of experts not held read exact zeros."""
+    from repro_torch.kernels.moe_experts.ops import moe_dispatch, moe_experts
+    from repro_torch.kernels.moe_experts.ref import (moe_dispatch_ref,
+                                                     moe_experts_ref)
+    from repro_torch.models.layers import ACTIVATIONS
+    K, n = case[3], case[4]
+    perm, off = moe_dispatch(flat_e, 0, n)
+    perm_ref, off_ref = moe_dispatch_ref(flat_e, 0, n)
+    if not (torch.equal(perm, perm_ref) and torch.equal(off, off_ref)):
+        raise AssertionError(f"moe_dispatch {case[0]}: order differs from "
+                             "the plain stable sort")
+    got = moe_experts(x, perm, off, **w, top_k=K, act="silu")
+    want = moe_experts_ref(x, perm, off, **w, top_k=K, act="silu")
+    held = perm[:int(off[n])].long()
+    if not bool((got[perm[int(off[n]):].long()] == 0).all()):
+        raise AssertionError(f"moe_experts {case[0]}: an entry of an expert "
+                             "not held reads other than zero")
+    act = ACTIVATIONS["silu"]
+
+    def expert(rows, k):
+        return (act(rows @ w["w_gate"][k]) * (rows @ w["w_up"][k])) \
+            @ w["w_down"][k]
+    counts = (off[1:-1] - off[:-2]).tolist()
+    e = next(i for i, c in enumerate(counts[:-1]) if c)
+    lo, hi = int(off[e]), int(off[e + 1])
+    i = int(perm[lo])
+    row = want.clone()
+    row[i] = expert(x[(i // K + 1) % x.shape[0]][None], e)[0]
+    entries = perm[lo:hi].long()
+    nxt = want.clone()
+    nxt[entries] = expert(x[entries // K], e + 1)
+    return {"err": row_rel_err(got[held], want[held]),
+            "row": row_rel_err(row[held], want[held]),
+            "weights": row_rel_err(nxt[held], want[held])}
+
+
+def moe_experts_phase(device) -> list:
+    """Phase 38: the check and the timings of each of MOE_CASES."""
+    from repro_torch.kernels.moe_experts.ops import moe_dispatch, moe_experts
+    from repro_torch.kernels.moe_experts.ref import moe_experts_ref
+    out = []
+    for case in MOE_CASES:
+        name, T, E, K, n, d, ff, dtype = case
+        tol = MOE_REL_TOL[dtype]
+        x, flat_e, w = moe_experts_inputs(case, device)
+        errs = moe_experts_errs(case, x, flat_e, w)
+        if not errs["err"] <= tol < min(errs["row"], errs["weights"]):
+            raise AssertionError(f"moe_experts {name}: relative errors "
+                                 f"{errs} against the limit {tol}")
+        perm, off = moe_dispatch(flat_e, 0, n)
+
+        def kernel():
+            return moe_experts(x, perm, off, **w, top_k=K, act="silu")
+
+        def with_dispatch():
+            p, o = moe_dispatch(flat_e, 0, n)
+            return moe_experts(x, p, o, **w, top_k=K, act="silu")
+
+        def plain():
+            return moe_experts_ref(x, perm, off, **w, top_k=K, act="silu")
+        bytes_ = 3 * n * d * ff * x.element_size()
+        t = {"name": name, "rows": T, "dtype": str(dtype).split(".")[-1],
+             "limit": tol, "ms": time_cuda(kernel, iters=50, warmup=5),
+             "card_ms": time_graph(kernel, iters=20),
+             "dispatch_card_ms": time_graph(with_dispatch, iters=20),
+             "plain_ms": time_cuda(plain, iters=5, warmup=1),
+             "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3, "bytes": bytes_,
+             **errs}
+        log(f"  moe_experts {name} ({T} rows, {n} of {E} experts held, "
+            f"top-{K}, d {d}, ff {ff}, {t['dtype']}): row rel err "
+            f"{errs['err']:.3g} (limit {tol}; faults: row {errs['row']:.3g}, weights "
+            f"{errs['weights']:.3g}); {t['ms']:.4f} ms a call, "
+            f"{t['card_ms']:.4f} on the card ({t['dispatch_card_ms']:.4f} "
+            f"with the dispatch), bound {t['bound_ms']:.4f} "
+            f"({100 * t['bound_ms'] / t['card_ms']:.1f}% of it), plain "
+            f"{t['plain_ms']:.4f}")
+        out.append(t)
+        del x, w
+        torch.cuda.empty_cache()
+    return out
 
 
 def time_cuda(fn, iters=200, warmup=20) -> float:
@@ -1073,6 +1223,7 @@ def serve(engine, requests) -> dict:
     for fn in fns.values():
         fn.launches = 0
     zero_paged_prefills()
+    zero_moe_launches()
     t0 = time.perf_counter()
     engine.run()
     wall = time.perf_counter() - t0
@@ -1096,12 +1247,13 @@ def serve(engine, requests) -> dict:
         raise AssertionError(f"kernel launches {launches} != {cfg.n_layers} "
                              f"layers x {decode.n} decode dispatches")
     prefill_launches = check_paged_prefills(cfg, prefill.n, "phase 3")
+    moe = check_moe_launches(cfg, decode.n, "phase 3")
     m = engine.cache_metrics
     if m.hits < 1 or m.cow_copies < 1:
         raise AssertionError(f"radix reuse did not run: {m.as_dict()}")
     decode_tokens = sum(len(r.output) - 1 for r in reqs)
     return {"requests": len(reqs), "launches": launches,
-            "prefill_launches": prefill_launches,
+            "prefill_launches": prefill_launches, "moe_launches": moe,
             "decode_dispatches": decode.n,
             "decode_step_ms_mean": decode.total / decode.n,
             "decode_step_ms_p50": decode.percentile(50),
@@ -1189,26 +1341,50 @@ def compare_runs(rec_a, rec_b) -> dict:
             "diverged_requests": {str(k): v for k, v in diverged.items()}}
 
 
-def lockstep(engines, requests) -> dict:
+def lockstep(engines, requests, oracle_ctx=contextlib.nullcontext) -> dict:
     """Serve the same greedy `requests` through each of `engines` (the
-    last is the oracle) with their logits recorded, and compare."""
-    recs, outs = [], []
-    for eng in engines:
+    last is the oracle, run inside `oracle_ctx()`) with their logits
+    recorded, and compare. Each run's grouped MoE experts launches are
+    kept (`moe_launches`)."""
+    recs, outs, moe = [], [], []
+    for i, eng in enumerate(engines):
         recs.append(record_logits(eng))
         reqs = [eng.submit(p, max_new_tokens=n) for p, _, n in requests]
-        eng.run()
+        sync(eng)
+        zero_moe_launches()
+        with (oracle_ctx() if i == len(engines) - 1
+              else contextlib.nullcontext()):
+            eng.run()
+        sync(eng)
+        moe.append(moe_launches())
         outs.append([r.output for r in reqs])
     out = compare_runs(*recs)
+    out["moe_launches"] = moe
     out["identical_outputs"] = outs[0] == outs[1]
     out["outs"], out["rec"] = outs[0], recs[0]    # the first engine's run
     return out
 
 
-def compare_to_oracle(params, cfg, device, requests) -> dict:
+def compare_to_oracle(params, cfg, device, requests,
+                      moe_buffer=False) -> dict:
     """Phase 4: the same greedy traffic through decode_kernel="cuda" and
-    "reference" in lockstep."""
-    return lockstep([make_engine(params, cfg, device, kernel)
-                     for kernel in ("cuda", "reference")], requests)
+    "reference" in lockstep. With `moe_buffer` (phase 24) the oracle's MoE
+    runs the GShard buffer path in every group, so that the grouped MoE
+    experts kernel, which the "cuda" engine's decode steps launch in every
+    layer, is held against the buffer path too; each side's launches of
+    it are checked (`moe_launches`: "cuda", oracle)."""
+    engines = [make_engine(params, cfg, device, kernel)
+               for kernel in ("cuda", "reference")]
+    out = lockstep(engines, requests, oracle_ctx=moe_buffer_path
+                   if moe_buffer else contextlib.nullcontext)
+    if moe_buffer:
+        steps = engines[0].step_times["decode"].n
+        want = [moe_want(cfg, steps), 0]
+        if out["moe_launches"] != want:
+            raise AssertionError(f"f32 lockstep: moe_experts launched "
+                                 f"{out['moe_launches']} (cuda, oracle), "
+                                 f"expected {want}")
+    return out
 
 
 # ------------------------------------------------------ dense-layout serving
@@ -1242,6 +1418,54 @@ def zero_paged_prefills():
     flash_attention_paged.launches = 0
 
 
+def moe_launches() -> int:
+    """The grouped MoE experts kernel's launch count (its own counter,
+    apart from `counters()`, whose checks stay as they were)."""
+    from repro_torch.kernels.moe_experts.ops import moe_experts
+    return moe_experts.launches
+
+
+def zero_moe_launches():
+    from repro_torch.kernels.moe_experts.ops import moe_experts
+    moe_experts.launches = 0
+
+
+def moe_want(cfg, steps: int) -> int:
+    """The grouped MoE experts kernel launches once per layer per decode
+    step where the model's MoE takes the grouped path at a decode position
+    (`models.moe.grouped`: no entry of the group can be dropped), and
+    never in a model with no MoE. The prompts here (64-256 tokens) keep
+    the buffer path, so the prefills launch none."""
+    from repro_torch.models import moe as MOE
+    return cfg.n_layers * steps if cfg.moe and MOE.grouped(cfg, 1) else 0
+
+
+def check_moe_launches(cfg, steps: int, what: str) -> int:
+    """The kernel's launches since `zero_moe_launches()` are `moe_want`'s."""
+    n, want = moe_launches(), moe_want(cfg, steps)
+    if n != want:
+        raise AssertionError(f"{what}: moe_experts launched {n}, expected "
+                             f"{want} ({cfg.n_layers} layers x {steps} "
+                             "decode steps)" if cfg.moe else
+                             f"{what}: moe_experts launched {n} in a model "
+                             "with no MoE")
+    return n
+
+
+@contextlib.contextmanager
+def moe_buffer_path():
+    """Every MoE group on the GShard buffer path (`models.moe.grouped`
+    refused), as the port ran before the grouped experts: phase 24's f32
+    oracle."""
+    from repro_torch.models import moe as MOE
+    grouped = MOE.grouped
+    MOE.grouped = lambda *a, **k: False
+    try:
+        yield
+    finally:
+        MOE.grouped = grouped
+
+
 def make_dense_engine(params, cfg, device, batch_slots, cache_len):
     from repro_torch.serve.engine import ServeEngine
     return ServeEngine(params, cfg, kv_layout="dense", prefill_mode="bulk",
@@ -1261,6 +1485,7 @@ def serve_dense(engine, requests, per_prefill: dict) -> dict:
         fn.launches = 0
         for route in getattr(fn, "route_launches", {}):
             fn.route_launches[route] = 0
+    zero_moe_launches()
     t0 = time.perf_counter()
     engine.run()
     torch.cuda.synchronize()
@@ -1285,9 +1510,10 @@ def serve_dense(engine, requests, per_prefill: dict) -> dict:
             raise AssertionError(f"{name} launched {n} times, expected "
                                  f"{per_prefill.get(name, 0)} x "
                                  f"{prefill.n} bulk prefills = {want}")
+    moe = check_moe_launches(cfg, decode.n, "dense run")
     decode_tokens = sum(len(r.output) - 1 for r in reqs)
     return {"requests": len(reqs), "launches": launches,
-            "route_launches": routes,
+            "moe_launches": moe, "route_launches": routes,
             "prefills": prefill.n, "decode_dispatches": decode.n,
             "prefill_ms_mean": prefill.total / prefill.n,
             "prefill_ms_max": prefill.vmax,
@@ -1513,6 +1739,7 @@ def serve_variant(engine, requests) -> dict:
     for fn in fns.values():
         fn.launches = 0
     zero_paged_prefills()
+    zero_moe_launches()
     t0 = time.perf_counter()
     engine.run()
     sync(engine)
@@ -1543,8 +1770,12 @@ def serve_variant(engine, requests) -> dict:
             f"+ {warmups} warm-up runs) + {kinds.get('decode', 0)} single "
             f"+ {kinds.get('mixed', 0)} mixed dispatches)")
     check_paged_prefills(cfg, kinds.get("prefill", 0), "variant run")
+    moe = check_moe_launches(
+        cfg, engine.fused_tokens * (replays + warmups)
+        + kinds.get("decode", 0), "variant run")
     times = {k: h.total / h.n for k, h in engine.step_times.items()}
     return {"requests": len(reqs), "launches": launches["paged_attention"],
+            "moe_launches": moe,
             "dispatches": kinds, "replays": replays, "warmups": warmups,
             "step_ms_mean": times, "wall_s": wall,
             "tokens_per_s": sum(len(r.output) for r in reqs) / wall,
@@ -2730,8 +2961,12 @@ def granite_phase(device) -> dict:
     cfg32 = family_config("granite-moe-1b-a400m", "float32")
     params32 = make_model(cfg32, device)
     oracle = compare_to_oracle(params32, cfg32, device,
-                               make_requests(cfg32, n=8, new_tokens=16))
+                               make_requests(cfg32, n=8, new_tokens=16),
+                               moe_buffer=True)
     log_lockstep(oracle)
+    log(f"  grouped MoE experts launches {oracle['moe_launches'][0]} "
+        f"(cuda, {cfg32.n_layers} x decode steps), "
+        f"{oracle['moe_launches'][1]} (the oracle's buffer path)")
     del params32
     torch.cuda.empty_cache()
     return {"served": served, "fused": fused, "dense": dense,
@@ -4099,6 +4334,9 @@ def main(device: str = "cuda") -> int:
     scan_errs = check_scan(device)
     log("[12] SSD scan kernel against its plain version")
     ssd_errs = check_ssd(device)
+    log("[38] grouped MoE experts kernel against its plain version, and "
+        "its timings")
+    moe_t = moe_experts_phase(device)
 
     log("[3] serving qwen3-1.7b at full width, bf16")
     cfg = full_config("bfloat16")
@@ -4521,6 +4759,15 @@ def main(device: str = "cuda") -> int:
                  "tp_mamba2": tp_launches["mamba2"]["ssd_scan"],
                  **served_paths["ssd_scan"]}
 
+    # the grouped MoE experts kernel: n_layers x the decode steps of each
+    # MoE path (checked where each ran; every other path launched none)
+    moe_paths = {"granite_1b": g1["served"]["moe_launches"],
+                 "granite_1b_fused": g1["fused"]["moe_launches"],
+                 "granite_1b_dense": g1["dense"]["moe_launches"],
+                 "granite_1b_f32": g1["oracle"]["moe_launches"][0],
+                 "granite_3b": g3["served"]["moe_launches"],
+                 "granite_3b_fused": g3["fused"]["moe_launches"]}
+
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -4583,6 +4830,14 @@ def main(device: str = "cuda") -> int:
         "bound_ms": ssd_t["bound_ms"], "bound_by": ssd_t["bound_by"],
         "library_ms": None, "card_ms": ssd_t["card_ms"],
         "library_card_ms": None,
+    }, {
+        "name": "moe_experts", "route": "cuda",
+        "source": "src/repro_torch/csrc/moe_experts.cu",
+        "replaces": None, "launches": sum(moe_paths.values()),
+        "launches_by_path": moe_paths,
+        "max_rel_err": {dt: max(t["err"] for t in moe_t if t["dtype"] == dt)
+                        for dt in ("bfloat16", "float32")},
+        "by_shape": moe_t,
     }]
     log(f"kernels: paged_attention launches={served['launches']} "
         f"(decode dispatches {served['decode_dispatches']} x "
@@ -4630,6 +4885,9 @@ def main(device: str = "cuda") -> int:
         f"0's heads {ssd_paths}); f32 "
         f"max abs err {ssd_errs[torch.float32]:.3g}, bf16 "
         f"{ssd_errs[torch.bfloat16]:.3g}")
+    log(f"kernels: moe_experts launches={kernels[4]['launches']} (by path "
+        f"{moe_paths}; the layers x the decode steps of each); widest row "
+        f"rel err {kernels[4]['max_rel_err']}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

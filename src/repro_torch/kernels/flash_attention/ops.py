@@ -31,16 +31,16 @@ which CPU tensors run here (`ref.paged_prefill_ref`). It takes the same
 rules: the device alone picks the path, no backward, the same dtypes, head
 dims and alignment. Its own counter, `flash_attention_paged.launches`,
 counts one launch per call on CUDA tensors; gateway replicas prefill on
-threads of their own, so it grows under a lock.
+threads of their own, so it counts through `kernels.count_launch`, under
+its lock.
 """
 from __future__ import annotations
 
 import math
-import threading
 
 import torch
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import count_launch, refuse_grad
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      paged_prefill_ref)
 
@@ -116,9 +116,6 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
 
 
 flash_attention.launches = 0
-
-
-_PAGED_COUNT_LOCK = threading.Lock()
 
 
 def _check_paged_args(q, kpool, vpool, table, start, n_tok, window):
@@ -198,8 +195,7 @@ def flash_attention_paged(q, kpool, vpool, table, start: int, n_tok: int, *,
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     out = flash_attention_paged_kernel(q, kpool, vpool, table, start, n_tok,
                                        window=window, scale=scale)
-    with _PAGED_COUNT_LOCK:
-        flash_attention_paged.launches += 1
+    count_launch(flash_attention_paged)
     return out
 
 

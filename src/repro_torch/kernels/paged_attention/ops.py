@@ -23,24 +23,20 @@ and an input that requires one, it raises on every device.
 
 `paged_attention.launches` counts wrapper calls that launched the kernel
 (CUDA tensors only; one per call, both passes together), so a run can show
-that its main path went through the kernel. A call made while a CUDA graph
-is being captured launches nothing then: it counts in `captured_here()`,
-the calling thread's own count of captured calls, and whoever replays the
-graph adds its captured launches with `add_launches` per replay
-(`serve.graph`). Replicas of the gateway step their engines on threads of
-their own, so `.launches` only grows under a lock, and a capture reads
-only its own thread's calls, never another replica's.
+that its main path went through the kernel. It counts through
+`kernels.count_launch`: a call made while a CUDA graph is captured counts
+when the graph is replayed (`serve.graph`), under a lock shared with the
+gateway's replica threads.
 """
 from __future__ import annotations
 
 import functools
 import math
-import threading
 from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import count_launch, refuse_grad
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 KERNELS = ("cuda", "reference")
@@ -50,9 +46,6 @@ DTYPES = (torch.float32, torch.bfloat16)
 # the main shape's alternatives beside this plan)
 TARGET_BLOCKS = 512
 MIN_SPLIT_TOKENS = 64      # a split spans at least this many positions
-
-_COUNT_LOCK = threading.Lock()
-_CAPTURED = threading.local()       # .n: this thread's calls while capturing
 
 
 class SplitPlan(NamedTuple):
@@ -157,23 +150,8 @@ def paged_attention(q, kpool, vpool, table, pos, *, scale=None, window=None,
     out = paged_attention_kernel(q, kpool, vpool, table, pos, scale=scale,
                                  n_splits=plan.n_splits,
                                  pages_per_split=plan.pages_per_split)
-    if torch.cuda.is_current_stream_capturing():
-        _CAPTURED.n = captured_here() + 1
-    else:
-        add_launches(1)
+    count_launch(paged_attention)
     return out
-
-
-def captured_here() -> int:
-    """Calls this thread made while it was capturing a CUDA graph."""
-    return getattr(_CAPTURED, "n", 0)
-
-
-def add_launches(n: int):
-    """Add n launches to `paged_attention.launches` (a graph replay adds its
-    captured calls); safe against other threads counting at once."""
-    with _COUNT_LOCK:
-        paged_attention.launches += n
 
 
 paged_attention.launches = 0

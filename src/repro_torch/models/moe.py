@@ -37,7 +37,16 @@ the caller asks (`want_aux`, training): the reference's serving paths
 discard them and XLA removes that code.
 
 The expert products are `torch.einsum` (batched matrix products), as the
-reference's are `jnp.einsum` outside any Pallas kernel.
+reference's are `jnp.einsum` outside any Pallas kernel. Where no entry of a
+group can be dropped (C >= S: a decode position, a speculative
+verification of k+1 <= C tokens, a prompt no longer than C), the kernel
+takes the experts' shapes and no gradient is taken, the port instead runs
+the routed experts as a grouped product over the live (token, expert)
+entries (`kernels.moe_experts`: the hand-written kernel on CUDA tensors,
+its plain version on CPU ones): the same function, without the (B, E, C,
+d) buffer that is nearly all empty there. Every other case (prefill at
+S > C, training, the chunked step's mixed group, the tensor-parallel
+experts, widths the kernel does not take) runs the buffer path.
 
 On a mesh (`sharding.spmd`) the load-balance loss is the global batch's,
 as the reference's one program over the whole batch computes it: the
@@ -58,6 +67,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.moe_experts import ops as ME
 from repro_torch.models.layers import (ACTIVATIONS, dense_init, init_mlp,
                                       mlp, uniform_init)
 from repro_torch.obs import trace as otrace
@@ -137,11 +147,32 @@ def moe_ffn(params, cfg, x, *, want_aux: bool = False, tp=None,
     return out, aux
 
 
+def grouped(cfg, S: int, tp=None) -> bool:
+    """Whether a group of S tokens runs the grouped experts: no entry can
+    be dropped (a token's K experts are distinct, so an expert receives at
+    most S entries of a group, and C >= S holds them all), the experts are
+    not split over a tensor-parallel axis, and the kernel takes their
+    widths, count, dtype and activation (`moe_experts.takes`; on every
+    device, so the CPU and the card choose alike)."""
+    m = cfg.moe
+    return (tp is None and capacity(cfg, S) >= S
+            and ME.takes(cfg.d_model, m.expert_d_ff, m.n_held,
+                         cfg.activation_dtype, cfg.act))
+
+
+def _takes_grad(params, x) -> bool:
+    return torch.is_grad_enabled() and (x.requires_grad or any(
+        params[k].requires_grad for k in ("router", "w_gate", "w_up",
+                                          "w_down")))
+
+
 def _routed(params, cfg, x, want_aux, tp, batch_groups):
     m = cfg.moe
     B, S, d = x.shape
     E, K, Ep = m.n_experts, m.top_k, m.padded_n_experts
     C = capacity(cfg, S)
+    # the kernel has no backward: a gradient keeps the buffer path
+    keep_all = grouped(cfg, S, tp) and not _takes_grad(params, x)
 
     with otrace.region("moe.route") as rg:
         logits = (x @ params["router"]).float()                  # (B, S, E)
@@ -149,12 +180,14 @@ def _routed(params, cfg, x, want_aux, tp, batch_groups):
         weights = torch.softmax(gate_vals, dim=-1).to(x.dtype)
 
         # --- slots: token-major, k-minor order; past capacity is dropped
+        # (where C >= S no entry is: the grouped path needs no slots)
         flat_e = idx.reshape(B, S * K)
-        onehot = (flat_e[..., None] == torch.arange(Ep, device=x.device)) \
-            .to(torch.int32)                                     # (B, SK, Ep)
-        pos = (torch.cumsum(onehot, dim=1, dtype=torch.int32) * onehot) \
-            .sum(-1) - 1
-        keep = pos < C
+        if not keep_all:
+            onehot = (flat_e[..., None] == torch.arange(Ep, device=x.device)) \
+                .to(torch.int32)                                 # (B, SK, Ep)
+            pos = (torch.cumsum(onehot, dim=1, dtype=torch.int32) * onehot) \
+                .sum(-1) - 1
+            keep = pos < C
 
         # --- aux losses (before the experts, as the reference orders
         # them: a recomputed forward then stops before the experts'
@@ -169,8 +202,11 @@ def _routed(params, cfg, x, want_aux, tp, batch_groups):
                                             batch_groups)
             aux = {"load_balance": E * (me * ce).sum(),
                    "router_z": (torch.logsumexp(logits, dim=-1) ** 2).mean(),
-                   "dropped_frac": 1.0 - keep.float().mean()}
+                   "dropped_frac": logits.new_zeros(()) if keep_all
+                   else 1.0 - keep.float().mean()}
 
+        if keep_all:
+            return _grouped(params, cfg, x, weights, flat_e, m.held, rg), aux
         if tp is None:
             return _experts(params, cfg, x, weights, flat_e, pos, keep,
                             m.held, C, rg), aux
@@ -219,3 +255,23 @@ def _experts(params, cfg, x, weights, flat_e, pos, keep, experts: range, C,
     gathered = torch.where(mine[..., None], gathered, 0)
     return (gathered * weights.reshape(B, SK, 1)).reshape(B, S, K, d) \
         .sum(dim=2)
+
+
+def _grouped(params, cfg, x, weights, flat_e, experts: range, rg):
+    """Dispatch, the `experts` and combine for groups in which every entry
+    is kept: the B*S*K entries ordered by expert (`moe_dispatch`), each
+    held expert run on the rows that chose it (`moe_experts`, y in entry
+    order, zeros for the entries of experts not held), then the buffer
+    path's combine."""
+    B, S, d = x.shape
+    N = flat_e.numel()
+    K = N // (B * S)
+    rg.switch("moe.dispatch")
+    perm, offsets = ME.moe_dispatch(flat_e.reshape(N), experts.start,
+                                    len(experts))
+    rg.switch("moe.experts")
+    y = ME.moe_experts(x.reshape(B * S, d), perm, offsets, params["w_gate"],
+                       params["w_up"], params["w_down"], top_k=K,
+                       act=cfg.act)
+    rg.switch("moe.combine")
+    return (y * weights.reshape(N, 1)).reshape(B, S, K, d).sum(dim=2)

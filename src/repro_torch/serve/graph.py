@@ -30,11 +30,12 @@ unsafe during a capture), and it is begun and ended directly: the
 allocator's cache on entry, neither of which is legal while another
 thread's capture is under way.
 
-Launch counting: the paged-attention wrapper counts a call made during a
-capture in its thread's own `captured_here()`, not in `.launches` (nothing
-runs then). Each replay adds the launches recorded in its capture to
-`paged_attention.launches`, so that counter keeps counting the kernel's
-real launches, whichever threads capture and replay. `captures`,
+Launch counting: a kernel wrapper counts a call made during a capture in
+its thread's own `kernels.captured_here()`, not in `.launches` (nothing
+runs then). Each replay adds the calls recorded in its capture, by
+wrapper, to their `.launches` (`kernels.add_launches`), so those counters
+keep counting the kernels' real launches, whichever threads capture and
+replay. `captures`,
 `replays` and `warmup_runs` count this object's captures, replays and
 eager warm-up runs of the body.
 
@@ -57,7 +58,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch import kernels
 from repro_torch.obs import trace as otrace
 
 # eager runs of the body on a side stream before the capture (cuBLAS
@@ -114,7 +115,7 @@ class FusedDecodeGraph:
         self._out = None
         self._timed_out = None
         self._bound = None
-        self._launches = 0
+        self._launches = {}             # captured calls, by kernel wrapper
         self._regions = []
 
     @staticmethod
@@ -149,7 +150,7 @@ class FusedDecodeGraph:
             timer.replayed(self._regions, a, timer.mark())
             out = self._timed_out
         self.replays += 1
-        pa_ops.add_launches(self._launches)
+        kernels.add_launches(self._launches)
         return (*out, cache)
 
     def _capture(self, params, cache, args):
@@ -173,7 +174,7 @@ class FusedDecodeGraph:
 
         def capture(timed: bool):
             graph = torch.cuda.CUDAGraph()
-            before = pa_ops.captured_here()
+            before = kernels.captured_here()
             with torch.cuda.stream(side), _collector_paused(), \
                     (cap.recording() if timed else contextlib.nullcontext()):
                 graph.capture_begin(capture_error_mode="thread_local")
@@ -183,7 +184,7 @@ class FusedDecodeGraph:
                 finally:
                     graph.capture_end()
             torch.cuda.current_stream(dev).wait_stream(side)
-            return graph, (emitted, lv, st), pa_ops.captured_here() - before
+            return graph, (emitted, lv, st), kernels.captured_since(before)
 
         self._graph, self._out, self._launches = capture(False)
         self._timed, self._timed_out, _ = capture(True)

@@ -120,13 +120,21 @@ def test_reduced_case_runs_on_debug_mesh(debug_mesh, small, arch, shape):
 
 
 def one_rank_flops(cfg, shape, microbatches):
-    """The same step without a mesh, on fake tensors, the global batch."""
+    """The same step without a mesh, on fake tensors, the global batch.
+    Its MoE runs the GShard buffer path, which the tensor-parallel experts
+    split (a decode group on one device would take the grouped experts:
+    `moe.grouped`)."""
+    from unittest import mock
+
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils._pytree import tree_map
     from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import moe
     case = S.make_case(cfg, shape, R.mesh_like((1,), ("data",)),
                        microbatches=microbatches)
-    with FakeTensorMode(allow_non_fake_inputs=True):
+    with FakeTensorMode(allow_non_fake_inputs=True), \
+            mock.patch.object(moe, "grouped", lambda *a, **k: False):
         args = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype)
                         if isinstance(x, torch.Tensor) and x.is_meta else x,
                         case["args"])

@@ -144,7 +144,8 @@ def test_capture_while_another_thread_steps_eagerly(device, model, tracing):
     if tracing:
         assert any(e["name"] == "device.fused" for e in tracer.events())
     assert got["a"] == want_a and got["b"] == want_b
-    assert a._decode_fused._launches == model[1].n_layers * N
+    assert a._decode_fused._launches[pa_ops.paged_attention] == \
+        model[1].n_layers * N
     assert pa_ops.paged_attention.launches == n_a + n_b
 
 
@@ -166,7 +167,8 @@ def test_two_captures_at_once(device, model):
     torch.cuda.synchronize()
     assert got["a"] == want and got["b"] == want
     for eng in (a, b):
-        assert eng._decode_fused._launches == model[1].n_layers * N
+        assert eng._decode_fused._launches[pa_ops.paged_attention] == \
+            model[1].n_layers * N
     assert pa_ops.paged_attention.launches == 2 * n_one
 
 

@@ -2,8 +2,11 @@
 (`serve/graph.py`'s CUDA graph over `build_decode_fused`) captures and
 replays with no host synchronisation anywhere in its body
 (`torch.cuda.set_sync_debug_mode("error")` around the capture and the
-replays), and gives the eager body's tokens and pools; the fused engine
-gives the single-step engine's tokens.
+replays), and gives the eager body's tokens and pools; each replay adds its
+captured launches to the paged-attention and grouped MoE experts counters
+(a decode position's dispatch group keeps every entry, so each layer's MoE
+runs the grouped kernel); the fused engine gives the single-step engine's
+tokens.
 
 Reduced granite-moe-1b-a400m (2 layers, d 256, 4 experts top-2) in f32
 with TF32 off and the port's seeded weights. Skips where torch sees no
@@ -15,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.kernels.moe_experts import ops as me_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import ServeEngine
@@ -79,6 +83,7 @@ def test_fused_moe_decode_captures_and_replays_without_a_sync(device,
     want = _call(body, params, eager_cache, args)
     torch.cuda.synchronize()
     pa_ops.paged_attention.launches = 0
+    me_ops.moe_experts.launches = 0
     torch.cuda.set_sync_debug_mode("error")
     try:
         outs = [_call(graph, params, cache, args) for _ in range(2)]
@@ -94,6 +99,8 @@ def test_fused_moe_decode_captures_and_replays_without_a_sync(device,
             # row 0 is the null page: repeated writes, undefined winner
             assert torch.equal(pa[key][1:], pb[key][1:])
     assert pa_ops.paged_attention.launches == cfg.n_layers * N * (
+        2 + graph.warmup_runs)
+    assert me_ops.moe_experts.launches == cfg.n_layers * N * (
         2 + graph.warmup_runs)
 
 

@@ -136,15 +136,15 @@ def test_launch_count_is_exact_under_threads():
     """The gateway's replica workers count launches from threads of their
     own: `add_launches` from 16 threads at a 1 us switch interval loses
     no update, and no thread sees captured calls it did not make."""
-    from repro_torch.kernels.paged_attention import ops
+    from repro_torch import kernels
     threads, per_thread = 16, 2000
     interval = sys.getswitchinterval()
     seen = []
 
     def work():
         for _ in range(per_thread):
-            ops.add_launches(1)
-        seen.append(ops.captured_here())
+            kernels.add_launches({paged_attention: 1})
+        seen.append(kernels.captured_here())
 
     before = paged_attention.launches
     pool = [threading.Thread(target=work) for _ in range(threads)]
@@ -160,4 +160,4 @@ def test_launch_count_is_exact_under_threads():
         paged_attention.launches = before
     assert not any(t.is_alive() for t in pool)
     assert total == threads * per_thread
-    assert seen == [0] * threads
+    assert seen == [{}] * threads
