@@ -426,10 +426,8 @@ def attention_decode_paged(params, cfg, x, pos, kpool, vpool, table, *,
     Scatter: the new token's k/v land in pool row table[s, pos//bs] at
     offset pos % bs. Slots never share their frontier block (the engine's
     allocator guarantees it via copy-on-write). Inactive slots carry an
-    all-zero table, so they all scatter into the reserved null block 0:
-    those indices repeat, and torch leaves the winner of repeated writes
-    undefined. That is harmless only because every read skips (kernel) or
-    masks (reference) block 0 — keep that invariant.
+    all-zero table, so they all scatter into the reserved null block 0
+    (the null-block invariant, `_chain_mask`).
 
     The attention read is kernel-switched (kernels/paged_attention):
     ``kernel="reference"`` gathers each slot's pages into a dense view;
@@ -474,9 +472,9 @@ def attention_prefill_paged(params, cfg, x, q_pos, n_tok, kpool, vpool,
     of the first token, required on CUDA tensors (reading it from q_pos
     would stall the host on the device) and read from q_pos on CPU
     tensors where not given. Padded
-    positions (index >= n_tok) scatter into null block 0 (repeated
-    indices; see `attention_decode_paged`) and their outputs are garbage
-    the caller ignores. Returns (out, kpool, vpool).
+    positions (index >= n_tok) scatter into null block 0 (`_page_slots`)
+    and their outputs are garbage the caller ignores. Returns (out, kpool,
+    vpool).
 
     The attention read is kernel-switched: ``kernel="cuda"`` is
     `flash_attention_paged` (the hand-written kernel reads the pages in
@@ -499,19 +497,14 @@ def attention_prefill_paged(params, cfg, x, q_pos, n_tok, kpool, vpool,
         start = int(q_pos[0])
     B, S, d = x.shape
     hd, nh = cfg.resolved_head_dim, cfg.n_heads
-    bs = kpool.shape[1]
-    nb = table.shape[0]
     with otrace.region("attn.proj") as rg:
         q, k, v = _project_qkv(params, cfg, x, x)
         if rope and not cfg.nope:
             q = apply_rope(q, q_pos[None, :], cfg.rope_theta)
             k = apply_rope(k, q_pos[None, :], cfg.rope_theta)
+        # pad positions may run past the table (jnp.take fills there)
         real = torch.arange(S, device=x.device) < n_tok
-        # pad positions may run past the table (jnp.take fills there);
-        # they go to block 0 either way
-        page = (q_pos // bs).clamp(max=nb - 1).long()
-        blk = torch.where(real, table[page], 0).long()
-        off = torch.where(real, q_pos % bs, 0).long()
+        blk, off = _page_slots(table, q_pos, real, kpool.shape[1])
         kpool.index_put_((blk, off), k[0])
         vpool.index_put_((blk, off), v[0])
         rg.switch("attn.core")
@@ -529,6 +522,42 @@ def _gather_chain(pool, table):
     return g.reshape(*table.shape[:-1], -1, *pool.shape[2:])
 
 
+def _page_slots(table, q_pos, real, bs):
+    """The pool address (block, offset), both int64, of each absolute
+    position `q_pos` in the chain `table`: page q_pos // bs of the chain,
+    offset q_pos % bs. A 1-D table (nb,) is one slot's chain and `q_pos`
+    any shape; a 2-D table (B, nb) gives row b's chain to q_pos[b] (B,
+    T). Positions where `real` does not hold (pad rows, positions past
+    the chain, each caller's own rule) go to null block 0 at offset 0
+    (the null-block invariant, `_chain_mask`); positions are never
+    negative."""
+    page = (q_pos // bs).clamp(max=table.shape[-1] - 1).long()
+    chain = table[page] if table.dim() == 1 else torch.gather(table, 1, page)
+    blk = torch.where(real, chain, 0).long()
+    return blk, torch.where(real, q_pos % bs, 0).long()
+
+
+def _chain_mask(table, q_pos, bs, window=None):
+    """The mask of a query at absolute position `q_pos` over the dense
+    gather of its chain `table` (`_gather_chain`; shapes as in
+    `_page_slots`): (..., nb * bs), keys causal by absolute position,
+    after q_pos - window where a window is given, and none from a null
+    page.
+
+    The null-block invariant: pool row 0 is the reserved null block. Every
+    write that has no page of its own lands there (an empty or dead
+    slot's all-zero table row, a pad row, a position past its chain), so
+    its indices repeat and torch leaves the winner undefined. That is
+    harmless only because no read takes keys from block 0: this mask
+    drops them, the paged-attention kernel skips them, and its reference
+    masks them. Every reader of the pools keeps that invariant."""
+    kv_pos = torch.arange(table.shape[-1] * bs, device=q_pos.device)
+    mask = kv_pos <= q_pos[..., None]
+    if window is not None:
+        mask &= kv_pos > (q_pos[..., None] - window)
+    return mask & (table != 0).repeat_interleave(bs, dim=-1)[..., None, :]
+
+
 def attention_verify_paged(params, cfg, x, pos, kpool, vpool, table, *,
                            window=None, rope=True):
     """Multi-token batched decode over a paged cache, the speculative-
@@ -541,9 +570,9 @@ def attention_verify_paged(params, cfg, x, pos, kpool, vpool, table, *,
     (B, nb). Returns (out (B, T, d), kpool, vpool), the pools written in
     place. Positions past the table's span (a burst near the request's
     budget) scatter into null block 0, as do dead slots' all-zero rows
-    (repeated indices; see `attention_decode_paged`); their outputs are
-    garbage the caller's acceptance mask never reads. The read is the
-    dense gather, as in the reference: no kernel is owed for it.
+    (`_page_slots`); their outputs are garbage the caller's acceptance
+    mask never reads. The read is the dense gather, as in the reference:
+    no kernel is owed for it.
     """
     B, T, _ = x.shape
     hd, nh = cfg.resolved_head_dim, cfg.n_heads
@@ -555,19 +584,13 @@ def attention_verify_paged(params, cfg, x, pos, kpool, vpool, table, *,
     if rope and not cfg.nope:
         q = apply_rope(q, q_pos, cfg.rope_theta)
         k = apply_rope(k, q_pos, cfg.rope_theta)
-    in_span = q_pos < nb * bs
-    page = (q_pos // bs).clamp(0, nb - 1).long()
-    blk = torch.where(in_span, torch.gather(table, 1, page), 0).long()
-    off = torch.where(in_span, q_pos % bs, 0).long()
+    blk, off = _page_slots(table, q_pos, q_pos < nb * bs, bs)
     kpool.index_put_((blk, off), k)
     vpool.index_put_((blk, off), v)
-    kv_pos = torch.arange(nb * bs, device=x.device)
-    mask = kv_pos[None, None, :] <= q_pos[:, :, None]            # (B, T, Sk)
-    if window is not None:
-        mask &= kv_pos[None, None, :] > (q_pos[:, :, None] - window)
-    mask &= (table != 0).repeat_interleave(bs, dim=1)[:, None, :]  # null pages
     out = _sdpa_xla(q, _gather_chain(kpool, table),
-                    _gather_chain(vpool, table), mask, cfg.attention_scale)
+                    _gather_chain(vpool, table),
+                    _chain_mask(table, q_pos, bs, window),
+                    cfg.attention_scale)
     return out.reshape(B, T, nh * hd) @ params["wo"], kpool, vpool
 
 
@@ -593,8 +616,8 @@ def attention_mixed_paged(params, cfg, x, pos, n_chunk, kpool, vpool, table,
     The decode slots and the chunk slot never share a frontier page (the
     copy-on-write guarantee), so the order of the two row groups' writes
     is irrelevant. Pad chunk rows and masked decode slots (all-zero table
-    rows) scatter into null block 0. Returns (out (1, B + C, d), kpool,
-    vpool), the pools written in place.
+    rows) scatter into null block 0 (`_page_slots`). Returns (out (1, B +
+    C, d), kpool, vpool), the pools written in place.
     """
     from repro_torch.kernels.paged_attention import ops as pa_ops
     R = x.shape[1]
@@ -612,10 +635,9 @@ def attention_mixed_paged(params, cfg, x, pos, n_chunk, kpool, vpool, table,
     dec_blk = torch.gather(table, 1, (pos[:B] // bs).long()[:, None])[:, 0]
     cpos = pos[B:]
     real = (torch.arange(C, device=x.device) < n_chunk) & (cpos < nbc * bs)
-    chk_blk = torch.where(real, ctable[(cpos // bs).clamp(0, nbc - 1).long()],
-                          0)
-    blk = torch.cat([dec_blk, chk_blk]).long()
-    off = torch.cat([pos[:B] % bs, torch.where(real, cpos % bs, 0)]).long()
+    chk_blk, chk_off = _page_slots(ctable, cpos, real, bs)
+    blk = torch.cat([dec_blk.long(), chk_blk])
+    off = torch.cat([(pos[:B] % bs).long(), chk_off])
     kpool.index_put_((blk, off), k)
     vpool.index_put_((blk, off), v)
     # read 1: per-slot decode attention, kernel-switched
@@ -623,13 +645,9 @@ def attention_mixed_paged(params, cfg, x, pos, n_chunk, kpool, vpool, table,
                                      pos[:B], scale=cfg.attention_scale,
                                      window=window, kernel=kernel)
     # read 2: the chunk attends its truncated chain, causal by position
-    kv_pos = torch.arange(nbc * bs, device=x.device)
-    mask = kv_pos[None, :] <= cpos[:, None]
-    if window is not None:
-        mask &= kv_pos[None, :] > (cpos[:, None] - window)
-    mask &= (ctable != 0).repeat_interleave(bs)[None, :]
     out_chk = _sdpa_xla(q[None, B:], _gather_chain(kpool, ctable)[None],
-                        _gather_chain(vpool, ctable)[None], mask[None],
+                        _gather_chain(vpool, ctable)[None],
+                        _chain_mask(ctable, cpos, bs, window)[None],
                         cfg.attention_scale)[0]
     out = torch.cat([out_dec.reshape(B, nh * hd).to(x.dtype),
                      out_chk.reshape(C, nh * hd)])
@@ -647,9 +665,9 @@ def attention_prefill_chunk_paged(params, cfg, x, start, n_tok, kpool, vpool,
     real tokens at absolute positions start..start+n_tok-1, the rest
     right-pad; table: (nb,) this slot's block ids. The chunk's K/V are
     scattered at their absolute offsets (pad rows and any position past
-    the table's span into null block 0), then the chunk attends, causal by
-    absolute position, everything resident below `start` plus itself;
-    null pages never contribute keys. Returns (out (1, S, d), kpool,
+    the table's span into null block 0, `_page_slots`), then the chunk
+    attends, causal by absolute position, everything resident below
+    `start` plus itself (`_chain_mask`). Returns (out (1, S, d), kpool,
     vpool), the pools written in place.
     """
     B, S, _ = x.shape
@@ -662,18 +680,12 @@ def attention_prefill_chunk_paged(params, cfg, x, start, n_tok, kpool, vpool,
         q = apply_rope(q, q_pos[None, :], cfg.rope_theta)
         k = apply_rope(k, q_pos[None, :], cfg.rope_theta)
     real = (torch.arange(S, device=x.device) < n_tok) & (q_pos < nb * bs)
-    page = (q_pos // bs).clamp(0, nb - 1).long()
-    blk = torch.where(real, table[page], 0).long()
-    off = torch.where(real, q_pos % bs, 0).long()
+    blk, off = _page_slots(table, q_pos, real, bs)
     kpool.index_put_((blk, off), k[0])
     vpool.index_put_((blk, off), v[0])
-    kv_pos = torch.arange(nb * bs, device=x.device)
-    mask = kv_pos[None, :] <= q_pos[:, None]             # causal, absolute
-    if window is not None:
-        mask &= kv_pos[None, :] > (q_pos[:, None] - window)
-    mask &= (table != 0).repeat_interleave(bs)[None, :]
     out = _sdpa_xla(q, _gather_chain(kpool, table)[None],
-                    _gather_chain(vpool, table)[None], mask[None],
+                    _gather_chain(vpool, table)[None],
+                    _chain_mask(table, q_pos, bs, window)[None],
                     cfg.attention_scale)
     return out.reshape(B, S, nh * hd) @ params["wo"], kpool, vpool
 

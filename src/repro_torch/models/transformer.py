@@ -659,14 +659,21 @@ def copy_pool_blocks(cache, src_ids, dst_ids):
     return cache
 
 
-def _layer_decode_paged(lp, cfg, x, pos, pool, table, window,
-                        kernel="cuda"):
-    h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
-    att, _, _ = L.attention_decode_paged(
-        lp["attn"], cfg, h, pos, pool["k"], pool["v"], table, window=window,
-        kernel=kernel)
-    x = _res(cfg, x, att)
-    return _ffn_block(lp, cfg, x)[0]
+def _stack_paged(params, cfg, x, cache, attend, ssm=None):
+    """The paged layer stack, one for the five paged entry points: per
+    layer norm1, the mixer (`attend(p, h, pool)` for an attention layer,
+    `ssm(p, h, pool)` for a Mamba2 layer, each returning the mixer's
+    output), its residual add, then `_ffn_block` or `_ssm_tail`; then
+    `_final_logits`. Only the attention read differs between the entry
+    points, so every model setting reaches all five here."""
+    for lp, t, pool in zip(params["layers"], cfg.layer_types(), cache):
+        h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
+        if t == "ssm":
+            x = _ssm_tail(lp, cfg, x, ssm(lp["mamba"], h, pool))[0]
+        else:
+            x = _res(cfg, x, attend(lp["attn"], h, pool))
+            x = _ffn_block(lp, cfg, x)[0]
+    return _final_logits(params, cfg, x)
 
 
 def decode_step_paged(params, cfg, tokens, pos, cache, table, window=None,
@@ -682,25 +689,15 @@ def decode_step_paged(params, cfg, tokens, pos, cache, table, window=None,
     window = cfg.window if window is None else window
     x = _embed(params, cfg, tokens)
     live = (table[:, 0] != 0) if recurrent(cfg) else None
-    for lp, t, pool in zip(params["layers"], cfg.layer_types(), cache):
-        if t == "ssm":
-            h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
-            x = _ssm_tail(lp, cfg, x, M2.mamba2_decode_paged(
-                lp["mamba"], cfg, h, pool, live))[0]
-        else:
-            x = _layer_decode_paged(lp, cfg, x, pos, pool, table, window,
-                                    kernel)
-    return _final_logits(params, cfg, x), cache
 
+    def attend(p, h, pool):
+        return L.attention_decode_paged(p, cfg, h, pos, pool["k"], pool["v"],
+                                        table, window=window,
+                                        kernel=kernel)[0]
 
-def _layer_prefill_paged(lp, cfg, x, q_pos, n_tok, pool, table, window,
-                         kernel, start):
-    h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
-    att, _, _ = L.attention_prefill_paged(
-        lp["attn"], cfg, h, q_pos, n_tok, pool["k"], pool["v"], table,
-        window=window, kernel=kernel, start=start)
-    x = _res(cfg, x, att)
-    return _ffn_block(lp, cfg, x)[0]
+    def ssm(p, h, pool):
+        return M2.mamba2_decode_paged(p, cfg, h, pool, live)
+    return _stack_paged(params, cfg, x, cache, attend, ssm), cache
 
 
 def forward_prefill_paged(params, cfg, tokens, start, n_tok, cache, table,
@@ -730,15 +727,15 @@ def forward_prefill_paged(params, cfg, tokens, start, n_tok, cache, table,
     S = tokens.shape[1]
     x = _embed(params, cfg, tokens)
     q_pos = start + torch.arange(S, dtype=torch.int32, device=x.device)
-    for lp, t, pool in zip(params["layers"], cfg.layer_types(), cache):
-        if t == "ssm":
-            h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
-            x = _ssm_tail(lp, cfg, x, M2.mamba2_prefill_paged(
-                lp["mamba"], cfg, h, pool, slot))[0]
-        else:
-            x = _layer_prefill_paged(lp, cfg, x, q_pos, n_tok, pool, table,
-                                     window, kernel, start)
-    return _final_logits(params, cfg, x), cache
+
+    def attend(p, h, pool):
+        return L.attention_prefill_paged(p, cfg, h, q_pos, n_tok, pool["k"],
+                                         pool["v"], table, window=window,
+                                         kernel=kernel, start=start)[0]
+
+    def ssm(p, h, pool):
+        return M2.mamba2_prefill_paged(p, cfg, h, pool, slot)
+    return _stack_paged(params, cfg, x, cache, attend, ssm), cache
 
 
 def _attention_only(cfg, what: str):
@@ -746,15 +743,6 @@ def _attention_only(cfg, what: str):
         raise ValueError(f"{cfg.arch_id}: {what} runs attention stacks "
                          "only; a stack with recurrent layers has no "
                          "per-position state to verify, chunk or roll back")
-
-
-def _layer_verify_paged(lp, cfg, x, pos, pool, table, window):
-    h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
-    att, _, _ = L.attention_verify_paged(
-        lp["attn"], cfg, h, pos, pool["k"], pool["v"], table, window=window)
-    x = x + att
-    h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
-    return x + _ffn_apply(lp, cfg, h)[0]
 
 
 def verify_step_paged(params, cfg, tokens, pos, cache, table, window=None):
@@ -768,22 +756,12 @@ def verify_step_paged(params, cfg, tokens, pos, cache, table, window=None):
     by every later read."""
     _attention_only(cfg, "the speculative verify")
     window = cfg.window if window is None else window
-    x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
-    for lp, pool in zip(params["layers"], cache):
-        x = _layer_verify_paged(lp, cfg, x, pos, pool, table, window)
-    x = L.apply_rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, x), cache
+    x = _embed(params, cfg, tokens)
 
-
-def _layer_mixed_paged(lp, cfg, x, pos, n_chunk, pool, table, ctable,
-                       window, kernel):
-    h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
-    att, _, _ = L.attention_mixed_paged(
-        lp["attn"], cfg, h, pos, n_chunk, pool["k"], pool["v"], table,
-        ctable, window=window, kernel=kernel)
-    x = x + att
-    h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
-    return x + _ffn_apply(lp, cfg, h)[0]
+    def attend(p, h, pool):
+        return L.attention_verify_paged(p, cfg, h, pos, pool["k"], pool["v"],
+                                        table, window=window)[0]
+    return _stack_paged(params, cfg, x, cache, attend), cache
 
 
 def mixed_step_paged(params, cfg, tokens, pos, n_chunk, cache, table, ctable,
@@ -796,22 +774,13 @@ def mixed_step_paged(params, cfg, tokens, pos, n_chunk, cache, table, ctable,
     cache)."""
     _attention_only(cfg, "the chunked mixed step")
     window = cfg.window if window is None else window
-    x = L.embed(params["embed"], tokens)[None].to(cfg.activation_dtype)
-    for lp, pool in zip(params["layers"], cache):
-        x = _layer_mixed_paged(lp, cfg, x, pos, n_chunk, pool, table, ctable,
-                               window, kernel)
-    x = L.apply_rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, x)[0], cache
+    x = _embed(params, cfg, tokens)[None]
 
-
-def _layer_prefill_chunk_paged(lp, cfg, x, start, n_tok, pool, table, window):
-    h = L.apply_rms_norm(lp["norm1"], x, cfg.norm_eps)
-    att, _, _ = L.attention_prefill_chunk_paged(
-        lp["attn"], cfg, h, start, n_tok, pool["k"], pool["v"], table,
-        window=window)
-    x = x + att
-    h = L.apply_rms_norm(lp["norm2"], x, cfg.norm_eps)
-    return x + _ffn_apply(lp, cfg, h)[0]
+    def attend(p, h, pool):
+        return L.attention_mixed_paged(p, cfg, h, pos, n_chunk, pool["k"],
+                                       pool["v"], table, ctable,
+                                       window=window, kernel=kernel)[0]
+    return _stack_paged(params, cfg, x, cache, attend)[0], cache
 
 
 def prefill_chunk_paged(params, cfg, tokens, start, n_tok, cache, table,
@@ -824,9 +793,10 @@ def prefill_chunk_paged(params, cfg, tokens, start, n_tok, cache, table,
     are meaningful."""
     _attention_only(cfg, "a prefill chunk")
     window = cfg.window if window is None else window
-    x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
-    for lp, pool in zip(params["layers"], cache):
-        x = _layer_prefill_chunk_paged(lp, cfg, x, start, n_tok, pool, table,
-                                       window)
-    x = L.apply_rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, x), cache
+    x = _embed(params, cfg, tokens)
+
+    def attend(p, h, pool):
+        return L.attention_prefill_chunk_paged(p, cfg, h, start, n_tok,
+                                               pool["k"], pool["v"], table,
+                                               window=window)[0]
+    return _stack_paged(params, cfg, x, cache, attend), cache

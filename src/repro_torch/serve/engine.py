@@ -148,10 +148,11 @@ class ServeEngine:
         the decode step; "bulk" runs it in one forward. kv_layout: "dense"
         (private per-slot strips; every ported family; ring caches for
         sliding windows) or "paged" (KV in a pool of `block_size`-token
-        pages with radix prefix reuse; pure-attention decoder archs only;
+        pages with radix prefix reuse; decoders of attention layers, or of
+        attention and Mamba2 layers, `transformer.paged_supported`;
         window must be None; pool_blocks sizes the pool, by default 2x the
         slots' worth of pages + the null block, so retired prefixes stay
-        cached). decode_kernel picks the paged reads (decode and bulk
+        cached; one slots' worth with Mamba2 layers). decode_kernel picks the paged reads (decode and bulk
         prefill), "cuda" (the default there) or "reference"; the dense
         layout takes "reference" (its default) only, as the reference
         does. fused_tokens (> 1),

@@ -15,6 +15,8 @@ excluded (repeated writes, undefined winner in torch). The builders'
 integer outputs (tokens, live flags, budgets, the packed spec output) must
 be equal.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -221,16 +223,27 @@ def test_mixed_step_paged(model, kernel):
     _close_caches(tcache, jcache, tcfg.n_layers)
 
 
-def test_mixed_step_matches_chunk_oracle_and_decode(model):
+# granite-4.0-h-small's multipliers, which the reference lacks: the paged
+# forwards must compute one model under the port's settings too
+GRANITE = dict(embedding_multiplier=12.0, attention_multiplier=0.0078125,
+               residual_multiplier=0.22, logits_scaling=16.0)
+SETTINGS = pytest.mark.parametrize("settings", [{}, GRANITE],
+                                   ids=["default", "granite-multipliers"])
+
+
+@SETTINGS
+def test_mixed_step_matches_chunk_oracle_and_decode(model, settings):
     """In the port alone: the mixed step's chunk rows and pool equal the
     chunk-only oracle (`prefill_chunk_paged`), and its decode rows equal
     `decode_step_paged` over the same pools (the reference's
-    test_scheduler.py pins the same pair)."""
+    test_scheduler.py pins the same pair), at the default settings and
+    at Granite's multipliers."""
     _, tcfg, _, tp = model
+    tcfg = dataclasses.replace(tcfg, **settings)
     rng = np.random.default_rng(16)
     _, mixed_cache = _caches(rng, tcfg, 12)
     split_cache = [{k: t.clone() for k, t in p.items()} for p in mixed_cache]
-    table = torch.as_tensor(TABLE)
+    table = torch.tensor(TABLE)
     table[2] = 0
     ctable = torch.as_tensor(np.array([6, 9], np.int32))
     dtok = torch.as_tensor(rng.integers(0, tcfg.vocab_size, (3, 1))
@@ -249,6 +262,29 @@ def test_mixed_step_matches_chunk_oracle_and_decode(model):
     for m, s in zip(mixed_cache, split_cache):
         for key in ("k", "v"):
             _close(m[key][1:], s[key][1:], 1e-5)
+
+
+@SETTINGS
+def test_verify_step_at_one_token_matches_decode(model, settings):
+    """In the port alone: the verify forward of one token per slot equals
+    `decode_step_paged` on the live slots, logits and pools, at the
+    default settings and at Granite's multipliers."""
+    _, tcfg, _, tp = model
+    tcfg = dataclasses.replace(tcfg, **settings)
+    rng = np.random.default_rng(17)
+    _, verify_cache = _caches(rng, tcfg, 12)
+    decode_cache = [{k: t.clone() for k, t in p.items()}
+                    for p in verify_cache]
+    table = torch.tensor(TABLE)
+    toks = torch.as_tensor(rng.integers(0, tcfg.vocab_size, (3, 1))
+                           .astype(np.int32))
+    pos = torch.tensor([9, 0, 6], dtype=torch.int32)
+    vl, _ = TT.verify_step_paged(tp, tcfg, toks, pos, verify_cache, table)
+    dl, _ = TT.decode_step_paged(tp, tcfg, toks, pos, decode_cache, table)
+    _close(vl[LIVE], dl[LIVE], 1e-5)
+    for a, b in zip(verify_cache, decode_cache):
+        for key in ("k", "v"):
+            _close(a[key][1:], b[key][1:], 1e-5)
 
 
 # --------------------------------------------------------------- builders
