@@ -402,6 +402,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    with the dispatch, beside the bound (the held experts' three matrices
    once / 3.35 TB/s) and the plain version. Runs after phase 12;
    `tools/probe_moe_experts.py` runs it alone.
+39. The Mamba2 decode state step kernel (csrc/mamba_state.cu: each live
+   slot's f32 state read once and written once in place, y = C h' in the
+   same pass) against its plain version (MAMBA_STATE_CASES): docqa's
+   decode step, granite-4.0-h-small's 128 heads of 64 x 128 over 64 slots
+   with x, B and C bf16 views of the conv output laid out slot-minor, as
+   the served decode's einsum gives it, every slot live and every other
+   slot dead, and every slot live with a row-major conv output. h' within
+   1e-6 of its largest value and y within 1e-5 of the row's sum of |C h'|
+   (the card test's tolerances), a dead slot's state bit for bit and its
+   y zero; a graph of the timed calls captures one launch a call
+   (`mamba_state.launches` counts through `kernels.count_launch`). Timed
+   on the card alone (a CUDA graph) beside the bound (each live slot's
+   state read and written once, x, B, C and dt read once / 3.35 TB/s)
+   and the plain version (three passes over the whole state). Runs after
+   phase 38; `tools/probe_mamba_state.py` runs it alone.
+40. granite-4.0-h-small at full width and depth (36 Mamba2 and 4 NoPE
+   attention layers; HYBRID_HELD = 4 of its 72 experts held, which no
+   count reads), bf16, "pallas", served on the paged layout with fused
+   decode graphs of FUSED_TOKENS steps, as the benchmark's docqa cell
+   serves it: phase 15's requests through `serve_variant`, whose counted
+   run requires mamba_state == 36 x the decode steps (fused_tokens x
+   (graph replays + warm-up runs) + single dispatches), paged_attention
+   == 4 x the same, ssd_scan == 36 and flash_attention_paged == 4 x the
+   bulk prefills, moe_experts == 40 x the decode steps, nothing else.
+   Every other serving phase (3, 9, 10, 13, 15-17, 24-25) requires
+   mamba_state == 0: none runs a Mamba2 layer on the paged layout. Runs
+   after phase 39.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; above it
 stand the card's name and power limit and one JSON line with each
@@ -867,6 +894,128 @@ def moe_experts_phase(device) -> list:
     return out
 
 
+# phase 39: (name, slots, heads, head dim, d_state, groups, live slots
+# every `stride`, dtype of x, B and C, the conv output slot-minor)
+MAMBA_STATE_CASES = [
+    ("granite-4.0-h-small decode", 64, 128, 64, 128, 1, 1, torch.bfloat16,
+     True),
+    ("granite-4.0-h-small decode, half dead", 64, 128, 64, 128, 1, 2,
+     torch.bfloat16, True),
+    ("granite-4.0-h-small decode, row-major", 64, 128, 64, 128, 1, 1,
+     torch.bfloat16, False)]
+MAMBA_STATE_TOL = {"h": 1e-6, "y": 1e-5}
+
+
+def mamba_state_phase(device) -> list:
+    """Phase 39: the check and the timings of each of MAMBA_STATE_CASES."""
+    from repro_torch import kernels
+    from repro_torch.kernels.mamba_state.ops import mamba_state
+    from repro_torch.kernels.mamba_state.ref import mamba_state_ref
+    out = []
+    for name, b, h, p, n, g, stride, dtype, minor in MAMBA_STATE_CASES:
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        di, gn = h * p, g * n
+        xBC = torch.randn((di + 2 * gn, b), generator=gen,
+                          device=device).t() if minor else \
+            torch.randn((b, di + 2 * gn), generator=gen, device=device)
+        xBC = xBC.to(dtype, memory_format=torch.preserve_format)
+        x = xBC[:, :di].reshape(b, h, p)
+        B = xBC[:, di:di + gn].view(b, g, n)
+        C = xBC[:, di + gn:].view(b, g, n)
+        ssm = torch.randn((b, h, p, n), generator=gen, device=device)
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, h), generator=gen, device=device) - 2.0)
+        A = -torch.exp(torch.randn((h,), generator=gen, device=device))
+        live = torch.arange(b, device=device) % stride == 0
+        before, want = ssm.clone(), ssm.clone()
+        want_y = mamba_state_ref(want, x, dt, A, B, C, live)
+        y = mamba_state(ssm, x, dt, A, B, C, live)
+        Ch = C.float().repeat_interleave(h // g, dim=1)
+        scale = torch.einsum("bhpn,bhn->bhp", want.abs(), Ch.abs())
+        errs = {"h": float((ssm[live] - want[live]).abs().max()
+                           / want[live].abs().max()),
+                "y": float(((y[live] - want_y[live]).abs()
+                            / scale[live]).max())}
+        if any(errs[k] > MAMBA_STATE_TOL[k] for k in errs) or \
+                not torch.equal(ssm[~live], before[~live]) or \
+                bool(y[~live].any()):
+            raise AssertionError(f"mamba_state {name}: errors {errs} "
+                                 f"against {MAMBA_STATE_TOL}, or a dead "
+                                 "slot's state or y touched")
+
+        def kernel():
+            return mamba_state(ssm, x, dt, A, B, C, live)
+
+        def plain():
+            return mamba_state_ref(ssm, x, dt, A, B, C, live)
+        captured = kernels.captured_here()
+        card_ms = time_graph(kernel, iters=20)
+        if kernels.captured_since(captured) != {mamba_state: 20}:
+            raise AssertionError(f"mamba_state {name}: the graph of 20 "
+                                 "calls captured "
+                                 f"{kernels.captured_since(captured)}")
+        n_live = int(live.sum())
+        bytes_ = n_live * (2 * h * p * n * 4
+                           + (di + 2 * gn) * xBC.element_size() + h * 4)
+        t = {"name": name, "slots": b, "live": n_live, **errs,
+             "ms": time_cuda(kernel, iters=50, warmup=5), "card_ms": card_ms,
+             "plain_ms": time_cuda(plain, iters=5, warmup=1),
+             "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3, "bytes": bytes_}
+        log(f"  mamba_state {name} ({n_live} of {b} slots live, {h} heads "
+            f"of {p} x {n}, g {g}): h' rel err {errs['h']:.3g}, y "
+            f"{errs['y']:.3g} (limits {MAMBA_STATE_TOL}); {t['ms']:.4f} ms "
+            f"a call, {card_ms:.4f} on the card, bound {t['bound_ms']:.4f} "
+            f"({100 * t['bound_ms'] / card_ms:.1f}% of it), plain "
+            f"{t['plain_ms']:.4f}")
+        out.append(t)
+        del ssm, before, want
+        torch.cuda.empty_cache()
+    return out
+
+
+HYBRID_HELD = 4          # phase 40: granite-4.0-h-small's experts held
+
+
+def hybrid_config(dtype: str):
+    """granite-4.0-h-small at full width and depth under "pallas", with
+    HYBRID_HELD of its 72 experts held (the router still scores all 72;
+    the launch counts read none of the experts' widths)."""
+    import dataclasses
+    from repro_torch.configs import get
+    full = get("granite-4.0-h-small")
+    return full.replace(dtype=dtype, param_dtype=dtype,
+                        attention_impl="pallas",
+                        moe=dataclasses.replace(full.moe,
+                                                held_experts=HYBRID_HELD))
+
+
+def hybrid_phase(device) -> dict:
+    """Phase 40: granite-4.0-h-small served on the paged layout with fused
+    decode graphs (the path of the benchmark's docqa cell), bf16; the
+    counted run's every kernel checked by `serve_variant`."""
+    cfg = hybrid_config("bfloat16")
+    params = make_model(cfg, device)
+    types = cfg.layer_types()
+    log(f"  {numel(params) / 1e9:.3f} B parameters; {types.count('ssm')} "
+        f"Mamba2 and {types.count('attn')} attention layers, "
+        f"{HYBRID_HELD} of {cfg.moe.n_experts} experts held")
+    eng = make_variant(params, cfg, device, fused_tokens=FUSED_TOKENS)
+    fused = serve_variant(eng, make_requests(cfg))
+    log_variant(fused)
+    if fused["replays"] < 1:
+        raise AssertionError("granite-4.0-h-small: no fused dispatch "
+                             "replayed a graph")
+    log(f"  mamba_state launches {fused['mamba_launches']} (= "
+        f"{types.count('ssm')} Mamba2 layers x decode steps), ssd_scan "
+        f"{fused['ssd_launches']} (x bulk prefills), moe_experts "
+        f"{fused['moe_launches']}")
+    del eng, params
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return fused
+
+
 def time_cuda(fn, iters=200, warmup=20) -> float:
     """Mean ms per call from CUDA events around `iters` calls."""
     for _ in range(warmup):
@@ -1224,6 +1373,7 @@ def serve(engine, requests) -> dict:
         fn.launches = 0
     zero_paged_prefills()
     zero_moe_launches()
+    zero_mamba_launches()
     t0 = time.perf_counter()
     engine.run()
     wall = time.perf_counter() - t0
@@ -1248,13 +1398,14 @@ def serve(engine, requests) -> dict:
                              f"layers x {decode.n} decode dispatches")
     prefill_launches = check_paged_prefills(cfg, prefill.n, "phase 3")
     moe = check_moe_launches(cfg, decode.n, "phase 3")
+    mamba = check_mamba_launches(engine, decode.n, "phase 3")
     m = engine.cache_metrics
     if m.hits < 1 or m.cow_copies < 1:
         raise AssertionError(f"radix reuse did not run: {m.as_dict()}")
     decode_tokens = sum(len(r.output) - 1 for r in reqs)
     return {"requests": len(reqs), "launches": launches,
             "prefill_launches": prefill_launches, "moe_launches": moe,
-            "decode_dispatches": decode.n,
+            "mamba_launches": mamba, "decode_dispatches": decode.n,
             "decode_step_ms_mean": decode.total / decode.n,
             "decode_step_ms_p50": decode.percentile(50),
             "prefill_ms_mean": prefill.total / prefill.n,
@@ -1405,11 +1556,12 @@ def check_paged_prefills(cfg, prefills: int, what: str):
     per attention layer per bulk prefill (its own counter, apart from
     `counters()`, whose checks stay as they were)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_paged
-    n = flash_attention_paged.launches
-    if n != cfg.n_layers * prefills:
+    n, n_attn = flash_attention_paged.launches, \
+        cfg.layer_types().count("attn")
+    if n != n_attn * prefills:
         raise AssertionError(f"{what}: flash_attention_paged launched {n}, "
-                             f"expected {cfg.n_layers} layers x {prefills} "
-                             "bulk prefills")
+                             f"expected {n_attn} attention layers x "
+                             f"{prefills} bulk prefills")
     return n
 
 
@@ -1452,6 +1604,39 @@ def check_moe_launches(cfg, steps: int, what: str) -> int:
     return n
 
 
+def mamba_launches() -> int:
+    """The Mamba2 decode state step kernel's launch count (its own
+    counter, apart from `counters()`, whose checks stay as they were)."""
+    from repro_torch.kernels.mamba_state.ops import mamba_state
+    return mamba_state.launches
+
+
+def zero_mamba_launches():
+    from repro_torch.kernels.mamba_state.ops import mamba_state
+    mamba_state.launches = 0
+
+
+def mamba_want(engine, steps: int) -> int:
+    """The Mamba2 decode state step kernel launches once per Mamba2 layer
+    per decode step of the paged layout under "pallas"
+    (`models.mamba2.mamba2_decode_paged`), and never on the dense layout
+    (`mamba2_decode`), in a prefill or in a model with no Mamba2 layer."""
+    cfg = engine.cfg
+    paged = engine.kv_layout == "paged" and cfg.attention_impl == "pallas"
+    return cfg.layer_types().count("ssm") * steps if paged else 0
+
+
+def check_mamba_launches(engine, steps: int, what: str) -> int:
+    """The kernel's launches since `zero_mamba_launches()` are
+    `mamba_want`'s."""
+    n, want = mamba_launches(), mamba_want(engine, steps)
+    if n != want:
+        raise AssertionError(f"{what}: mamba_state launched {n}, expected "
+                             f"{want} (the paged decode's Mamba2 layers x "
+                             f"{steps} decode steps)")
+    return n
+
+
 @contextlib.contextmanager
 def moe_buffer_path():
     """Every MoE group on the GShard buffer path (`models.moe.grouped`
@@ -1486,6 +1671,7 @@ def serve_dense(engine, requests, per_prefill: dict) -> dict:
         for route in getattr(fn, "route_launches", {}):
             fn.route_launches[route] = 0
     zero_moe_launches()
+    zero_mamba_launches()
     t0 = time.perf_counter()
     engine.run()
     torch.cuda.synchronize()
@@ -1511,9 +1697,11 @@ def serve_dense(engine, requests, per_prefill: dict) -> dict:
                                  f"{per_prefill.get(name, 0)} x "
                                  f"{prefill.n} bulk prefills = {want}")
     moe = check_moe_launches(cfg, decode.n, "dense run")
+    mamba = check_mamba_launches(engine, decode.n, "dense run")
     decode_tokens = sum(len(r.output) - 1 for r in reqs)
     return {"requests": len(reqs), "launches": launches,
-            "moe_launches": moe, "route_launches": routes,
+            "moe_launches": moe, "mamba_launches": mamba,
+            "route_launches": routes,
             "prefills": prefill.n, "decode_dispatches": decode.n,
             "prefill_ms_mean": prefill.total / prefill.n,
             "prefill_ms_max": prefill.vmax,
@@ -1721,12 +1909,15 @@ def make_variant(params, cfg, device, warm=True, **kw):
 
 
 def serve_variant(engine, requests) -> dict:
-    """Phases 15-17's counted run: every launch count set to 0 just before
-    and read just after. The paged kernel must have launched n_layers x
-    (fused_tokens x (fused graph replays + its eager warm-up runs) +
-    single-token dispatches + mixed dispatches) times, exactly (a replay
-    adds the launches its capture recorded; the verify forward has none);
-    no other kernel at all. Outputs are checked as in phase 3."""
+    """Phases 15-17, 24-25 and 40's counted run: every launch count set to
+    0 just before and read just after. The paged kernel must have launched
+    the attention layers x (fused_tokens x (fused graph replays + its eager
+    warm-up runs) + single-token dispatches + mixed dispatches) times,
+    exactly (a replay adds the launches its capture recorded; the verify
+    forward has none), the Mamba2 state step kernel the Mamba2 layers x
+    the same decode steps (`mamba_want`), the SSD scan the Mamba2 layers x
+    the bulk prefills under "pallas"; no other kernel at all. Outputs are
+    checked as in phase 3."""
     reqs = [engine.submit(p, max_new_tokens=n, sampling=s)
             for p, s, n in requests]
     fns = counters()
@@ -1740,6 +1931,7 @@ def serve_variant(engine, requests) -> dict:
         fn.launches = 0
     zero_paged_prefills()
     zero_moe_launches()
+    zero_mamba_launches()
     t0 = time.perf_counter()
     engine.run()
     sync(engine)
@@ -1759,24 +1951,32 @@ def serve_variant(engine, requests) -> dict:
     if replays != kinds.get("fused", 0):
         raise AssertionError(f"{kinds.get('fused', 0)} fused dispatches, "
                              f"{replays} graph replays")
-    want = cfg.n_layers * (engine.fused_tokens * (replays + warmups)
-                           + kinds.get("decode", 0) + kinds.get("mixed", 0))
+    types = cfg.layer_types()
+    n_attn, n_ssm = types.count("attn"), types.count("ssm")
+    want = {k: 0 for k in fns}
+    want["paged_attention"] = n_attn * (
+        engine.fused_tokens * (replays + warmups) + kinds.get("decode", 0)
+        + kinds.get("mixed", 0))
+    if cfg.attention_impl == "pallas":
+        want["ssd_scan"] = n_ssm * kinds.get("prefill", 0)
     launches = {k: fn.launches for k, fn in fns.items()}
-    if launches["paged_attention"] != want or any(
-            n for k, n in launches.items() if k != "paged_attention"):
+    if launches != want:
         raise AssertionError(
-            f"launches {launches}, expected paged_attention {want} = "
-            f"{cfg.n_layers} x ({engine.fused_tokens} x ({replays} replays "
-            f"+ {warmups} warm-up runs) + {kinds.get('decode', 0)} single "
-            f"+ {kinds.get('mixed', 0)} mixed dispatches)")
+            f"launches {launches}, expected {want}: paged_attention = "
+            f"{n_attn} attention layers x ({engine.fused_tokens} x "
+            f"({replays} replays + {warmups} warm-up runs) + "
+            f"{kinds.get('decode', 0)} single + {kinds.get('mixed', 0)} "
+            f"mixed dispatches), ssd_scan = {n_ssm} Mamba2 layers x "
+            f"{kinds.get('prefill', 0)} bulk prefills")
     check_paged_prefills(cfg, kinds.get("prefill", 0), "variant run")
-    moe = check_moe_launches(
-        cfg, engine.fused_tokens * (replays + warmups)
-        + kinds.get("decode", 0), "variant run")
+    steps = engine.fused_tokens * (replays + warmups) \
+        + kinds.get("decode", 0)
+    moe = check_moe_launches(cfg, steps, "variant run")
+    mamba = check_mamba_launches(engine, steps, "variant run")
     times = {k: h.total / h.n for k, h in engine.step_times.items()}
     return {"requests": len(reqs), "launches": launches["paged_attention"],
-            "moe_launches": moe,
-            "dispatches": kinds, "replays": replays, "warmups": warmups,
+            "moe_launches": moe, "mamba_launches": mamba,
+            "ssd_launches": launches["ssd_scan"], "dispatches": kinds, "replays": replays, "warmups": warmups,
             "step_ms_mean": times, "wall_s": wall,
             "tokens_per_s": sum(len(r.output) for r in reqs) / wall,
             "outputs": [r.output for r in reqs],
@@ -4337,6 +4537,12 @@ def main(device: str = "cuda") -> int:
     log("[38] grouped MoE experts kernel against its plain version, and "
         "its timings")
     moe_t = moe_experts_phase(device)
+    log("[39] Mamba2 decode state step kernel against its plain version, "
+        "and its timings")
+    mamba_t = mamba_state_phase(device)
+    log(f"[40] serving granite-4.0-h-small at full width and depth, bf16, "
+        f"paged, fused_tokens={FUSED_TOKENS}")
+    hybrid = hybrid_phase(device)
 
     log("[3] serving qwen3-1.7b at full width, bf16")
     cfg = full_config("bfloat16")
@@ -4838,6 +5044,13 @@ def main(device: str = "cuda") -> int:
         "max_rel_err": {dt: max(t["err"] for t in moe_t if t["dtype"] == dt)
                         for dt in ("bfloat16", "float32")},
         "by_shape": moe_t,
+    }, {
+        "name": "mamba_state", "route": "cuda",
+        "source": "src/repro_torch/csrc/mamba_state.cu",
+        "replaces": None, "launches": hybrid["mamba_launches"],
+        "launches_by_path": {
+            "granite_4_0_h_small_fused": hybrid["mamba_launches"]},
+        "by_shape": mamba_t,
     }]
     log(f"kernels: paged_attention launches={served['launches']} "
         f"(decode dispatches {served['decode_dispatches']} x "
@@ -4888,6 +5101,12 @@ def main(device: str = "cuda") -> int:
     log(f"kernels: moe_experts launches={kernels[4]['launches']} (by path "
         f"{moe_paths}; the layers x the decode steps of each); widest row "
         f"rel err {kernels[4]['max_rel_err']}")
+    log(f"kernels: mamba_state (port only, the paged decode's state step) "
+        f"launches={hybrid['mamba_launches']} (granite-4.0-h-small fused, "
+        f"its Mamba2 layers x the decode steps; 0 on every other path); "
+        + "; ".join(f"{t['name']}: {t['card_ms']:.4f} ms on the card, "
+                    f"bound {t['bound_ms']:.4f}, plain {t['plain_ms']:.4f}"
+                    for t in mamba_t))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

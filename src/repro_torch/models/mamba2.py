@@ -23,7 +23,8 @@ layout (`rank_state`, `whole_state`).
 On the paged layout (`transformer.init_paged_cache`) each slot's state is
 a row of {"ssm", "conv"} tensors allocated once with the KV pools:
 `mamba2_prefill_paged` writes a prompt's final state into its slot's row
-and `mamba2_decode_paged` steps the live rows in place, with no fresh
+and `mamba2_decode_paged` steps the live rows in place (under "pallas" the
+hand-written state-step kernel, `kernels/mamba_state`), with no fresh
 state tensor, so the fused decode's CUDA graph holds the state's
 addresses as it holds the pools'. Device regions (`obs.trace`):
 "mamba.proj" (in_proj and the conv), "mamba.scan" (a full sequence's
@@ -37,6 +38,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.mamba_state import ops as ms_ops
+from repro_torch.kernels.mamba_state.ref import mamba_state_ref
 from repro_torch.models.layers import dense_init, rms_norm
 from repro_torch.obs import trace as otrace
 from repro_torch.sharding import tp as TP
@@ -376,11 +379,16 @@ def mamba2_decode_paged(params, cfg, u, state, live):
     (B,) bool holds; the other rows' state is left as it is (a dead or
     empty slot's output is garbage its caller ignores). The arithmetic is
     `mamba2_decode`'s: h <- exp(dt A) h + (dt x) B^T, y = C h + D x, the
-    gated norm and out_proj. Returns the block's output (B, 1, d)."""
+    gated norm and out_proj. The state step is kernel-switched as the
+    prefill's scan is: with ``cfg.attention_impl == "pallas"``
+    `kernels/mamba_state` (on CUDA tensors the kernel, one pass over each
+    live row's state, which refuses a width it does not take; on CPU
+    tensors its plain version), otherwise the plain version,
+    `mamba_state_ref`. Returns the block's output (B, 1, d)."""
     s = cfg.ssm
     B_, _, d = u.shape
     di, nh, g, n = s.d_inner(d), s.n_heads(d), s.n_groups, s.d_state
-    gn, rep = g * n, nh // g
+    gn = g * n
     ssm, conv = state["ssm"], state["conv"]
     with otrace.region("mamba.proj") as rg:
         z, xBC_raw, dt = torch.split(u @ params["in_proj"],
@@ -392,21 +400,15 @@ def mamba2_decode_paged(params, cfg, u, state, live):
         conv.copy_(torch.where(live[:, None, None], conv_buf[:, 1:], conv))
         x, Bm, Cm = torch.split(xBC, [di, gn, gn], dim=-1)
         x = x.reshape(B_, nh, s.head_dim)
+        Bm, Cm = Bm.view(B_, g, n), Cm.view(B_, g, n)
         dtv = F.softplus(dt[:, 0].float() + params["dt_bias"][None, :])
         A = -torch.exp(params["A_log"])
-        on = live[:, None]
-        decay = torch.where(on, torch.exp(dtv * A[None, :]), 1.0)   # (B, h)
-        xdt = torch.where(on[..., None], dtv[..., None] * x, 0.0)   # (B,h,p)
-        # heads grouped as (g, rep) so B and C broadcast over a group's
-        # heads: no per-head copies of them
-        h5 = ssm.view(B_, g, rep, s.head_dim, n)
-        ssm.mul_(decay[:, :, None, None])
-        h5.addcmul_(xdt.view(B_, g, rep, s.head_dim, 1),
-                    Bm.float().view(B_, g, 1, 1, n))
-        y = torch.einsum("bgrpn,bgn->bgrp", h5, Cm.float().view(B_, g, n))
+        if cfg.attention_impl == "pallas":
+            y = ms_ops.mamba_state(ssm, x, dtv, A, Bm, Cm, live)
+        else:
+            y = mamba_state_ref(ssm, x, dtv, A, Bm, Cm, live)
         rg.switch("mamba.out")
-        y = y.reshape(B_, nh, s.head_dim).to(x.dtype) \
-            + x * params["D"][None, :, None]
+        y = y.to(x.dtype) + x * params["D"][None, :, None]
         y = rms_norm(y.reshape(B_, 1, di) * F.silu(z), params["norm_scale"],
                      cfg.norm_eps)
         return y @ params["out_proj"]
